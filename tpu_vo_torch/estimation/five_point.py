@@ -1,0 +1,338 @@
+"""Nister 5-point minimal essential-matrix solver in structure-of-arrays
+form (port of tpu_vo/estimation/five_point.py,
+`five_point_candidates_batched` and its `_soa_*` helpers).
+
+Every intermediate carries the sample axis last, (..., small, n):
+
+  1. 4-dim nullspace of the 5x9 epipolar system by 5 unrolled
+     Householder reflections;
+  2. the 10 cubic constraints as a (10, 20) coefficient matrix, built
+     with static monomial multiplication tables;
+  3. Gauss-Jordan elimination with partial pivoting, then the degree-10
+     hidden-variable determinant in z;
+  4. its roots by Aberth-Ehrlich simultaneous iteration in complex64 (a
+     Python loop over the whole (pairs x samples) batch) plus Newton
+     polish on the real axis;
+  5. back-substitution of (x, y) from the null vector of B(z): up to 10
+     Frobenius-normalized candidates per sample with a validity mask.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+# Copied from tpu_vo/estimation/five_point.py: monomial bases in Nister's
+# ordering and their multiplication tables.
+_DEG1 = [(1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 0, 0)]  # x, y, z, 1
+_DEG2 = [
+    (2, 0, 0), (1, 1, 0), (0, 2, 0), (1, 0, 1), (0, 1, 1),
+    (0, 0, 2), (1, 0, 0), (0, 1, 0), (0, 0, 1), (0, 0, 0),
+]
+_DEG3 = [
+    (3, 0, 0), (2, 1, 0), (1, 2, 0), (0, 3, 0), (2, 0, 1),
+    (1, 1, 1), (0, 2, 1), (2, 0, 0), (1, 1, 0), (0, 2, 0),
+    (1, 0, 2), (1, 0, 1), (1, 0, 0), (0, 1, 2), (0, 1, 1),
+    (0, 1, 0), (0, 0, 3), (0, 0, 2), (0, 0, 1), (0, 0, 0),
+]
+
+
+def _mul_table(basis_a, basis_b, basis_out):
+    idx = {m: i for i, m in enumerate(basis_out)}
+    T = np.zeros((len(basis_a), len(basis_b), len(basis_out)), dtype=np.float32)
+    for i, a in enumerate(basis_a):
+        for j, b in enumerate(basis_b):
+            m = (a[0] + b[0], a[1] + b[1], a[2] + b[2])
+            T[i, j, idx[m]] = 1.0
+    return T
+
+
+_T11 = _mul_table(_DEG1, _DEG1, _DEG2)  # (4, 4, 10)
+_T21 = _mul_table(_DEG2, _DEG1, _DEG3)  # (10, 4, 20)
+
+
+# The 0/1 tables and index lists below are built and copied to the device
+# once per (dtype, device): a copy from pageable host memory waits for
+# the stream to drain.
+@functools.lru_cache(maxsize=None)
+def _table(key, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(s, t) 0/1 selection table: "t11" and "t21" are the multiplication
+    tables flattened to (a*b, t); ("conv", lp, lq) is the full
+    convolution of lengths lp and lq."""
+    if key == "t11":
+        S = _T11.reshape(16, 10)
+    elif key == "t21":
+        S = _T21.reshape(40, 20)
+    else:
+        _, lp, lq = key
+        S = np.zeros((lp * lq, lp + lq - 1), dtype=np.float32)
+        for i in range(lp):
+            for j in range(lq):
+                S[i * lq + j, i + j] = 1.0
+    return torch.as_tensor(S, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _minor_index(device: torch.device):
+    """Rows (i, j) of the three 2x2 minors taken in _soa_action_det."""
+    return (torch.tensor([1, 0, 0], device=device),
+            torch.tensor([2, 2, 1], device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _start_ring(deg: int, cdtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(deg, 1) unit-circle starting points of the Aberth iteration."""
+    angles = 2.0 * np.pi * np.arange(deg) / deg + 0.7
+    return torch.as_tensor(np.exp(1j * angles), device=device).to(cdtype)[:, None]
+
+
+def _select(key, P: torch.Tensor) -> torch.Tensor:
+    """einsum("st,...sn->...tn") with the static 0/1 table `key`."""
+    return torch.matmul(_table(key, P.dtype, P.device).transpose(0, 1), P)
+
+
+def _soa_nullspace(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """x1/x2 (..., n, 5, 2) -> nullspace basis (..., 4, 9, n)."""
+    dtype, dev = x1.dtype, x1.device
+    u1 = x1[..., 0].transpose(-1, -2)          # (..., 5, n)
+    v1 = x1[..., 1].transpose(-1, -2)
+    u2 = x2[..., 0].transpose(-1, -2)
+    v2 = x2[..., 1].transpose(-1, -2)
+    M = torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1,
+                     torch.ones_like(u1)], dim=-3)      # (..., 9, 5, n)
+    rows9 = torch.arange(9, device=dev)[:, None]
+
+    vs = []
+    for k in range(5):
+        x = torch.where(rows9 >= k, M[..., :, k, :], torch.zeros((), dtype=dtype, device=dev))
+        nrm = torch.sqrt((x * x).sum(-2))
+        sign = torch.where(x[..., k, :] >= 0, 1.0, -1.0).to(dtype)
+        v = x + (sign * nrm)[..., None, :] * (rows9 == k).to(dtype)
+        vnorm2 = torch.clamp((v * v).sum(-2), min=1e-30)
+        vM = (v[..., :, None, :] * M).sum(-3)          # (..., 5, n)
+        M = M - (2.0 / vnorm2)[..., None, None, :] * v[..., :, None, :] \
+            * vM[..., None, :, :]
+        vs.append((v, vnorm2))
+
+    B = (rows9[:, :, None] == torch.arange(5, 9, device=dev)[None, :, None]).to(dtype)
+    for v, vnorm2 in reversed(vs):
+        vB = (v[..., :, None, :] * B).sum(-3)          # (..., 4, n)
+        B = B - (2.0 / vnorm2)[..., None, None, :] * v[..., :, None, :] \
+            * vB[..., None, :, :]
+    return B.transpose(-3, -2)                          # (..., 4, 9, n)
+
+
+def _soa_mul(p: torch.Tensor, q: torch.Tensor, table: str) -> torch.Tensor:
+    """(..., a, n) x (..., b, n) -[table]-> (..., t, n) polynomial product."""
+    P = p[..., :, None, :] * q[..., None, :, :]
+    a, b = p.shape[-2], q.shape[-2]
+    return _select(table, P.reshape(*P.shape[:-3], a * b, P.shape[-1]))
+
+
+def _soa_constraint_matrix(basis: torch.Tensor) -> torch.Tensor:
+    """basis (..., 4, 9, n) -> constraint system A (..., 10, 20, n)."""
+    n = basis.shape[-1]
+    lead = basis.shape[:-3]
+    Ep = basis.reshape(*lead, 4, 3, 3, n).movedim(-4, -2)   # (..., 3, 3, 4, n)
+
+    P = (Ep[..., :, None, :, :, None, :] * Ep[..., None, :, :, None, :, :]).sum(-4)
+    EEt = _select("t11", P.reshape(*lead, 3, 3, 16, n))
+    tr = EEt[..., 0, 0, :, :] + EEt[..., 1, 1, :, :] + EEt[..., 2, 2, :, :]
+
+    Q = (EEt[..., :, :, None, :, None, :] * Ep[..., None, :, :, None, :, :]).sum(-5)
+    EEtE = _select("t21", Q.reshape(*lead, 3, 3, 40, n))
+    trE = _soa_mul(tr[..., None, None, :, :].expand(*lead, 3, 3, 10, n)
+                   .reshape(*lead, 9, 10, n),
+                   Ep.reshape(*lead, 9, 4, n), "t21").reshape(*lead, 3, 3, 20, n)
+    C = 2.0 * EEtE - trE
+
+    def e(i, j):
+        return Ep[..., i, j, :, :]
+
+    m00 = _soa_mul(e(1, 1), e(2, 2), "t11") - _soa_mul(e(1, 2), e(2, 1), "t11")
+    m01 = _soa_mul(e(1, 0), e(2, 2), "t11") - _soa_mul(e(1, 2), e(2, 0), "t11")
+    m02 = _soa_mul(e(1, 0), e(2, 1), "t11") - _soa_mul(e(1, 1), e(2, 0), "t11")
+    det = (_soa_mul(m00, e(0, 0), "t21") - _soa_mul(m01, e(0, 1), "t21")
+           + _soa_mul(m02, e(0, 2), "t21"))
+    return torch.cat([det[..., None, :, :], C.reshape(*lead, 9, 20, n)], dim=-3)
+
+
+def _soa_gauss_jordan(A: torch.Tensor) -> torch.Tensor:
+    """(..., 10, 20, n) -> [I | M] with partial pivoting, branch-free."""
+    m = A.shape[-3]
+    rows = torch.arange(m, device=A.device)[:, None]
+    minus1 = torch.full((), -1.0, dtype=A.dtype, device=A.device)
+    for i in range(m):
+        cand = torch.where(rows >= i, torch.abs(A[..., :, i, :]), minus1)
+        p = torch.argmax(cand, dim=-2)                       # (..., n)
+        ei = (rows == i).to(A.dtype)                         # (m, 1)
+        ep = (rows == p[..., None, :]).to(A.dtype)           # (..., m, n)
+        Ai = A[..., i, :, :]
+        Ap = (ep[..., :, None, :] * A).sum(-3)               # (..., 20, n)
+        A = (A + ei[:, None] * (Ap - Ai)[..., None, :, :]
+             + ep[..., :, None, :] * (Ai - Ap)[..., None, :, :])
+        piv = Ap[..., i, :]
+        safe = torch.where(torch.abs(piv) > 1e-30, piv, torch.full_like(piv, 1e-30))
+        Anew_i = Ap / safe[..., None, :]
+        A = A * (1.0 - ei[:, None]) + ei[:, None] * Anew_i[..., None, :, :]
+        factors = torch.where(rows == i, torch.zeros((), dtype=A.dtype, device=A.device),
+                              A[..., :, i, :])
+        A = A - factors[..., :, None, :] * Anew_i[..., None, :, :]
+    return A
+
+
+def _soa_conv(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Full convolution over axis -2: (.., lp, n) x (.., lq, n) -> (.., lp+lq-1, n)."""
+    lp, lq = p.shape[-2], q.shape[-2]
+    P = p[..., :, None, :] * q[..., None, :, :]
+    return _select(("conv", lp, lq), P.reshape(*P.shape[:-3], lp * lq, P.shape[-1]))
+
+
+def _soa_action_det(M: torch.Tensor):
+    """Reduced tail M (..., 10, 10, n) -> (Bx, By, B1, det poly (..., 11, n))."""
+    Bx, By, B1 = [], [], []
+    for ra, rb in ((4, 7), (5, 8), (6, 9)):
+        a, b = M[..., ra, :, :], M[..., rb, :, :]
+        Bx.append(torch.stack([-b[..., 0, :], a[..., 0, :] - b[..., 1, :],
+                               a[..., 1, :] - b[..., 2, :], a[..., 2, :]], dim=-2))
+        By.append(torch.stack([-b[..., 3, :], a[..., 3, :] - b[..., 4, :],
+                               a[..., 4, :] - b[..., 5, :], a[..., 5, :]], dim=-2))
+        B1.append(torch.stack([-b[..., 6, :], a[..., 6, :] - b[..., 7, :],
+                               a[..., 7, :] - b[..., 8, :], a[..., 8, :] - b[..., 9, :],
+                               a[..., 9, :]], dim=-2))
+    Bx = torch.stack(Bx, dim=-3)                # (..., 3, 4, n)
+    By = torch.stack(By, dim=-3)
+    B1 = torch.stack(B1, dim=-3)                # (..., 3, 5, n)
+
+    i_idx, j_idx = _minor_index(M.device)
+    minors = (_soa_conv(Bx.index_select(-3, i_idx), By.index_select(-3, j_idx))
+              - _soa_conv(By.index_select(-3, i_idx), Bx.index_select(-3, j_idx)))
+    d = _soa_conv(B1, minors)                   # (..., 3, 11, n)
+    det = d[..., 0, :, :] - d[..., 1, :, :] + d[..., 2, :, :]
+    return Bx, By, B1, det
+
+
+def _floor_abs(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """x where |x| > eps, else eps (the JAX package's division guard)."""
+    return torch.where(torch.abs(x) > eps, x, torch.full_like(x, eps))
+
+
+def _soa_poly_roots(coeffs: torch.Tensor, iters: int = 24):
+    """Aberth-Ehrlich roots of (..., 11, n) descending coefficients ->
+    (roots (..., 10, n) complex64, lead_ok (..., n)); the polynomial is
+    balanced by z = s*u so its constant term has unit magnitude."""
+    deg = coeffs.shape[-2] - 1
+    dev = coeffs.device
+    lead = coeffs[..., 0, :]
+    lead_ok = torch.abs(lead) > 1e-25
+    c = coeffs / torch.where(lead_ok, lead, torch.ones_like(lead))[..., None, :]
+
+    tail = torch.abs(c[..., -1, :])
+    big = tail > 1e-30
+    s = torch.where(big, tail ** (1.0 / deg), torch.ones_like(tail))
+    powers = s[..., None, :] ** torch.arange(deg, -1, -1, dtype=c.dtype, device=dev)[:, None]
+    cb = c * powers / torch.where(big, tail, torch.ones_like(tail))[..., None, :]
+
+    cdtype = torch.complex128 if c.dtype == torch.float64 else torch.complex64
+    radius = 1.0 + torch.abs(cb[..., 1:, :]).amax(-2) ** (1.0 / deg)
+    u = radius[..., None, :].to(cdtype) * _start_ring(deg, cdtype, dev)          # (..., 10, n)
+    cc = cb.to(cdtype)
+    dcc = cc[..., :-1, :] * torch.arange(deg, 0, -1, device=dev)[:, None].to(cdtype)
+    eye = torch.eye(deg, dtype=cdtype, device=dev)[:, :, None]
+    off = 1.0 - eye
+
+    def horner(coef, x):
+        acc = coef[..., 0, None, :].expand(x.shape)
+        for k in range(1, coef.shape[-2]):
+            acc = acc * x + coef[..., k, None, :]
+        return acc
+
+    for _ in range(iters):
+        newton = horner(cc, u) / _floor_abs(horner(dcc, u), 1e-30)
+        diff = (u[..., :, None, :] - u[..., None, :, :]) * off + eye
+        inv = torch.where(torch.abs(diff) > 1e-30, 1.0 / diff, torch.zeros_like(diff)) * off
+        denom = _floor_abs(1.0 - newton * inv.sum(-2), 1e-30)
+        step = newton / denom
+        mag = torch.abs(step)
+        step = torch.where(mag > 10.0, step * (10.0 / mag), step)
+        u = u - step
+    return u * s[..., None, :].to(cdtype), lead_ok
+
+
+def _soa_polyval(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Horner over axis -2 of coeffs (..., d+1, n) at x (..., k, n)."""
+    acc = coeffs[..., 0, None, :].expand(x.shape).to(x.dtype)
+    for k in range(1, coeffs.shape[-2]):
+        acc = acc * x + coeffs[..., k, None, :]
+    return acc
+
+
+def five_point_candidates_batched(x1: torch.Tensor, x2: torch.Tensor,
+                                  dk_iters: int = 24):
+    """Batched essential-matrix candidates.
+
+    x1, x2: (..., n, 5, 2) normalized camera coordinates, n samples.
+    Returns Es (..., n, 10, 3, 3) Frobenius-normalized candidates and
+    valid (..., n, 10): slots holding a genuine real-root solution.
+    """
+    dtype = x1.dtype
+    basis = _soa_nullspace(x1, x2)             # (..., 4, 9, n)
+    A = _soa_constraint_matrix(basis)          # (..., 10, 20, n)
+    A = A / torch.clamp(torch.abs(A).amax(-2, keepdim=True), min=1e-30)
+    Ared = _soa_gauss_jordan(A)
+    Bx, By, B1, p = _soa_action_det(Ared[..., :, 10:, :])
+
+    roots_c, lead_ok = _soa_poly_roots(p, iters=dk_iters)
+    z_real = roots_c.real.to(dtype)
+
+    dcoeffs = p[..., :-1, :] * torch.arange(10, 0, -1, dtype=dtype, device=p.device)[:, None]
+    z = z_real
+    for _ in range(8):                          # Newton polish, real axis
+        z = z - _soa_polyval(p, z) / _floor_abs(_soa_polyval(dcoeffs, z), 1e-30)
+
+    bscale = _soa_polyval(torch.abs(p), torch.abs(z))
+    resid = torch.abs(_soa_polyval(p, z)) / torch.clamp(bscale, min=1e-30)
+    near_real = torch.abs(roots_c.imag) < 0.1 * (1.0 + torch.abs(z_real))
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    valid = lead_ok[..., None, :] & near_real & (resid < tol) & torch.isfinite(z)
+
+    zb = z[..., None, :, :].expand(*z.shape[:-2], 3, *z.shape[-2:])
+    rows = torch.stack([_soa_polyval(Bx, zb), _soa_polyval(By, zb),
+                        _soa_polyval(B1, zb)], dim=-4)   # (..., 3comp, 3row, 10, n)
+
+    def cross(a, b):
+        return torch.stack([
+            a[..., 1, :, :] * b[..., 2, :, :] - a[..., 2, :, :] * b[..., 1, :, :],
+            a[..., 2, :, :] * b[..., 0, :, :] - a[..., 0, :, :] * b[..., 2, :, :],
+            a[..., 0, :, :] * b[..., 1, :, :] - a[..., 1, :, :] * b[..., 0, :, :],
+        ], dim=-3)
+
+    r0, r1, r2 = rows[..., :, 0, :, :], rows[..., :, 1, :, :], rows[..., :, 2, :, :]
+    cands = torch.stack([cross(r0, r1), cross(r0, r2), cross(r1, r2)], dim=-4)
+    norms = torch.sqrt((cands * cands).sum(-3))          # (..., 3cand, 10, n)
+    pick = torch.argmax(norms, dim=-3)                   # (..., 10, n)
+    idx = pick[..., None, None, :, :].expand(*pick.shape[:-2], 1, 3, *pick.shape[-2:])
+    v = torch.gather(cands, -4, idx)[..., 0, :, :, :]     # (..., 3comp, 10, n)
+
+    w = v[..., 2, :, :]
+    vnorm = torch.sqrt((v * v).sum(-3))
+    w_ok = torch.abs(w) > 1e-12 * (vnorm + 1e-30)
+    w_safe = _floor_abs(w, 1e-30)
+    xs = v[..., 0, :, :] / w_safe
+    ys = v[..., 1, :, :] / w_safe
+
+    b9 = basis[..., :, :, None, :]              # (..., 4, 9, 1, n)
+    Es = (xs[..., None, :, :] * b9[..., 0, :, :, :]
+          + ys[..., None, :, :] * b9[..., 1, :, :, :]
+          + z[..., None, :, :] * b9[..., 2, :, :, :]
+          + b9[..., 3, :, :, :])                # (..., 9, 10, n)
+    fro = torch.sqrt((Es * Es).sum(-3, keepdim=True))
+    Es = Es / torch.clamp(fro, min=1e-30)
+    finite = torch.isfinite(Es).all(-3)
+    valid = valid & w_ok & finite
+    Es = torch.where(torch.isfinite(Es), Es, torch.zeros_like(Es))
+
+    Es = Es.movedim(-1, -3).movedim(-1, -2)     # (..., n, 10, 9)
+    return Es.reshape(*Es.shape[:-1], 3, 3), valid.movedim(-1, -2)
