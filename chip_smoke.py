@@ -7,23 +7,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from tpu_vo_torch/csrc (nvcc, sm_90a);
   3. compare each kernel with its plain PyTorch version on the card:
-     select_maps (B1) at the 8 pyramid-level shapes of 1241x376 frames,
+     select_maps (B1) and fast_margin (B3) at the 8 pyramid-level shapes
+     of 32 1241x376 frames, fast_margin also at 37x101 and 9x11,
      extract_patches (B2) on one frame's 1200 keypoints and on a level
-     smaller than the 43x43 window; both must agree bit for bit;
+     smaller than the 43x43 window; all must agree bit for bit;
   4. drive the main path, run_sequence_batched on a (32, 376, 1241) uint8
      synthetic sequence with 1200 keypoints and 256-hypothesis 5-point
      RANSAC, with the kernels' launch counters reset just before; check
-     that both kernels launched, the poses are finite and the trajectory
+     that B1 and B2 launched, the poses are finite and the trajectory
      is accurate, and that a small sequence gives the same answer on the
      card as on the CPU;
-  5. time the main path, its three stages and each kernel beside its
-     plain version with CUDA events (medians after warm-up);
-  6. profile each stage and the main path with torch.profiler: device
+  5. drive the FAST-detect path at full width: the stage benchmark's
+     ablation (tpu_vo_torch.tools.stage_bench) on 8 frames of 1241x376,
+     counters reset just before; check that B3 launched at least once
+     per level, and that the dense route's descriptors (fast.detect
+     selection, ic_angles_prefix, gaussian_blur, descriptor_bits) equal
+     the patch route's for the same keypoints; it prints each stage's
+     ms per frame;
+  6. time the main path, its three stages and each kernel beside its
+     plain version with CUDA events (medians after warm-up), and each
+     kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
+     operations over 67 TFLOP/s, from this run's shapes;
+  7. profile each stage and the main path with torch.profiler: device
      busy time, kernel launches, host-device copies and stream
      synchronizations per run, and the top device time.
 
 The line before the last is a JSON object with the kernels' names,
-sources, launch counts, errors and times; the last line is
+sources, launch counts, errors, times and bounds; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -32,7 +42,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -42,12 +51,17 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpu_vo_torch.configs import ORBConfig, RansacConfig, VOConfig  # noqa: E402
-from tpu_vo_torch.features import orb  # noqa: E402
+from tpu_vo_torch.features import brief, orb, orientation, patches  # noqa: E402
+from tpu_vo_torch.image.filters import gaussian_blur  # noqa: E402
 from tpu_vo_torch.image.pyramid import build_pyramid  # noqa: E402
 from tpu_vo_torch.ops import _build  # noqa: E402
-from tpu_vo_torch.ops.patch import extract_patches, extract_patches_reference  # noqa: E402
+from tpu_vo_torch.ops.fast import fast_margin, fast_margin_reference  # noqa: E402
+from tpu_vo_torch.ops.patch import (RAW_RADIUS, RAW_SIZE, extract_patches,  # noqa: E402
+                                    extract_patches_reference)
 from tpu_vo_torch.ops.select import select_maps, select_maps_reference  # noqa: E402
 from tpu_vo_torch.pipeline import runner, step  # noqa: E402
+from tpu_vo_torch.tools import stage_bench  # noqa: E402
+from tpu_vo_torch.utils.profiling import card as _card, cuda_times  # noqa: E402
 from tpu_vo_torch.utils.synthetic import make_sequence  # noqa: E402
 
 W, H, T = 1241, 376, 32
@@ -64,34 +78,54 @@ WARMUP, REPS, MAIN_REPS, PROFILE_RUNS = 2, 5, 20, 3
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
                "cudaMemcpy")
 
-
-def _card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def _cuda_times(fn, warmup=WARMUP, reps=REPS) -> list:
-    """Milliseconds of each of `reps` calls of fn() by CUDA events, after
-    warm-up."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return times
+# The card's peaks for the bounds (H100 SXM data sheet, at 700 W): HBM
+# bytes per second and f32 operations per second outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per pixel that the work needs, counted from the kernels'
+# arithmetic. FAST margin: 16 differences, then per polarity the 16
+# nine-long arc minima as a shared tree (3 x 16 pairwise mins, 16 mins
+# with the ninth value) and 15 maxes, then 4 for margin, corner and
+# score; needed inside the 3-pixel border only.
+FAST_OPS = 16 + 2 * (4 * 16 + 15) + 4
+# Fused selection: FAST as above, strict NMS (8 maxes, 1 compare, 1 and),
+# Harris (two Sobel stencils of 6, 3 products, 3 separable 7x7 box sums
+# of 12 adds, 8 for the response, 1 border select), the packed key (bit
+# reverse, shift, or, subtract, select) and half a compare for the
+# 2-row pool; needed inside the edge-threshold border only.
+SELECT_OPS = FAST_OPS + 10 + (12 + 3 + 36 + 8 + 1) + 5 + 1
 
 
-def _cuda_ms(fn) -> float:
+def _cuda_ms(fn, warmup=WARMUP, reps=REPS) -> float:
     """Median milliseconds of fn() by CUDA events, after warm-up."""
-    return statistics.median(_cuda_times(fn))
+    return statistics.median(cuda_times(fn, warmup=warmup, reps=reps))
+
+
+def _bound(nbytes: float, ops: float):
+    """(ms, what bounds it): the larger of bytes over the HBM rate and
+    f32 operations over the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _window_pixels(levels, kps) -> int:
+    """Pixels of the levels that the keypoints' 43x43 windows cover (the
+    union, each counted once): what extract_patches must read."""
+    total = 0
+    r = torch.arange(RAW_SIZE, device=levels[0].device)
+    for lvl, (ys, xs) in zip(levels, kps):
+        b, h, w = lvl.shape
+        hp, wp = max(h, RAW_SIZE), max(w, RAW_SIZE)
+        y0 = torch.clamp(ys.long() - RAW_RADIUS, 0, hp - RAW_SIZE)
+        x0 = torch.clamp(xs.long() - RAW_RADIUS, 0, wp - RAW_SIZE)
+        rows = (y0[..., None] + r)[..., :, None]
+        cols = (x0[..., None] + r)[..., None, :]
+        bi = torch.arange(b, device=lvl.device)[:, None, None, None]
+        cover = torch.zeros((b, hp, wp), dtype=torch.bool, device=lvl.device)
+        cover[bi, rows, cols] = True
+        total += int(cover[:, :h, :w].sum())
+    return total
 
 
 def _pair_rot_err_deg(R_wc: np.ndarray, Rs_gt) -> np.ndarray:
@@ -217,13 +251,28 @@ def main() -> int:
     print(f"extract_patches == plain on {n_kp} keypoints of one frame and a 30x60 level",
           flush=True)
 
+    fast_err = 0.0
+    odd = [torch.randint(0, 256, shape, generator=g).float().to(dev)
+           for shape in ((3, 37, 101), (2, 9, 11))]
+    for lvl in levels + odd:
+        ks, kc = fast_margin(lvl, ocfg.fast_threshold)
+        rs, rc = fast_margin_reference(lvl, ocfg.fast_threshold)
+        torch.cuda.synchronize()
+        if not (torch.equal(ks, rs) and torch.equal(kc, rc)):
+            raise AssertionError(f"fast_margin differs from its plain version at "
+                                 f"{tuple(lvl.shape)}: {int((kc != rc).sum())} corners, score "
+                                 f"max {float((ks - rs).abs().max())}")
+        fast_err = max(fast_err, float((ks - rs).abs().max()))
+    print(f"fast_margin == plain at {[tuple(lv.shape) for lv in levels + odd]}", flush=True)
+
     # 4. the main path, counted
-    select_maps.launches = 0
-    extract_patches.launches = 0
+    kernels = {"select_maps": select_maps, "extract_patches": extract_patches,
+               "fast_margin": fast_margin}
+    for k in kernels.values():
+        k.launches = 0
     poses, diags = runner.run_sequence_batched(frames, cfg, seed=0)
     torch.cuda.synchronize()
-    launches = {"select_maps": select_maps.launches,
-                "extract_patches": extract_patches.launches}
+    launches = {name: k.launches for name, k in kernels.items()}
     print(f"main path launches: {launches}", flush=True)
     if launches["select_maps"] < ocfg.n_levels or launches["extract_patches"] < 1:
         raise AssertionError(f"main path did not go through the kernels: {launches}")
@@ -241,8 +290,8 @@ def main() -> int:
                                              height=SMALL_H, seed=3)
     small = torch.from_numpy(np.stack(small_np))
     scfg = VOConfig(image_width=SMALL_W, image_height=SMALL_H)
-    pc, dc = runner.run_sequence_batched(small, scfg, seed=0)
-    pg, dg = runner.run_sequence_batched(small.to(dev), scfg, seed=0)
+    pc, dc = runner.run_sequence_batched(small, scfg, seed=0, device="cpu")
+    pg, dg = runner.run_sequence_batched(small, scfg, seed=0)
     rc = _pair_rot_err_deg(pc.R.double().numpy(), small_gt)
     rg = _pair_rot_err_deg(pg.R.double().cpu().numpy(), small_gt)
     dev_rot = _pair_rot_err_deg(pg.R.double().cpu().numpy(), list(pc.R.double().numpy()))
@@ -255,7 +304,35 @@ def main() -> int:
     if not (float(dg["pose_ok"].float().mean()) >= MIN_POSE_OK and rg.mean() < rc.mean() + 0.5):
         raise AssertionError("the card and the CPU disagree on the small sequence")
 
-    # 5. times
+    # 5. the FAST-detect path at full width, counted: the stage
+    # benchmark's ablation on 8 frames (B3 in +fast ... +orientation, B1
+    # and B2 in full), then dense against patch descriptors
+    for k in kernels.values():
+        k.launches = 0
+    stage_bench.main(["ablate"])
+    torch.cuda.synchronize()
+    b3_launches = {name: k.launches for name, k in kernels.items()}
+    print(f"FAST-detect path launches: {b3_launches}", flush=True)
+    if (b3_launches["fast_margin"] < ocfg.n_levels or b3_launches["select_maps"] < ocfg.n_levels
+            or b3_launches["extract_patches"] < 1):
+        raise AssertionError(f"the ablation did not go through the kernels: {b3_launches}")
+    ab_frames = stage_bench.make_frames(stage_bench.B, H, W, dev)
+    ab_levels = stage_bench.make_levels(ab_frames)
+    n_desc = 0
+    for lvl, (ys, xs, valid) in zip(ab_levels, stage_bench.select_keypoints(ab_levels)):
+        ang = orientation.ic_angles_prefix(lvl, ys, xs)
+        dense = brief.descriptor_bits(gaussian_blur(lvl), ys, xs, ang)
+        raw = extract_patches(lvl, ys.contiguous(), xs.contiguous())
+        pang = patches.angles_from_patches(raw)
+        patch = patches.descriptor_bits_from_patches(raw, pang)
+        if not (torch.equal(ang[valid], pang[valid]) and torch.equal(dense[valid], patch[valid])):
+            raise AssertionError(f"dense and patch descriptors differ at {tuple(lvl.shape)}: "
+                                 f"{int((dense != patch)[valid].any(-1).sum())} descriptors")
+        n_desc += int(valid.sum())
+    print(f"dense == patch angles and descriptors on {n_desc} keypoints of "
+          f"{stage_bench.B} frames", flush=True)
+
+    # 6. times
     def main_path():
         return runner.run_sequence_batched(frames, cfg, seed=0)
 
@@ -281,7 +358,7 @@ def main() -> int:
     main_path()
     torch.cuda.synchronize()
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    main_times = _cuda_times(main_path, reps=MAIN_REPS)
+    main_times = cuda_times(main_path, warmup=WARMUP, reps=MAIN_REPS)
     ms_main = statistics.median(main_times)
     q1, _, q3 = statistics.quantiles(main_times, n=4)
     ms_s1, ms_s2, ms_s3 = (_cuda_ms(f) for f in (stage1, stage2, stage3))
@@ -293,29 +370,55 @@ def main() -> int:
     pat_ms = sum(_cuda_ms(lambda lv=lv, k=k: extract_patches(lv, *k)) for lv, k in zip(levels, kp))
     pat_plain = sum(_cuda_ms(lambda lv=lv, k=k: extract_patches_reference(lv, *k))
                     for lv, k in zip(levels, kp))
+    fast_ms = sum(_cuda_ms(lambda lv=lv: fast_margin(lv, thr)) for lv in levels)
+    fast_plain = sum(_cuda_ms(lambda lv=lv: fast_margin_reference(lv, thr), warmup=1, reps=2)
+                     for lv in levels)
+    shapes = [tuple(lv.shape) for lv in levels]
+    sel_bound = _bound(sum(b * (8 * h * w + 4 * ((h + 1) // 2) * (w + w % 2))
+                           for b, h, w in shapes),
+                       SELECT_OPS * sum(b * (h - 2 * border) * (w - 2 * border)
+                                        for b, h, w in shapes))
+    pat_bound = _bound(4 * _window_pixels(levels, kp)
+                       + sum(ys.shape[0] * ys.shape[1] * (8 + 4 * RAW_SIZE * RAW_SIZE)
+                             for ys, _ in kp), 0)
+    fast_bound = _bound(sum(9 * b * h * w for b, h, w in shapes),
+                        FAST_OPS * sum(b * (h - 6) * (w - 6) for b, h, w in shapes))
     tag = f"[{card}]"
     print(f"main path: {T} frames in {ms_main:.3f} ms (median of {MAIN_REPS}, quartiles "
           f"{q1:.3f}-{q3:.3f} ms) = {T * 1000.0 / ms_main:.2f} frames/s, peak device memory "
           f"{peak_gib:.3f} GiB {tag}")
     print(f"stage 1 features {ms_s1:.3f} ms, stage 2 pairs {ms_s2:.3f} ms, "
           f"stage 3 chain {ms_s3:.3f} ms {tag}")
-    print(f"select_maps 8 levels x {T} frames: kernel {sel_ms:.3f} ms, plain {sel_plain:.3f} ms {tag}")
-    print(f"extract_patches 1200 kps x {T} frames: kernel {pat_ms:.3f} ms, plain {pat_plain:.3f} ms {tag}")
+    for name, k_ms, p_ms, (b_ms, by) in (
+            (f"select_maps 8 levels x {T} frames", sel_ms, sel_plain, sel_bound),
+            (f"extract_patches 1200 kps x {T} frames", pat_ms, pat_plain, pat_bound),
+            (f"fast_margin 8 levels x {T} frames", fast_ms, fast_plain, fast_bound)):
+        print(f"{name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({by}) {tag}")
 
-    # 6. profile
+    # 7. profile
     for name, fn in (("stage1_features", stage1), ("stage2_pairs", stage2),
                      ("stage3_chain", stage3)):
         _profile(name, fn, card)
     _profile("main_path", main_path, card, rows=25)
 
+    # No single PyTorch call computes any of the three functions, so
+    # library_ms is null; B3's launches are those of its own path (phase 5).
     report = {"kernels": [
         {"name": "select_maps", "route": "cuda", "source": "tpu_vo_torch/csrc/select.cu",
          "replaces": "tpu_vo/ops/select_pallas.py:359", "launches": launches["select_maps"],
-         "max_abs_err": sel_err, "ms": sel_ms, "plain_ms": sel_plain},
+         "max_abs_err": sel_err, "ms": sel_ms, "plain_ms": sel_plain,
+         "bound_ms": sel_bound[0], "bound_by": sel_bound[1], "library_ms": None},
         {"name": "extract_patches", "route": "cuda", "source": "tpu_vo_torch/csrc/patch.cu",
          "replaces": "tpu_vo/ops/patch_pallas.py:181",
          "launches": launches["extract_patches"], "max_abs_err": patch_err,
-         "ms": pat_ms, "plain_ms": pat_plain},
+         "ms": pat_ms, "plain_ms": pat_plain,
+         "bound_ms": pat_bound[0], "bound_by": pat_bound[1], "library_ms": None},
+        {"name": "fast_margin", "route": "cuda", "source": "tpu_vo_torch/csrc/fast.cu",
+         "replaces": "tpu_vo/ops/fast_pallas.py:153",
+         "launches": b3_launches["fast_margin"], "max_abs_err": fast_err,
+         "ms": fast_ms, "plain_ms": fast_plain,
+         "bound_ms": fast_bound[0], "bound_by": fast_bound[1], "library_ms": None},
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

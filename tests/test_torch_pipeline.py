@@ -47,7 +47,8 @@ def jax_out(scene, jax_run):
 @pytest.fixture(scope="module")
 def port_out(scene):
     poses, diags = runner.run_sequence_batched(torch.from_numpy(np.stack(scene[0])),
-                                               VOConfig(image_width=W, image_height=H))
+                                               VOConfig(image_width=W, image_height=H),
+                                               device="cpu")
     return (poses.R.double().numpy(), poses.t.double().numpy(), interop.to_numpy(diags))
 
 
@@ -117,3 +118,16 @@ def test_unported_options_raise():
                 VOConfig(ransac=RansacConfig(score_method="count"))):
         with pytest.raises(NotImplementedError):
             step.check_supported(cfg)
+
+
+def test_runner_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """device=None means the card: without one it raises instead of
+    running on the CPU; device="cpu" runs there."""
+    frames = torch.zeros((2, 48, 64), dtype=torch.uint8)
+    cfg = VOConfig(image_width=64, image_height=48)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_sequence_batched(frames, cfg)
+    assert runner.entry_device("cpu") == torch.device("cpu")
+    poses, _ = runner.run_sequence_batched(frames, cfg, device="cpu")
+    assert poses.R.device.type == "cpu" and poses.R.shape == (2, 3, 3)

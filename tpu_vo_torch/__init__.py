@@ -2,17 +2,20 @@
 
 Same module layout and public names as `tpu_vo` (the JAX reference, which
 stays beside it unchanged). Plain code is eager PyTorch on whatever device
-the input tensors live on; the two kernels of the main path are written
-by hand in CUDA C++ (`csrc/`) and launched only for CUDA tensors:
+the input tensors live on; the entry points (run_sequence_batched, the
+stage benchmark) run on the card unless given device="cpu". The kernels
+are written by hand in CUDA C++ (`csrc/`) and launched only for CUDA
+tensors:
 
   geometry/    SE3 poses, intrinsics, epipolar algebra, cheirality
-  image/       Gaussian kernel, cascaded pyramid
+  image/       Gaussian kernel and full-frame blur, cascaded pyramid
   features/    FAST / Harris / NMS / orientation / rBRIEF / ORB
-  ops/         select_maps (kernel B1) and extract_patches (kernel B2)
+  ops/         select_maps (B1), extract_patches (B2), fast_margin (B3)
   matching/    Hamming distances, mutual-NN cross-check, adaptive filter
   estimation/  8-point, SoA Nister 5-point, batched RANSAC, recover_pose
   pipeline/    estimate_pair, chain_relative_poses, run_sequence_batched
-  utils/       numpy-only synthetic sequences
+  utils/       numpy-only synthetic sequences, fences and CUDA-event timers
+  tools/       stage_bench, the frontend stage benchmark
 
 This package imports neither jax nor tpu_vo.
 """

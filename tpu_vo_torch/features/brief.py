@@ -43,6 +43,20 @@ def steered_offsets(angles_deg: torch.Tensor):
     return dy, dx
 
 
+def descriptor_bits(blurred: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                    angles_deg: torch.Tensor) -> torch.Tensor:
+    """(..., N, 256) bool descriptor bits of keypoints (..., N) on
+    Gaussian-blurred (..., H, W) levels on the integer grid; samples are
+    clamped to the level."""
+    h, w = blurred.shape[-2], blurred.shape[-1]
+    dy, dx = steered_offsets(angles_deg)
+    sy = torch.clamp(ys.to(torch.int64)[..., None] + dy, 0, h - 1)
+    sx = torch.clamp(xs.to(torch.int64)[..., None] + dx, 0, w - 1)
+    vals = torch.gather(blurred.flatten(-2), -1,
+                        (sy * w + sx).flatten(-2)).view(sy.shape)   # (..., N, 512)
+    return vals[..., 0::2] < vals[..., 1::2]
+
+
 def pack_bits_u8(bits: torch.Tensor) -> torch.Tensor:
     """(..., 256) bool -> (..., 32) uint8, little bit order (cv2 layout)."""
     b = bits.reshape(*bits.shape[:-1], 32, 8).to(torch.int32)
@@ -57,3 +71,10 @@ def pack_bits_u32(bits: torch.Tensor) -> torch.Tensor:
     w = 1 << torch.arange(32, dtype=torch.int64, device=bits.device)
     v = (b * w).sum(-1)
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def unpack_u8(desc: torch.Tensor) -> torch.Tensor:
+    """(..., 32) uint8 -> (..., 256) bool, little bit order (cv2 layout)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=desc.device)
+    bits = (desc[..., :, None] >> shifts) & 1
+    return bits.reshape(*desc.shape[:-1], 256).to(torch.bool)

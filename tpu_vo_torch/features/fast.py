@@ -1,12 +1,14 @@
-"""FAST-9/16 corner score maps and strict 3x3 NMS (port of
+"""FAST-9/16 corner score maps, strict 3x3 NMS and detection (port of
 tpu_vo/features/fast.py).
 
 Score semantics replicate OpenCV's cornerScore<16>: score =
 max(threshold, dark, bright) - 1 at corners, where dark/bright are the
 best 9-contiguous-arc margins, and a pixel is a corner iff
-max(dark, bright) > threshold. These are the building blocks of the
-select kernel's plain version (ops/select.py); the fast.detect route of
-the JAX package is not ported.
+max(dark, bright) > threshold. `fast_score_map` is the plain version of
+kernel B3 (ops/fast.py) and, with `nonmax_suppress`, a building block of
+kernel B1's plain version (ops/select.py). `detect` is kernel B3
+followed by NMS: the first step of the dense ORB selection route
+(features/orb.py `_select_level_keypoints`).
 """
 
 from __future__ import annotations
@@ -37,6 +39,15 @@ def _arc_margin(d_ext: torch.Tensor) -> torch.Tensor:
     return m[:16].amax(dim=0)
 
 
+def _border_mask(h: int, w: int, border: int, device) -> torch.Tensor:
+    """(H, W) bool: border <= y < h - border and border <= x < w - border
+    (OpenCV's runByImageBorder)."""
+    row = torch.arange(h, device=device)
+    col = torch.arange(w, device=device)
+    return (((row >= border) & (row < h - border))[:, None]
+            & ((col >= border) & (col < w - border))[None, :])
+
+
 def fast_score_map(img: torch.Tensor, threshold: int):
     """Dense FAST-9/16 response of (..., H, W) float32 images on the
     integer grid. Returns (score, corner): the OpenCV cornerScore at
@@ -47,12 +58,7 @@ def fast_score_map(img: torch.Tensor, threshold: int):
     d = torch.stack([img - _shift(img, dy, dx) for dx, dy in CIRCLE_OFFSETS])
     d_ext = torch.cat([d, d[:8]], dim=0)
     margin = torch.maximum(_arc_margin(d_ext), _arc_margin(-d_ext))
-
-    row = torch.arange(h, device=img.device)
-    col = torch.arange(w, device=img.device)
-    interior = (((row >= 3) & (row < h - 3))[:, None]
-                & ((col >= 3) & (col < w - 3))[None, :])
-    corner = (margin > thr) & interior
+    corner = (margin > thr) & _border_mask(h, w, 3, img.device)
     score = torch.where(corner, torch.clamp(margin, min=thr) - 1.0,
                         torch.zeros_like(margin))
     return score, corner
@@ -64,3 +70,16 @@ def nonmax_suppress(score: torch.Tensor, corner: torch.Tensor) -> torch.Tensor:
                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)
                         if dx or dy]).amax(dim=0)
     return corner & (score > nmax)
+
+
+def detect(img: torch.Tensor, threshold: int, nonmax: bool = True):
+    """(score, keep) maps of (..., H, W) float32 images on the integer
+    grid: kernel B3 (ops/fast.py) on a CUDA tensor, its plain version on a
+    CPU tensor, then the strict 3x3 NMS unless nonmax is False."""
+    from tpu_vo_torch.ops.fast import fast_margin
+
+    h, w = img.shape[-2], img.shape[-1]
+    score, corner = fast_margin(img.reshape(-1, h, w).contiguous(), threshold)
+    score, corner = score.view(img.shape), corner.view(img.shape)
+    keep = nonmax_suppress(score, corner) if nonmax else corner
+    return score, keep

@@ -58,3 +58,12 @@ def harris_response_map(img: torch.Tensor, block_size: int = BLOCK_SIZE,
     b = _box_sum(Iy * Iy, r)
     c = _box_sum(Ix * Iy, r)
     return (a * b - c * c - k * (a + b) * (a + b)) * harris_scale4(block_size)
+
+
+def harris_at(img: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+              block_size: int = BLOCK_SIZE, k: float = HARRIS_K) -> torch.Tensor:
+    """Harris response of (..., H, W) images at integer keypoints
+    (..., N): the dense map, then a gather per image."""
+    rmap = harris_response_map(img, block_size, k)
+    idx = ys.to(torch.int64) * img.shape[-1] + xs.to(torch.int64)
+    return torch.gather(rmap.flatten(-2), -1, idx)

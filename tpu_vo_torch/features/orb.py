@@ -10,6 +10,11 @@ Per pyramid level, over all B frames at once:
   angles, blur and steered rBRIEF bits from the windows (features/patches)
 Slots are ordered by level, then by descending Harris response; every
 stage runs at fixed capacity with a validity mask.
+
+`_select_level_keypoints` is the JAX package's other selection route,
+the one it takes where the fused kernel does not run: fast.detect
+(kernel B3 + NMS), border, top-2n by FAST score, harris_at, top-n by
+Harris. detect_and_compute does not use it; tools/stage_bench.py does.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import numpy as np
 import torch
 
 from tpu_vo_torch.configs import ORBConfig
-from tpu_vo_torch.features import brief, patches
+from tpu_vo_torch.features import brief, fast, harris, patches
+from tpu_vo_torch.features.fast import _border_mask
 from tpu_vo_torch.image.pyramid import build_pyramid
 from tpu_vo_torch.ops.patch import extract_patches
 from tpu_vo_torch.ops.select import _bit_reverse, select_maps
@@ -63,6 +69,24 @@ def _stable_topk(x: torch.Tensor, k: int):
     return v[..., :k], i[..., :k]
 
 
+def _harris_cut(v2, ys2, xs2, resp, n_level, k2, cfg, area):
+    """Stage 2 from the stage-1 candidates (B, k2): FAST scores v2 (0 for
+    an empty slot), positions and Harris responses. Keeps the ties at the
+    2n-th score if cfg.retain_best_keep_ties (OpenCV's retainBest(2n)),
+    then the n best by Harris, ties to the lowest slot. Returns (ys, xs,
+    response, valid), each (B, k1)."""
+    cand_ok = v2 > 0.0
+    if cfg.retain_best_keep_ties:
+        n2 = min(2 * n_level, area)
+        cand_ok = cand_ok & (v2 >= v2[:, n2 - 1:n2])
+    resp = torch.where(cand_ok, resp, torch.full_like(resp, -float("inf")))
+    v1, sel = _stable_topk(resp, min(n_level, k2))
+    ys = torch.gather(ys2, 1, sel)
+    xs = torch.gather(xs2, 1, sel)
+    valid = torch.isfinite(v1)
+    return ys, xs, torch.where(valid, v1, torch.zeros_like(v1)), valid
+
+
 def _rank_from_maps(packed, harris_map, idx_bits, w, n_level, cfg, area):
     """Stage-1 FAST cut + stage-2 Harris ranking from select_maps' outputs
     for (B, ...) levels. Returns (ys, xs, response, valid), each (B, k1)."""
@@ -80,20 +104,29 @@ def _rank_from_maps(packed, harris_map, idx_bits, w, n_level, cfg, area):
     mask = (1 << idx_bits) - 1
     idx2 = torch.where(v > 0, _bit_reverse(mask - (v & mask), idx_bits),
                        torch.zeros_like(v))
-    ys2 = idx2 // w
-    xs2 = idx2 % w
-    cand_ok = v2 > 0.0
     resp = torch.gather(harris_map.reshape(b, -1), 1, idx2.to(torch.int64))
+    return _harris_cut(v2, idx2 // w, idx2 % w, resp, n_level, k2, cfg, area)
 
-    if cfg.retain_best_keep_ties:
-        n2 = min(2 * n_level, area)
-        cand_ok = cand_ok & (v2 >= v2[:, n2 - 1:n2])
-    resp = torch.where(cand_ok, resp, torch.full_like(resp, -float("inf")))
-    v1, sel = _stable_topk(resp, min(n_level, k2))
-    ys = torch.gather(ys2, 1, sel)
-    xs = torch.gather(xs2, 1, sel)
-    valid = torch.isfinite(v1)
-    return ys, xs, torch.where(valid, v1, torch.zeros_like(v1)), valid
+
+def _select_level_keypoints(lvl: torch.Tensor, n_level: int, cfg: ORBConfig):
+    """FAST -> border -> top-2n by FAST -> Harris -> top-n for (B, H, W)
+    float32 levels (tpu_vo/features/orb.py `_select_level_keypoints`, its
+    fast.detect branch). Returns (ys, xs, response, valid), each (B, k1).
+
+    Both cuts break ties by lowest flat index, like lax.top_k: FAST
+    scores tie often. With cfg.retain_best_keep_ties the stage-1 cut has
+    a capacity of 4n for the ties at the 2n-th score.
+    """
+    b, h, w = lvl.shape
+    k2 = min((4 if cfg.retain_best_keep_ties else 2) * n_level, h * w)
+    score, keep = fast.detect(lvl, cfg.fast_threshold)
+    keep = keep & _border_mask(h, w, cfg.edge_threshold, lvl.device)
+    masked = torch.where(keep, score, torch.zeros((), device=lvl.device))
+    v2, idx2 = _stable_topk(masked.view(b, -1), k2)
+    ys2 = (idx2 // w).to(torch.int32)
+    xs2 = (idx2 % w).to(torch.int32)
+    return _harris_cut(v2, ys2, xs2, harris.harris_at(lvl, ys2, xs2), n_level, k2, cfg,
+                       h * w)
 
 
 def detect_and_compute(img: torch.Tensor,

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of csrc/ as one shared library.
 
-nvcc compiles csrc/*.cu for sm_90a into a library with a plain C
+nvcc compiles each of csrc/*.cu for sm_90a, all at once in parallel
+processes, and links the objects into a library with a plain C
 interface, loaded with ctypes. The build runs on first use (never at
 import) into tpu_vo_torch/_build/, named by a hash of the sources and
 flags so that an edited source is rebuilt.
@@ -19,12 +20,11 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("select.cu", "patch.cu")
+SOURCES = ("select.cu", "patch.cu", "fast.cu")
 # -fmad=false: the select kernel's Harris arithmetic must round every
 # product and sum on its own, as the eager plain version does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,14 +69,24 @@ def library() -> ctypes.CDLL:
     path = os.path.join(BUILD_DIR, f"libtpu_vo_kernels_{_digest()}.so")
     t0 = time.perf_counter()
     if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               *(os.path.join(CSRC, s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{BuildInfo.log}")
+        nvcc, tmp = _nvcc(), f"{path}.{os.getpid()}.tmp"
+        objs = [f"{tmp}.{s}.o" for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o,
+                                   os.path.join(CSRC, s)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        BuildInfo.log = "".join(logs)
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{BuildInfo.log}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        for o in objs:
+            os.remove(o)
         os.replace(tmp, path)
         BuildInfo.seconds = time.perf_counter() - t0
     BuildInfo.path = path
@@ -86,6 +96,8 @@ def library() -> ctypes.CDLL:
     lib.tvo_select_maps.restype = _I
     lib.tvo_extract_patches.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
     lib.tvo_extract_patches.restype = _I
+    lib.tvo_fast_margin.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P]
+    lib.tvo_fast_margin.restype = _I
     return lib
 
 

@@ -50,13 +50,6 @@ def idx_bits_for(h: int, w: int) -> int:
     return bits
 
 
-def _border_mask(h: int, w: int, border: int, device) -> torch.Tensor:
-    row = torch.arange(h, device=device)
-    col = torch.arange(w, device=device)
-    return (((row >= border) & (row < h - border))[:, None]
-            & ((col >= border) & (col < w - border))[None, :])
-
-
 def _check(levels: torch.Tensor, border: int) -> None:
     if levels.dim() != 3 or levels.dtype != torch.float32:
         raise ValueError(f"levels must be (B, H, W) float32, got "
@@ -70,7 +63,7 @@ def select_maps_reference(levels: torch.Tensor, threshold: int, border: int):
     _check(levels, border)
     b, h, w = levels.shape
     bits = idx_bits_for(h, w)
-    inb = _border_mask(h, w, border, levels.device)
+    inb = fast._border_mask(h, w, border, levels.device)
     score, corner = fast.fast_score_map(levels, threshold)
     keep = fast.nonmax_suppress(score, corner) & inb
     hmap = torch.where(inb, harris.harris_response_map(levels),

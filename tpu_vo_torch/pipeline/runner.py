@@ -51,11 +51,24 @@ def chain_relative_poses(R: torch.Tensor, t: torch.Tensor, have_rt: torch.Tensor
     return Pose(torch.cat([first.R, cum.R], 0), torch.cat([first.t, cum.t], 0))
 
 
-def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0):
-    """Batched three-stage VO over (T, H, W) uint8 frames on the frames'
-    device. Returns (poses: Pose with leading dim T, diagnostics dict of
-    (T-1,) tensors)."""
+def entry_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card, unless the caller
+    names another (device="cpu"). With no card and no device it raises
+    rather than carry on on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
+                         device=None):
+    """Batched three-stage VO over (T, H, W) uint8 frames, moved to
+    `device` (the card when None; see entry_device). Returns (poses: Pose
+    with leading dim T, diagnostics dict of (T-1,) tensors)."""
     check_supported(cfg)
+    frames = frames.to(entry_device(device))
     T = frames.shape[0]
     feats = detect_and_compute(frames, cfg.orb)
     prev = ORBFeatures(*(f[:-1] for f in feats))
