@@ -24,10 +24,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      selection, ic_angles_prefix, gaussian_blur, descriptor_bits) equal
      the patch route's for the same keypoints; it prints each stage's
      ms per frame;
+  5b. drive the patch-slots probe path at its full shapes: the probe
+     tool (tpu_vo_torch.tools.patch_slots_probe) on 8 frames of
+     1241x376 with 512 keypoints each, counters reset just before; check
+     that P1, P2 and P3 each launched, then hold every variant of its
+     sweep that fits in shared memory, and P1 at 128 and 512 lanes with
+     fewer slots, against its plain version bit for bit, on the probe's
+     keypoints and on 5 at the right edge; the probe prints its timing
+     floor and each variant's ms;
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
-     operations over 67 TFLOP/s, from this run's shapes;
+     operations over 67 TFLOP/s, from this run's shapes; P1 (8, 2,
+     compact, 256 lanes), P2 (16, 8) and P3 (16, 8) and B2 at the probe's
+     keypoints as the probe timed them, beside their plain versions and
+     bounds, and the f32 operations of P2's one-hot products;
   7. profile each stage and the main path with torch.profiler: device
      busy time, kernel launches, host-device copies and stream
      synchronizations per run, and the top device time.
@@ -39,6 +50,7 @@ sources, launch counts, errors, times and bounds; the last line is
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import statistics
@@ -55,16 +67,30 @@ from tpu_vo_torch.features import brief, orb, orientation, patches  # noqa: E402
 from tpu_vo_torch.image.filters import gaussian_blur  # noqa: E402
 from tpu_vo_torch.image.pyramid import build_pyramid  # noqa: E402
 from tpu_vo_torch.ops import _build  # noqa: E402
+from tpu_vo_torch.ops import patch_probe  # noqa: E402
 from tpu_vo_torch.ops.fast import fast_margin, fast_margin_reference  # noqa: E402
 from tpu_vo_torch.ops.patch import (RAW_RADIUS, RAW_SIZE, extract_patches,  # noqa: E402
                                     extract_patches_reference)
 from tpu_vo_torch.ops.select import select_maps, select_maps_reference  # noqa: E402
 from tpu_vo_torch.pipeline import runner, step  # noqa: E402
-from tpu_vo_torch.tools import stage_bench  # noqa: E402
+from tpu_vo_torch.tools import patch_slots_probe, stage_bench  # noqa: E402
+from tpu_vo_torch.tools.device_time import device_time_ms  # noqa: E402
 from tpu_vo_torch.utils.profiling import card as _card, cuda_times  # noqa: E402
 from tpu_vo_torch.utils.synthetic import make_sequence  # noqa: E402
 
 W, H, T = 1241, 376, 32
+# P1's 128- and 512-lane bands, which the probe's sweep runs only at 16
+# slots, too many to fit: checked at slot counts that fit
+PROBE_EXTRA = ((8, 4, False, 128), (8, 4, True, 128), (8, 2, True, 512))
+# The probe's variants timed in phase 6, by wrapper: the fastest P1 that
+# fits and P2, P3 at the tool's default slots
+PROBE_TIMED = {"band_windows": ("P1", dict(kp_chunk=8, nslots=2, compact=True, lanes=256)),
+               "phase_windows_mxu": ("P2", dict(kp_chunk=16, nslots=8)),
+               "phase_windows_roll": ("P3", dict(kp_chunk=16, nslots=8))}
+# f32 operations per window of P2's two one-hot products, (48, 128) x
+# (128, 43) and (48, 48) x (48, 43), a multiply and an add per term: how
+# P2 computes, not what its function needs, so printed beside its bound
+P2_OPS = 2 * (48 * 128 * 43 + 48 * 48 * 43)
 SMALL_W, SMALL_H, SMALL_T = 480, 360, 8
 # Accuracy bars of the main path on make_sequence(32, 1241, 376, seed=0),
 # measured on the CPU on these frames: the port had pose_ok on 31/31 pairs
@@ -109,6 +135,22 @@ def _bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _union_pixels(shape, rows, cols, keep=None) -> int:
+    """Pixels of (B, H, W) levels that windows of rows (B, N, R) x cols
+    (B, N, C) cover, each counted once (rows where keep (B, N, R) is
+    False read nothing): what a window kernel must read."""
+    b, h, w = shape
+    cover = torch.zeros((b, max(h, int(rows.max()) + 1), max(w, int(cols.max()) + 1)),
+                        dtype=torch.int32, device=rows.device)
+    bi = torch.arange(b, device=rows.device)[:, None, None, None]
+    hit = torch.ones((), dtype=torch.int32, device=rows.device)
+    if keep is not None:
+        hit = keep[..., None].to(torch.int32)
+    cover.index_put_((bi, rows[..., :, None], cols[..., None, :]),
+                     hit.expand(*rows.shape, cols.shape[-1]), accumulate=True)
+    return int((cover[:, :h, :w] > 0).sum())
+
+
 def _window_pixels(levels, kps) -> int:
     """Pixels of the levels that the keypoints' 43x43 windows cover (the
     union, each counted once): what extract_patches must read."""
@@ -116,15 +158,9 @@ def _window_pixels(levels, kps) -> int:
     r = torch.arange(RAW_SIZE, device=levels[0].device)
     for lvl, (ys, xs) in zip(levels, kps):
         b, h, w = lvl.shape
-        hp, wp = max(h, RAW_SIZE), max(w, RAW_SIZE)
-        y0 = torch.clamp(ys.long() - RAW_RADIUS, 0, hp - RAW_SIZE)
-        x0 = torch.clamp(xs.long() - RAW_RADIUS, 0, wp - RAW_SIZE)
-        rows = (y0[..., None] + r)[..., :, None]
-        cols = (x0[..., None] + r)[..., None, :]
-        bi = torch.arange(b, device=lvl.device)[:, None, None, None]
-        cover = torch.zeros((b, hp, wp), dtype=torch.bool, device=lvl.device)
-        cover[bi, rows, cols] = True
-        total += int(cover[:, :h, :w].sum())
+        y0 = torch.clamp(ys.long() - RAW_RADIUS, 0, max(h, RAW_SIZE) - RAW_SIZE)
+        x0 = torch.clamp(xs.long() - RAW_RADIUS, 0, max(w, RAW_SIZE) - RAW_SIZE)
+        total += _union_pixels(lvl.shape, y0[..., None] + r, x0[..., None] + r)
     return total
 
 
@@ -332,6 +368,53 @@ def main() -> int:
     print(f"dense == patch angles and descriptors on {n_desc} keypoints of "
           f"{stage_bench.B} frames", flush=True)
 
+    # 5b. the patch-slots probe path at its full shapes, counted; then
+    # each variant that fits against its plain version
+    probe_kernels = {"band_windows": patch_probe.band_windows,
+                     "phase_windows_mxu": patch_probe.phase_windows_mxu,
+                     "phase_windows_roll": patch_probe.phase_windows_roll}
+    for k in (*kernels.values(), *probe_kernels.values()):
+        k.launches = 0
+    probe_rows = patch_slots_probe.main()
+    torch.cuda.synchronize()
+    p_launches = {name: k.launches for name, k in probe_kernels.items()}
+    print(f"probe path launches: {p_launches}, refused: "
+          f"{sum(1 for r in probe_rows if r['refused'])} of {len(probe_rows) - 1} variants",
+          flush=True)
+    if min(p_launches.values()) < 1 or extract_patches.launches < 1:
+        raise AssertionError(f"the probe did not go through the kernels: {p_launches}")
+    pimgs, pys, pxs = patch_slots_probe.make_inputs(*patch_slots_probe.SHAPE, dev)
+    b_p, h_p = pimgs.shape[:2]
+    eys = torch.randint(-5, h_p + 5, (b_p, 5), generator=g, dtype=torch.int32).to(dev)
+    exs = torch.tensor([1170, 1180, 1200, 1240, 1245], dtype=torch.int32,
+                       device=dev).repeat(b_p, 1)
+    probe_err = {"P1": 0.0, "P2": 0.0, "P3": 0.0}
+    checked = []
+    for name, run in ([(f"{k} {label}", run) for k, label, run, _ in patch_slots_probe.variants()]
+                      + [(f"P1 {v}", patch_slots_probe.build(*v)) for v in PROBE_EXTRA]):
+        kw = run.keywords
+        try:
+            patch_probe.check_fits(name[:2], kw["nslots"],
+                                   kw.get("lanes", patch_probe.PHASE_LANES))
+        except ValueError:
+            continue
+        plain = patch_probe.phase_windows_reference
+        if run.func is patch_probe.band_windows:
+            plain = functools.partial(patch_probe.band_windows_reference,
+                                      compact=kw["compact"], lanes=kw["lanes"])
+        for y, x in ((pys, pxs), (eys, exs)):
+            a, b = run(pimgs, y, x), plain(pimgs, y, x)
+            torch.cuda.synchronize()
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} differs from its plain version at {tuple(y.shape)} "
+                                     f"keypoints: max {float((a - b).abs().max())}")
+            probe_err[name[:2]] = max(probe_err[name[:2]], float((a - b).abs().max()))
+        checked.append(name)
+    if {n[:2] for n in checked} != set(probe_err):
+        raise AssertionError(f"a probe kernel was not checked: {checked}")
+    print(f"probe kernels == plain on {pys.numel()} and {eys.numel()} right-edge keypoints: "
+          f"{checked}", flush=True)
+
     # 6. times
     def main_path():
         return runner.run_sequence_batched(frames, cfg, seed=0)
@@ -383,6 +466,27 @@ def main() -> int:
                              for ys, _ in kp), 0)
     fast_bound = _bound(sum(9 * b * h * w for b, h, w in shapes),
                         FAST_OPS * sum(b * (h - 6) * (w - 6) for b, h, w in shapes))
+    probe_n = pys.numel()
+    probe_out = probe_n * (8 + 4 * patch_probe.ROWS * RAW_SIZE)  # keypoints in, windows out
+    p1_rows, p1_cols = patch_probe.band_index(h_p, W, pys, pxs, True, 256)
+    ph_rows, ph_cols, ph_keep = patch_probe.phase_index(h_p, W, pys, pxs)
+    ph_bytes = 4 * _union_pixels(pimgs.shape, ph_rows, ph_cols, ph_keep) + probe_out
+    # the kernels' times are the probe's (phase 5b); their plain versions
+    # are timed here with the same tool
+    probe_times = {}
+    for name, plain, bound in (
+            ("band_windows", lambda: patch_probe.band_windows_reference(pimgs, pys, pxs, True, 256),
+             _bound(4 * _union_pixels(pimgs.shape, p1_rows, p1_cols) + probe_out, 0)),
+            ("phase_windows_mxu", lambda: patch_probe.phase_windows_reference(pimgs, pys, pxs),
+             _bound(ph_bytes, 0)),
+            ("phase_windows_roll", lambda: patch_probe.phase_windows_reference(pimgs, pys, pxs),
+             _bound(ph_bytes, 0))):
+        kernel, args = PROBE_TIMED[name]
+        k_ms = next(r["ms"] for r in probe_rows if r["kernel"] == kernel and r["args"] == args)
+        probe_times[name] = (k_ms, device_time_ms(plain, reps=patch_slots_probe.REPS), bound)
+    b2_probe = probe_rows[0]["ms"]
+    b2_probe_bound = _bound(4 * _window_pixels([pimgs], [(pys, pxs)])
+                            + probe_n * (8 + 4 * RAW_SIZE * RAW_SIZE), 0)
     tag = f"[{card}]"
     print(f"main path: {T} frames in {ms_main:.3f} ms (median of {MAIN_REPS}, quartiles "
           f"{q1:.3f}-{q3:.3f} ms) = {T * 1000.0 / ms_main:.2f} frames/s, peak device memory "
@@ -395,6 +499,13 @@ def main() -> int:
             (f"fast_margin 8 levels x {T} frames", fast_ms, fast_plain, fast_bound)):
         print(f"{name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({by}) {tag}")
+    for name, (k_ms, p_ms, (b_ms, by)) in probe_times.items():
+        print(f"{name} {PROBE_TIMED[name][1]} at the probe's {probe_n} keypoints: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) {tag}")
+    print(f"phase_windows_mxu's one-hot products: {P2_OPS} f32 operations per window, "
+          f"{_bound(0, P2_OPS * probe_n)[0]:.4f} ms at the f32 peak {tag}")
+    print(f"extract_patches (B2) at the probe's {probe_n} keypoints: {b2_probe:.4f} ms, bound "
+          f"{b2_probe_bound[0]:.4f} ms ({b2_probe_bound[1]}) {tag}")
 
     # 7. profile
     for name, fn in (("stage1_features", stage1), ("stage2_pairs", stage2),
@@ -402,8 +513,9 @@ def main() -> int:
         _profile(name, fn, card)
     _profile("main_path", main_path, card, rows=25)
 
-    # No single PyTorch call computes any of the three functions, so
-    # library_ms is null; B3's launches are those of its own path (phase 5).
+    # No single PyTorch call computes any of these functions, so
+    # library_ms is null; B3's launches are those of its own path (phase
+    # 5), P1-P3's those of the probe's (phase 5b).
     report = {"kernels": [
         {"name": "select_maps", "route": "cuda", "source": "tpu_vo_torch/csrc/select.cu",
          "replaces": "tpu_vo/ops/select_pallas.py:359", "launches": launches["select_maps"],
@@ -419,6 +531,14 @@ def main() -> int:
          "launches": b3_launches["fast_margin"], "max_abs_err": fast_err,
          "ms": fast_ms, "plain_ms": fast_plain,
          "bound_ms": fast_bound[0], "bound_by": fast_bound[1], "library_ms": None},
+    ] + [
+        {"name": name, "route": "cuda", "source": "tpu_vo_torch/csrc/patch_probe.cu",
+         "replaces": f"tools/patch_slots_probe.py:{line}", "launches": p_launches[name],
+         "max_abs_err": probe_err[p], "ms": probe_times[name][0], "plain_ms": probe_times[name][1],
+         "bound_ms": probe_times[name][2][0], "bound_by": probe_times[name][2][1],
+         "library_ms": None}
+        for name, p, line in (("band_windows", "P1", 90), ("phase_windows_mxu", "P2", 226),
+                              ("phase_windows_roll", "P3", 322))
     ]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

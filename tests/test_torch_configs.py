@@ -1,5 +1,5 @@
 """The port's configs equal tpu_vo's, and tpu_vo_torch imports neither
-jax nor tpu_vo."""
+jax, tpu_vo nor the repo's tools/."""
 
 import dataclasses
 import subprocess
@@ -57,20 +57,26 @@ _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "tpu_vo"):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpu_vo", "tools"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import tpu_vo_torch
 mods = [m.name for m in pkgutil.walk_packages(tpu_vo_torch.__path__, "tpu_vo_torch.")]
 for m in mods:
     importlib.import_module(m)
-assert not any(k.split(".")[0] in ("jax", "tpu_vo") for k in sys.modules)
-print(len(mods))
+assert not any(k.split(".")[0] in ("jax", "tpu_vo", "tools") for k in sys.modules)
+print(" ".join(mods))
 """
+
+# The modules of the patch-slots probe, which replace tools/ modules
+PROBE_MODULES = ["tpu_vo_torch.ops.patch_probe", "tpu_vo_torch.tools.device_time",
+                 "tpu_vo_torch.tools.patch_slots_probe"]
 
 
 def test_port_imports_without_jax_or_tpu_vo():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    mods = out.stdout.split()
+    assert len(mods) >= 20
+    assert set(PROBE_MODULES) <= set(mods)

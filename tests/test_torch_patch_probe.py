@@ -1,0 +1,219 @@
+"""Kernels P1, P2 and P3 (tpu_vo_torch.ops.patch_probe) against the
+Pallas kernels of tools/patch_slots_probe.py in interpret mode, bit for
+bit (tolerance 0), on uniform non-integer f32 pixels and keypoints up to
+5 px past each edge: P1's right-edge clamp, P1's roll wrapping at 128
+lanes, and P2's and P3's zero tail rows. Then what the port refuses, the
+port of the probe tool on the CPU, and, on a card, each kernel against
+its plain version.
+
+Importing tools/patch_slots_probe.py points JAX's compilation cache at
+another directory and changes its thresholds (`:30-35`); the module
+fixture restores them, so later files on the same worker keep
+conftest's.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from tpu_vo_torch.ops import patch as tpatch, patch_probe as pp
+from tpu_vo_torch.tools import patch_slots_probe as tprobe
+
+_CACHE_SETTINGS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
+                   "jax_persistent_cache_min_entry_size_bytes")
+_cpu_only = pytest.mark.skipif(jax.default_backend() != "cpu",
+                               reason="interpret-mode Pallas runs on the CPU backend only")
+
+
+@pytest.fixture(scope="module")
+def jprobe():
+    saved = {k: getattr(jax.config, k) for k in _CACHE_SETTINGS}
+    try:
+        mod = importlib.import_module("tools.patch_slots_probe")
+    finally:
+        for k, v in saved.items():
+            jax.config.update(k, v)
+    assert {k: getattr(jax.config, k) for k in _CACHE_SETTINGS} == saved
+    return mod
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: kernels P1-P3 have no CPU mode")
+    return torch.device("cuda")
+
+
+def _level(b, h, w, n, seed):
+    """Uniform non-integer f32 pixels, keypoints from 5 px before to 5 px
+    past each edge."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0, 255, (b, h, w)).astype(np.float32)
+    ys = rng.integers(-5, h + 5, (b, n)).astype(np.int32)
+    xs = rng.integers(-5, w + 5, (b, n)).astype(np.int32)
+    return img, ys, xs
+
+
+def _wide():
+    """(1, 64, 1241) with keypoints at x = 1170, 1180, 1200 and 1240."""
+    img, ys, xs = _level(1, 64, 1241, 24, 0)
+    xs[0, :4] = (1170, 1180, 1200, 1240)
+    return img, ys, xs
+
+
+def _interpret(build_fn, args, img, ys, xs):
+    with pltpu.force_tpu_interpret_mode():
+        run = build_fn.__wrapped__(*args)
+        return np.asarray(run(jnp.asarray(img), jnp.asarray(ys), jnp.asarray(xs)))
+
+
+def _torch(*arrays):
+    return tuple(torch.from_numpy(a) for a in arrays)
+
+
+@_cpu_only
+@pytest.mark.parametrize("variant", [(8, 2, True, 256), (8, 4, False, 128),
+                                     (8, 4, True, 128), (8, 4, True, 512)])
+def test_band_windows_match_pallas(jprobe, variant):
+    kp_chunk, nslots, compact, lanes = variant
+    img, ys, xs = _wide()
+    ref = _interpret(jprobe.build, (1, 64, 1241, 24, *variant), img, ys, xs)
+    got = pp.band_windows(*_torch(img, ys, xs), kp_chunk, nslots, compact, lanes).numpy()
+    np.testing.assert_array_equal(got, ref)
+    if variant == (8, 2, True, 256):
+        # the right-edge clamp: x = 1180 and 1200 (>= 1173) come out
+        # shifted left of the window at c0 = x - 21; x = 1170 does not
+        for k, shifted in ((0, False), (1, True), (2, True)):
+            r0 = int(np.clip(ys[0, k] - 21, 0, 64 - 48))
+            window = img[0, r0:r0 + 48, xs[0, k] - 21:xs[0, k] + 22]
+            assert (not np.array_equal(got[0, k], window)) == shifted, k
+
+
+@_cpu_only
+@pytest.mark.parametrize("kernel", ["mxu", "roll"])
+def test_phase_windows_match_pallas(jprobe, kernel):
+    img, ys, xs = _level(2, 64, 300, 24, 1)
+    assert (img != np.round(img)).mean() > 0.99
+    build_fn = jprobe.build_v2 if kernel == "mxu" else jprobe.build_v3
+    ref = _interpret(build_fn, (2, 64, 300, 24, 8, 4), img, ys, xs)
+    fn = pp.phase_windows_mxu if kernel == "mxu" else pp.phase_windows_roll
+    got = fn(*_torch(img, ys, xs), 8, 4).numpy()
+    np.testing.assert_array_equal(got, ref)
+    tail = (np.clip(ys - 21, 0, 64 - 48) & 3)
+    assert (tail > 0).sum() > 5
+    for bi, k in zip(*np.nonzero(tail)):
+        assert (got[bi, k, 48 - tail[bi, k]:] == 0).all()
+        assert (got[bi, k, :48 - tail[bi, k]] != 0).any()
+
+
+@_cpu_only
+def test_band_windows_refuse_what_pallas_cannot_read(jprobe):
+    """512 lanes at w = 300: the Pallas copy would start at column -128,
+    which the interpreter reports as an out-of-bounds read."""
+    img, ys, xs = _level(2, 64, 300, 24, 1)
+    with pytest.raises(Exception, match="Out-of-bounds"):
+        _interpret(jprobe.build, (2, 64, 300, 24, 8, 4, True, 512), img, ys, xs)
+    with pytest.raises(ValueError, match="512-lane band"):
+        pp.band_windows(*_torch(img, ys, xs), 8, 4, True, 512)
+
+
+@pytest.mark.parametrize("shape", [(1, 47, 300), (1, 64, 42)])
+def test_windows_refuse_levels_smaller_than_the_window(shape):
+    img = torch.zeros(shape)
+    ys = xs = torch.zeros((1, 4), dtype=torch.int32)
+    for fn in (lambda: pp.band_windows(img, ys, xs, 8, 2),
+               lambda: pp.phase_windows_mxu(img, ys, xs),
+               lambda: pp.phase_windows_roll(img, ys, xs)):
+        with pytest.raises(ValueError, match="smaller than the 48x43 window"):
+            fn()
+
+
+def test_shared_memory_fit():
+    """Only nslots x band + barriers (+ P2's column product) within
+    232,448 B fits; P2's production (32, 16) needs 393,216 B of bands."""
+    assert pp.smem_bytes("P1", 4, 256) == (57_344, 229_408)
+    assert pp.smem_bytes("P2", 8) == (24_576, 8 * 24_584 + 48 * 43 * 4)
+    assert pp.smem_bytes("P3", 8) == (28_672, 229_440)
+    for kernel, nslots, lanes in (("P1", 4, 256), ("P1", 2, 512), ("P2", 8, 128),
+                                  ("P3", 8, 128)):
+        pp.check_fits(kernel, nslots, lanes)
+    for kernel, nslots, lanes in (("P1", 8, 256), ("P1", 16, 128), ("P2", 16, 128),
+                                  ("P3", 16, 128)):
+        with pytest.raises(ValueError, match=r"does not fit \(\d+ x [\d,]+ B"):
+            pp.check_fits(kernel, nslots, lanes)
+
+
+def test_phase_windows_equal_b2_above_the_bottom_rows():
+    """P2/P3's rows [:43] are B2's window wherever the two row clamps
+    (H - 48 and H - 43) agree, y <= H - 27; every row has values there."""
+    img, ys, xs = _torch(*_level(2, 96, 200, 300, 2))
+    got = pp.phase_windows_reference(img, ys, xs)
+    b2 = tpatch.extract_patches(img, ys, xs)
+    same = ys <= 96 - 27
+    assert same.sum() > 100 and (~same).sum() > 5
+    assert torch.equal(got[:, :, :43][same], b2[same])
+    assert not torch.equal(got[:, :, :43][~same], b2[~same])
+
+
+def test_probe_main_on_the_cpu(capsys):
+    rows = tprobe.main(device="cpu", shape=(2, 64, 300, 24), reps=1)
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert len(lines) == len(rows) == 1 + 12 + 3 + 2
+    refused = [r["label"] for r in rows if r["refused"]]
+    assert refused == ["chunk=32 slots=16 compact=1 lanes=512"]
+    assert "refused, a 512-lane band" in lines[12]
+    assert rows[1]["args"] == {"kp_chunk": 8, "nslots": 2, "compact": True, "lanes": 256}
+    assert [r["match"] for r in rows if r["kernel"] in ("P2", "P3")] == [True] * 5
+    assert all(r["ms"] is None for r in rows)
+
+
+def test_probe_main_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tprobe.main(["p1"])
+    with pytest.raises(SystemExit):
+        tprobe.main(["p4"], device="cpu")
+    run = tprobe.build_v3(8, 4)
+    assert run.func is pp.phase_windows_roll and run.keywords == {"kp_chunk": 8, "nslots": 4}
+    with pytest.raises(ValueError, match="must be int32 of shape"):
+        run(torch.zeros(1, 64, 300), torch.zeros((2, 24), dtype=torch.int32),
+            torch.zeros((2, 24), dtype=torch.int32))
+
+
+_KERNELS = {
+    "P1 8,2,T,256": (lambda *a: pp.band_windows(*a, 8, 2, True, 256),
+                     lambda *a: pp.band_windows_reference(*a, True, 256), pp.band_windows),
+    "P1 8,4,F,128": (lambda *a: pp.band_windows(*a, 8, 4, False, 128),
+                     lambda *a: pp.band_windows_reference(*a, False, 128), pp.band_windows),
+    "P1 8,4,T,128": (lambda *a: pp.band_windows(*a, 8, 4, True, 128),
+                     lambda *a: pp.band_windows_reference(*a, True, 128), pp.band_windows),
+    "P2 16,8": (lambda *a: pp.phase_windows_mxu(*a, 16, 8), pp.phase_windows_reference,
+                pp.phase_windows_mxu),
+    "P3 16,8": (lambda *a: pp.phase_windows_roll(*a, 16, 8), pp.phase_windows_reference,
+                pp.phase_windows_roll),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_KERNELS))
+def test_probe_kernel_matches_plain(cuda, name):
+    fn, ref, wrapper = _KERNELS[name]
+    img, ys, xs = _torch(*_level(2, 376, 1241, 300, 3))
+    before = wrapper.launches
+    got = fn(img.to(cuda), ys.to(cuda), xs.to(cuda))
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert torch.equal(got.cpu(), ref(img, ys, xs))
+
+
+@pytest.mark.cuda
+def test_probe_kernel_refuses_slots_that_do_not_fit(cuda):
+    img = torch.zeros((1, 64, 300), device=cuda)
+    ys = xs = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="does not fit"):
+        pp.phase_windows_mxu(img, ys, xs, 32, 16)

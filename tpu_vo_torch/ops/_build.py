@@ -20,7 +20,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("select.cu", "patch.cu", "fast.cu")
+SOURCES = ("select.cu", "patch.cu", "fast.cu", "patch_probe.cu")
 # -fmad=false: the select kernel's Harris arithmetic must round every
 # product and sum on its own, as the eager plain version does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -98,6 +98,10 @@ def library() -> ctypes.CDLL:
     lib.tvo_extract_patches.restype = _I
     lib.tvo_fast_margin.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P]
     lib.tvo_fast_margin.restype = _I
+    lib.tvo_band_windows.argtypes = [_P, _P, _P, _P, *[_I] * 10, _P]
+    lib.tvo_band_windows.restype = _I
+    lib.tvo_phase_windows.argtypes = [_P, _P, _P, _P, *[_I] * 9, _P]
+    lib.tvo_phase_windows.restype = _I
     return lib
 
 

@@ -1,0 +1,243 @@
+"""Kernels P1, P2 and P3: keypoint windows staged through shared memory.
+
+The three functions of tools/patch_slots_probe.py that reach
+pl.pallas_call (the probe that chose kernel B2's design) as CUDA kernels
+(csrc/patch_probe.cu):
+
+  band_windows        P1, replaces `build` (Pallas body `_kernel`);
+  phase_windows_mxu   P2, replaces `build_v2` (body `_v2_kernel`);
+  phase_windows_roll  P3, replaces `build_v3` (body `_v3_kernel`).
+
+Each takes (B, H, W) float32 levels and int32 (B, N) keypoints and
+returns (B, N, 48, 43) float32 windows: for a CUDA tensor through its
+kernel, for a CPU tensor through its plain version. A kernel block takes
+`kp_chunk` keypoints and keeps `nslots` bands in flight, as a grid step
+of the TPU kernel does.
+
+With r0 = clip(y - 21, 0, H - 48) and c0 = clip(x - 21, 0, W - 43):
+
+- P1 pads the level with zeros to hp = max(ceil8(H), 56) rows and
+  wp = (ceil(W / 128) + 1) * 128 columns and copies one (56, lanes) band
+  per keypoint, from row r8 = clip(floor8(r0), 0, hp - 56) and column
+  cc = min(floor128(c0), (floor(W / 128) + 1) * 128 - lanes). With
+  `compact`, out[r, j] = pad[r0 + r, cc + (c0 - floor128(c0) + j) mod
+  lanes]; without, out[r, j] = pad[r8 + r, cc + j], the band's top-left
+  corner. The clamp of cc does not move the column offset, so near the
+  right edge the window comes out shifted left; that is the TPU kernel's
+  function, and the port computes it.
+- P2 and P3 compute one function, `phase_windows_reference`:
+  out[r, j] = level[r0 + r, c0 + j] for r < 48 - (r0 mod 4), and 0 in
+  the last r0 mod 4 rows. P2 compacts its (48, 128) band by two one-hot
+  products, P3 by a lane roll and a row offset into a 56-row slot whose
+  last 8 rows are zero.
+
+H < 48 or W < 43 is refused (the TPU kernels clip with a negative upper
+bound), and so is P1 with (floor(W / 128) + 1) * 128 < lanes (the TPU
+kernel's copy would start at a negative column). Only the kernels are
+bound by shared memory: a variant whose slots do not fit in one block
+raises ValueError on a CUDA tensor; the plain versions compute every
+variant.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tpu_vo_torch.ops.patch import RAW_RADIUS, RAW_SIZE, _check
+
+ROWS = 48          # window rows, as the TPU kernels return them
+BAND_ROWS = 56     # P1's band rows, and P3's slot rows (48 + 8 zero rows)
+PHASE_LANES = 128  # P2's and P3's band columns
+SMEM_LIMIT = 232_448  # shared memory one block may use on an H100
+_BARRIER_BYTES = 8     # one mbarrier per slot
+_MAX_GRID_Y = 65535    # CUDA's limit on gridDim.y, which holds the batch
+
+
+def _check_defined(levels, ys, xs) -> None:
+    _check(levels, ys, xs)
+    h, w = levels.shape[-2:]
+    if h < ROWS or w < RAW_SIZE:
+        raise ValueError(f"levels of {h}x{w} are smaller than the "
+                         f"{ROWS}x{RAW_SIZE} window")
+
+
+def _check_slots(kp_chunk: int, nslots: int) -> None:
+    if kp_chunk < 1 or nslots < 1:
+        raise ValueError(f"kp_chunk {kp_chunk} and nslots {nslots} must be "
+                         f"positive")
+
+
+def _check_lanes(w: int, lanes: int) -> None:
+    if lanes < 128 or lanes % 128:
+        raise ValueError(f"lanes {lanes} must be a positive multiple of 128")
+    if (w // 128 + 1) * 128 < lanes:
+        raise ValueError(f"a {lanes}-lane band is wider than a level of "
+                         f"width {w} allows ({(w // 128 + 1) * 128} lanes)")
+
+
+def smem_bytes(kernel: str, nslots: int, lanes: int = PHASE_LANES):
+    """(bytes of one band, bytes of shared memory a block of `kernel`
+    ("P1", "P2" or "P3") uses with `nslots` slots)."""
+    rows = {"P1": BAND_ROWS, "P2": ROWS, "P3": BAND_ROWS}[kernel]
+    band = 4 * rows * (lanes if kernel == "P1" else PHASE_LANES)
+    extra = 4 * ROWS * RAW_SIZE if kernel == "P2" else 0  # P2's column product
+    return band, nslots * (band + _BARRIER_BYTES) + extra
+
+
+def check_fits(kernel: str, nslots: int, lanes: int = PHASE_LANES) -> None:
+    """Raise ValueError where `nslots` bands of `kernel` do not fit in the
+    shared memory of one block."""
+    band, total = smem_bytes(kernel, nslots, lanes)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"does not fit ({nslots} x {band:,} B = {nslots * band:,} B "
+                         f"of bands, {total:,} B in all > {SMEM_LIMIT:,} B of shared "
+                         f"memory per block)")
+
+
+def _starts(ys: torch.Tensor, xs: torch.Tensor, h: int, w: int):
+    r0 = torch.clamp(ys.to(torch.int64) - RAW_RADIUS, 0, h - ROWS)
+    c0 = torch.clamp(xs.to(torch.int64) - RAW_RADIUS, 0, w - RAW_SIZE)
+    return r0, c0
+
+
+def _band_padded_shape(h: int, w: int):
+    """(hp, wp): the zero-padded level P1 copies its bands from."""
+    return max(-(-h // 8) * 8, BAND_ROWS), (-(-w // 128) + 1) * 128
+
+
+def band_index(h: int, w: int, ys: torch.Tensor, xs: torch.Tensor,
+               compact: bool = True, lanes: int = 256):
+    """(rows (B, N, 48), cols (B, N, 43)) int64: the pixels of P1's padded
+    level that each window element holds."""
+    hp, _ = _band_padded_shape(h, w)
+    r0, c0 = _starts(ys, xs, h, w)
+    c128 = c0 // 128 * 128
+    cc = torch.clamp(c128, max=(w // 128 + 1) * 128 - lanes)
+    r = torch.arange(ROWS, device=ys.device)
+    j = torch.arange(RAW_SIZE, device=ys.device)
+    if compact:
+        return r0[..., None] + r, cc[..., None] + ((c0 - c128)[..., None] + j) % lanes
+    r8 = torch.clamp(r0 // 8 * 8, 0, max(hp - BAND_ROWS, 0))
+    return r8[..., None] + r, cc[..., None] + j
+
+
+def phase_index(h: int, w: int, ys: torch.Tensor, xs: torch.Tensor):
+    """(rows (B, N, 48), cols (B, N, 43), keep (B, N, 48)): the level
+    pixels of P2's and P3's windows, and the rows that are not zero."""
+    r0, c0 = _starts(ys, xs, h, w)
+    r = torch.arange(ROWS, device=ys.device)
+    keep = r < ROWS - (r0 & 3)[..., None]
+    return r0[..., None] + r, c0[..., None] + torch.arange(RAW_SIZE, device=ys.device), keep
+
+
+def _gather(img: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    bi = torch.arange(img.shape[0], device=img.device)[:, None, None, None]
+    return img[bi, rows[..., :, None], cols[..., None, :]]
+
+
+def band_windows_reference(levels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                           compact: bool = True, lanes: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of kernel P1: (B, N, 48, 43) float32."""
+    _check_defined(levels, ys, xs)
+    b, h, w = levels.shape
+    _check_lanes(w, lanes)
+    hp, wp = _band_padded_shape(h, w)
+    pad = torch.nn.functional.pad(levels, (0, wp - w, 0, hp - h))
+    return _gather(pad, *band_index(h, w, ys, xs, compact, lanes))
+
+
+def phase_windows_reference(levels: torch.Tensor, ys: torch.Tensor,
+                            xs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernels P2 and P3: (B, N, 48, 43) float32."""
+    _check_defined(levels, ys, xs)
+    rows, cols, keep = phase_index(*levels.shape[-2:], ys, xs)
+    return torch.where(keep[..., None], _gather(levels, rows, cols), 0.0)
+
+
+def _launch(wrapper, fn_name: str, pad: torch.Tensor, ys: torch.Tensor,
+            xs: torch.Tensor, h: int, w: int, *args: int) -> torch.Tensor:
+    """Launch the C function `fn_name` on the padded levels and count the
+    launch on `wrapper`."""
+    from tpu_vo_torch.ops import _build
+
+    if not (ys.is_contiguous() and xs.is_contiguous()):
+        raise ValueError("ys and xs must be contiguous")
+    b, hp, wp = pad.shape
+    if b > _MAX_GRID_Y:
+        raise ValueError(f"{wrapper.__name__}: batch {b} above {_MAX_GRID_Y}")
+    n = ys.shape[-1]
+    out = torch.empty((b, n, ROWS, RAW_SIZE), dtype=torch.float32, device=pad.device)
+    if b * n == 0:
+        return out
+    lib = _build.library()
+    stream = torch.cuda.current_stream(pad.device).cuda_stream
+    err = getattr(lib, fn_name)(pad.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+                                out.data_ptr(), b, h, w, n, hp, wp, *args, stream)
+    _build.check_launch(err, wrapper.__name__)
+    wrapper.launches += 1
+    return out
+
+
+def band_windows(levels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                 kp_chunk: int, nslots: int, compact: bool = True,
+                 lanes: int = 256) -> torch.Tensor:
+    """(B, N, 48, 43) windows of (B, H, W) levels through (56, lanes)
+    bands: kernel P1 on a CUDA tensor, the plain version on a CPU tensor."""
+    _check_defined(levels, ys, xs)
+    _check_slots(kp_chunk, nslots)
+    b, h, w = levels.shape
+    _check_lanes(w, lanes)
+    if levels.device.type == "cuda":
+        check_fits("P1", nslots, lanes)
+        hp, wp = _band_padded_shape(h, w)
+        pad = torch.nn.functional.pad(levels, (0, wp - w, 0, hp - h))
+        return _launch(band_windows, "tvo_band_windows", pad, ys, xs, h, w,
+                       kp_chunk, nslots, int(compact), lanes)
+    if levels.device.type == "cpu":
+        return band_windows_reference(levels, ys, xs, compact, lanes)
+    raise ValueError(f"band_windows: unsupported device {levels.device}")
+
+
+def _phase_padded(levels: torch.Tensor) -> torch.Tensor:
+    """The level zero-padded once to (hp + 4, wp + 64), hp = max(ceil8(H),
+    48), wp = max(ceil128(W), 128): phase copy (pr, pc) of the TPU wrapper
+    at (sr, sc) is this at (sr + 4 pr, sc + 64 pc), so the kernels copy
+    their bands straight from it."""
+    h, w = levels.shape[-2:]
+    hp, wp = max(-(-h // 8) * 8, ROWS), max(-(-w // 128) * 128, PHASE_LANES)
+    return torch.nn.functional.pad(levels, (0, wp + 64 - w, 0, hp + 4 - h))
+
+
+def _phase_windows(wrapper, kernel: str, levels, ys, xs, kp_chunk, nslots,
+                   roll: bool) -> torch.Tensor:
+    _check_defined(levels, ys, xs)
+    _check_slots(kp_chunk, nslots)
+    if levels.device.type == "cuda":
+        check_fits(kernel, nslots)
+        h, w = levels.shape[-2:]
+        return _launch(wrapper, "tvo_phase_windows", _phase_padded(levels), ys, xs, h, w,
+                       kp_chunk, nslots, int(roll))
+    if levels.device.type == "cpu":
+        return phase_windows_reference(levels, ys, xs)
+    raise ValueError(f"{wrapper.__name__}: unsupported device {levels.device}")
+
+
+def phase_windows_mxu(levels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                      kp_chunk: int = 16, nslots: int = 8) -> torch.Tensor:
+    """(B, N, 48, 43) windows through (48, 128) bands compacted by two
+    one-hot f32 products: kernel P2 on a CUDA tensor, the plain version on
+    a CPU tensor."""
+    return _phase_windows(phase_windows_mxu, "P2", levels, ys, xs, kp_chunk, nslots, False)
+
+
+def phase_windows_roll(levels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                       kp_chunk: int = 16, nslots: int = 8) -> torch.Tensor:
+    """(B, N, 48, 43) windows through (48, 128) bands compacted by a lane
+    roll and a row offset: kernel P3 on a CUDA tensor, the plain version
+    on a CPU tensor."""
+    return _phase_windows(phase_windows_roll, "P3", levels, ys, xs, kp_chunk, nslots, True)
+
+
+band_windows.launches = 0        # kernel launches, counted by _launch
+phase_windows_mxu.launches = 0
+phase_windows_roll.launches = 0

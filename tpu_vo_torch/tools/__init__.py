@@ -1,1 +1,2 @@
-"""Tools that run the port on the card (stage_bench)."""
+"""Tools that run the port on the card (stage_bench, patch_slots_probe,
+device_time)."""
