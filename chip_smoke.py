@@ -7,16 +7,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from tpu_vo_torch/csrc (nvcc, sm_90a);
   3. compare each kernel with its plain PyTorch version on the card:
-     select_maps (B1) and fast_margin (B3) at the 8 pyramid-level shapes
-     of 32 1241x376 frames, fast_margin also at 37x101 and 9x11,
-     extract_patches (B2) on one frame's 1200 keypoints and on a level
-     smaller than the 43x43 window; all must agree bit for bit;
+     select_maps_levels (B1, one launch for all levels) on the 8 pyramid
+     levels of the main path's 32 1241x376 frames, of 8 frames of
+     uniform noise and of the near-threshold compass pattern at the 8
+     level shapes, and on odd shapes (37x101, 9x11, 105x347, 77x129) at
+     borders 31 and 4; fast_margin (B3) at the 8 level shapes, 37x101 and
+     9x11; extract_patches_levels (B2, one launch for all levels' slots)
+     on all 1200 slots of the main path's 32 frames, with slots clamped
+     at every edge, and on a table with a 30x60 level whose slot count
+     leaves a tail of fewer than 4 windows; all must agree bit for bit;
   4. drive the main path, run_sequence_batched on a (32, 376, 1241) uint8
      synthetic sequence with 1200 keypoints and 256-hypothesis 5-point
      RANSAC, with the kernels' launch counters reset just before; check
-     that B1 and B2 launched, the poses are finite and the trajectory
-     is accurate, and that a small sequence gives the same answer on the
-     card as on the CPU;
+     that B1 and B2 each launched exactly once, the poses are finite and
+     the trajectory is accurate, and that a small sequence gives the same
+     answer on the card as on the CPU;
   5. drive the FAST-detect path at full width: the stage benchmark's
      ablation (tpu_vo_torch.tools.stage_bench) on 8 frames of 1241x376,
      counters reset just before; check that B3 launched at least once
@@ -35,7 +40,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
-     operations over 67 TFLOP/s, from this run's shapes; P1 (8, 2,
+     operations over 67 TFLOP/s (B1: its lane-instructions, counted from
+     this run's compass candidates, over 33.5 T per second), from this
+     run's shapes; P1 (8, 2,
      compact, 256 lanes), P2 (16, 8) and P3 (16, 8) and B2 at the probe's
      keypoints as the probe timed them, beside their plain versions and
      bounds, and the f32 operations of P2's one-hot products;
@@ -64,19 +71,21 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpu_vo_torch.configs import ORBConfig, RansacConfig, VOConfig  # noqa: E402
 from tpu_vo_torch.features import brief, orb, orientation, patches  # noqa: E402
+from tpu_vo_torch.features.fast import _border_mask as fast_border  # noqa: E402
 from tpu_vo_torch.image.filters import gaussian_blur  # noqa: E402
 from tpu_vo_torch.image.pyramid import build_pyramid  # noqa: E402
 from tpu_vo_torch.ops import _build  # noqa: E402
 from tpu_vo_torch.ops import patch_probe  # noqa: E402
 from tpu_vo_torch.ops.fast import fast_margin, fast_margin_reference  # noqa: E402
 from tpu_vo_torch.ops.patch import (RAW_RADIUS, RAW_SIZE, extract_patches,  # noqa: E402
-                                    extract_patches_reference)
-from tpu_vo_torch.ops.select import select_maps, select_maps_reference  # noqa: E402
+                                    extract_patches_levels, extract_patches_reference)
+from tpu_vo_torch.ops.select import (compass_candidates, select_maps,  # noqa: E402
+                                     select_maps_levels, select_maps_reference)
 from tpu_vo_torch.pipeline import runner, step  # noqa: E402
 from tpu_vo_torch.tools import patch_slots_probe, stage_bench  # noqa: E402
 from tpu_vo_torch.tools.device_time import device_time_ms  # noqa: E402
 from tpu_vo_torch.utils.profiling import card as _card, cuda_times  # noqa: E402
-from tpu_vo_torch.utils.synthetic import make_sequence  # noqa: E402
+from tpu_vo_torch.utils.synthetic import compass_pattern, make_sequence  # noqa: E402
 
 W, H, T = 1241, 376, 32
 # P1's 128- and 512-lane bands, which the probe's sweep runs only at 16
@@ -114,12 +123,19 @@ F32_OPS_PER_S = 67e12
 # with the ninth value) and 15 maxes, then 4 for margin, corner and
 # score; needed inside the 3-pixel border only.
 FAST_OPS = 16 + 2 * (4 * 16 + 15) + 4
-# Fused selection: FAST as above, strict NMS (8 maxes, 1 compare, 1 and),
-# Harris (two Sobel stencils of 6, 3 products, 3 separable 7x7 box sums
-# of 12 adds, 8 for the response, 1 border select), the packed key (bit
-# reverse, shift, or, subtract, select) and half a compare for the
-# 2-row pool; needed inside the edge-threshold border only.
-SELECT_OPS = FAST_OPS + 10 + (12 + 3 + 36 + 8 + 1) + 5 + 1
+# Kernel B1 is counted in issued lane-instructions, one per lane per clock
+# for f32 min/max and adds alike: 132 SMs x 128 lanes x 1.98 GHz.
+LANE_INSTR_PER_S = 33.5e12
+# Per pixel inside the edge-threshold border: the compass test (4
+# differences, 8 compares, 4 to combine), strict NMS (8 maxes, 1 compare,
+# 1 and), Harris (two Sobel stencils of 6, 3 products, 3 separable 7x7 box
+# sums of 12 adds, 8 for the response, 1 border select), the packed key
+# (bit reverse, shift, or, subtract, select) and half a compare for the
+# 2-row pool.
+SELECT_OPS = 16 + 10 + (12 + 3 + 36 + 8 + 1) + 5 + 1
+# Per compass candidate: the other 12 differences, the exact arc scan (47
+# min/max per polarity) and 2 to join the polarities.
+SELECT_ARC_OPS = 12 + 2 * 47 + 2
 
 
 def _cuda_ms(fn, warmup=WARMUP, reps=REPS) -> float:
@@ -252,40 +268,67 @@ def main() -> int:
     # 3. kernels against their plain versions, on the card
     levels = [lv.contiguous() for lv in build_pyramid(frames, ocfg.n_levels, ocfg.scale_factor)]
     budgets = orb.features_per_level(ocfg.n_features, ocfg.n_levels, ocfg.scale_factor)
+    thr, border = ocfg.fast_threshold, ocfg.edge_threshold
+    shapes = [tuple(lv.shape) for lv in levels]
+    noise = stage_bench.make_levels(stage_bench.make_frames(stage_bench.B, H, W, dev))
+    pattern = [torch.from_numpy(compass_pattern(8, h, w, thr, seed=i)).to(dev)
+               for i, (_, h, w) in enumerate(shapes)]
+    g = torch.Generator().manual_seed(0)
+    odd = [torch.randint(0, 256, (3, h, w), generator=g).float().to(dev)
+           for h, w in ((37, 101), (9, 11), (105, 347), (77, 129))]
     sel_err = 0.0
-    kps = []
-    for lvl, n_level in zip(levels, budgets):
-        pk, hk, bk = select_maps(lvl, ocfg.fast_threshold, ocfg.edge_threshold)
-        pr, hr, br = select_maps_reference(lvl, ocfg.fast_threshold, ocfg.edge_threshold)
-        torch.cuda.synchronize()
-        if bk != br or not torch.equal(pk, pr) or not torch.equal(hk, hr):
-            raise AssertionError(f"select_maps differs from its plain version at "
-                                 f"{tuple(lvl.shape)}: packed {int((pk != pr).sum())} "
-                                 f"cells, harris max {float((hk - hr).abs().max())}")
-        sel_err = max(sel_err, float((hk - hr).abs().max()), float((pk - pr).abs().max()))
-        kps.append(orb._rank_from_maps(pk, hk, bk, lvl.shape[-1], n_level, ocfg,
-                                       lvl.shape[-2] * lvl.shape[-1]))
-    print(f"select_maps == plain at {[tuple(lv.shape) for lv in levels]}", flush=True)
+    maps = None
+    for name, lvls, brd in (("main path", levels, border), ("noise", noise, border),
+                            ("compass pattern", pattern, border), ("odd shapes", odd, border),
+                            ("odd shapes", odd, 4)):
+        lvls = [lv.contiguous() for lv in lvls]
+        got = select_maps_levels(lvls, thr, brd)
+        for lvl, (pk, hk, bk) in zip(lvls, got):
+            pr, hr, br = select_maps_reference(lvl, thr, brd)
+            torch.cuda.synchronize()
+            if bk != br or not torch.equal(pk, pr) or not torch.equal(hk, hr):
+                raise AssertionError(
+                    f"select_maps_levels differs from its plain version on the {name} at "
+                    f"{tuple(lvl.shape)}, border {brd}: packed {int((pk != pr).sum())} cells, "
+                    f"harris max {float((hk - hr).abs().max())}")
+            sel_err = max(sel_err, float((hk - hr).abs().max()), float((pk - pr).abs().max()))
+        maps = maps or got
+        print(f"select_maps_levels == plain on the {name} at {[tuple(lv.shape) for lv in lvls]}, "
+              f"border {brd}", flush=True)
+    kps = [orb._rank_from_maps(pk, hk, bk, lvl.shape[-1], n_level, ocfg,
+                               lvl.shape[-2] * lvl.shape[-1])
+           for lvl, n_level, (pk, hk, bk) in zip(levels, budgets, maps)]
 
+    # B2 on all 1200 slots of the main path; the first 8 slots of each
+    # level moved to every edge and corner (clamped windows)
+    starts = np.cumsum([0] + [ys.shape[1] for ys, _, _, _ in kps])[:-1].tolist()
+    main_ys = torch.cat([ys for ys, _, _, _ in kps], 1).contiguous()
+    main_xs = torch.cat([xs for _, xs, _, _ in kps], 1).contiguous()
+    kys, kxs = main_ys.clone(), main_xs.clone()
+    for lvl, a in zip(levels, starts):
+        h, w = lvl.shape[-2:]
+        edge = torch.tensor([[-5, h + 5, 10, 10, -5, h + 5, 0, h - 1],
+                             [10, 10, -5, w + 5, -5, w + 5, 0, w - 1]], dtype=torch.int32)
+        kys[:, a:a + 8], kxs[:, a:a + 8] = edge[0].to(dev), edge[1].to(dev)
+    tiny = torch.randint(0, 256, (2, 30, 60), generator=g).float().to(dev)
+    small_levels = [tiny, levels[0][:2].contiguous(), levels[7][:2].contiguous()]
+    tys = torch.cat([torch.randint(-5, lv.shape[1] + 5, (2, n), generator=g, dtype=torch.int32)
+                     for lv, n in zip(small_levels, (17, 12, 8))], 1).to(dev)
+    txs = torch.cat([torch.randint(-5, lv.shape[2] + 5, (2, n), generator=g, dtype=torch.int32)
+                     for lv, n in zip(small_levels, (17, 12, 8))], 1).to(dev)
     patch_err = 0.0
-    n_kp = 0
-    for lvl, (ys, xs, _, _) in zip(levels, kps):
-        ys0, xs0 = ys[:1].contiguous(), xs[:1].contiguous()
-        n_kp += ys0.shape[1]
-        a = extract_patches(lvl[:1], ys0, xs0)
-        b = extract_patches_reference(lvl[:1], ys0, xs0)
+    for name, lvls, ys, xs, offs in (
+            (f"all {kys.shape[1]} slots of the main path", levels, kys, kxs, starts),
+            ("a 30x60 level and a tail of 2 windows", small_levels, tys, txs, [0, 17, 29])):
+        a = extract_patches_levels(lvls, ys, xs, offs)
+        b = torch.cat([extract_patches_reference(lv, ys[:, o:e], xs[:, o:e])
+                       for lv, o, e in zip(lvls, offs, offs[1:] + [ys.shape[1]])], 1)
         torch.cuda.synchronize()
         if not torch.equal(a, b):
-            raise AssertionError(f"extract_patches differs at {tuple(lvl.shape)}")
+            raise AssertionError(f"extract_patches_levels differs on {name}: "
+                                 f"{int((a != b).flatten(2).any(-1).sum())} windows")
         patch_err = max(patch_err, float((a - b).abs().max()))
-    g = torch.Generator().manual_seed(0)
-    tiny = torch.randint(0, 256, (2, 30, 60), generator=g).float().to(dev)
-    tys = torch.randint(-5, 35, (2, 17), generator=g, dtype=torch.int32).to(dev)
-    txs = torch.randint(-5, 65, (2, 17), generator=g, dtype=torch.int32).to(dev)
-    if not torch.equal(extract_patches(tiny, tys, txs), extract_patches_reference(tiny, tys, txs)):
-        raise AssertionError("extract_patches differs on a level smaller than the window")
-    print(f"extract_patches == plain on {n_kp} keypoints of one frame and a 30x60 level",
-          flush=True)
+        print(f"extract_patches_levels == plain on {name} ({ys.numel()} windows)", flush=True)
 
     fast_err = 0.0
     odd = [torch.randint(0, 256, shape, generator=g).float().to(dev)
@@ -310,8 +353,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
     print(f"main path launches: {launches}", flush=True)
-    if launches["select_maps"] < ocfg.n_levels or launches["extract_patches"] < 1:
-        raise AssertionError(f"main path did not go through the kernels: {launches}")
+    if launches["select_maps"] != 1 or launches["extract_patches"] != 1:
+        raise AssertionError(f"the main path did not launch B1 and B2 once each: {launches}")
     if not (torch.isfinite(poses.R).all() and torch.isfinite(poses.t).all()):
         raise AssertionError("non-finite poses")
     pose_ok = float(diags["pose_ok"].float().mean())
@@ -349,7 +392,7 @@ def main() -> int:
     torch.cuda.synchronize()
     b3_launches = {name: k.launches for name, k in kernels.items()}
     print(f"FAST-detect path launches: {b3_launches}", flush=True)
-    if (b3_launches["fast_margin"] < ocfg.n_levels or b3_launches["select_maps"] < ocfg.n_levels
+    if (b3_launches["fast_margin"] < ocfg.n_levels or b3_launches["select_maps"] < 1
             or b3_launches["extract_patches"] < 1):
         raise AssertionError(f"the ablation did not go through the kernels: {b3_launches}")
     ab_frames = stage_bench.make_frames(stage_bench.B, H, W, dev)
@@ -445,22 +488,24 @@ def main() -> int:
     ms_main = statistics.median(main_times)
     q1, _, q3 = statistics.quantiles(main_times, n=4)
     ms_s1, ms_s2, ms_s3 = (_cuda_ms(f) for f in (stage1, stage2, stage3))
-    thr, border = ocfg.fast_threshold, ocfg.edge_threshold
-    sel_ms = sum(_cuda_ms(lambda lv=lv: select_maps(lv, thr, border)) for lv in levels)
+    sel_ms = _cuda_ms(lambda: select_maps_levels(levels, thr, border))
     sel_plain = sum(_cuda_ms(lambda lv=lv: select_maps_reference(lv, thr, border))
                     for lv in levels)
-    kp = [(ys.contiguous(), xs.contiguous()) for ys, xs, _, _ in kps]
-    pat_ms = sum(_cuda_ms(lambda lv=lv, k=k: extract_patches(lv, *k)) for lv, k in zip(levels, kp))
-    pat_plain = sum(_cuda_ms(lambda lv=lv, k=k: extract_patches_reference(lv, *k))
-                    for lv, k in zip(levels, kp))
+    ends = starts[1:] + [main_ys.shape[1]]
+    pat_ms = _cuda_ms(lambda: extract_patches_levels(levels, main_ys, main_xs, starts))
+    pat_plain = _cuda_ms(lambda: [extract_patches_reference(lv, main_ys[:, o:e], main_xs[:, o:e])
+                                  for lv, o, e in zip(levels, starts, ends)])
+    kp = [(main_ys[:, o:e], main_xs[:, o:e]) for o, e in zip(starts, ends)]
     fast_ms = sum(_cuda_ms(lambda lv=lv: fast_margin(lv, thr)) for lv in levels)
     fast_plain = sum(_cuda_ms(lambda lv=lv: fast_margin_reference(lv, thr), warmup=1, reps=2)
                      for lv in levels)
-    shapes = [tuple(lv.shape) for lv in levels]
-    sel_bound = _bound(sum(b * (8 * h * w + 4 * ((h + 1) // 2) * (w + w % 2))
-                           for b, h, w in shapes),
-                       SELECT_OPS * sum(b * (h - 2 * border) * (w - 2 * border)
-                                        for b, h, w in shapes))
+    inner = [fast_border(lv.shape[-2], lv.shape[-1], border, dev) for lv in levels]
+    n_inner = sum(lv.shape[0] * int(m.sum()) for lv, m in zip(levels, inner))
+    n_cand = sum(int((compass_candidates(lv, thr) & m).sum()) for lv, m in zip(levels, inner))
+    sel_bytes = sum(b * (8 * h * w + 4 * ((h + 1) // 2) * (w + w % 2)) for b, h, w in shapes)
+    sel_instr = SELECT_OPS * n_inner + SELECT_ARC_OPS * n_cand
+    sel_bound = max((sel_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                    (sel_instr / LANE_INSTR_PER_S * 1e3, "operations"))
     pat_bound = _bound(4 * _window_pixels(levels, kp)
                        + sum(ys.shape[0] * ys.shape[1] * (8 + 4 * RAW_SIZE * RAW_SIZE)
                              for ys, _ in kp), 0)
@@ -493,9 +538,14 @@ def main() -> int:
           f"{peak_gib:.3f} GiB {tag}")
     print(f"stage 1 features {ms_s1:.3f} ms, stage 2 pairs {ms_s2:.3f} ms, "
           f"stage 3 chain {ms_s3:.3f} ms {tag}")
+    print(f"select_maps bound: {sel_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes "
+          f"({sel_bytes} B), {sel_instr / LANE_INSTR_PER_S * 1e3:.4f} ms by lane-instructions "
+          f"({sel_instr}: {n_inner} pixels inside the border, {n_cand} compass candidates "
+          f"among them) {tag}")
     for name, k_ms, p_ms, (b_ms, by) in (
-            (f"select_maps 8 levels x {T} frames", sel_ms, sel_plain, sel_bound),
-            (f"extract_patches 1200 kps x {T} frames", pat_ms, pat_plain, pat_bound),
+            (f"select_maps_levels 8 levels x {T} frames, 1 launch", sel_ms, sel_plain, sel_bound),
+            (f"extract_patches_levels 1200 kps x {T} frames, 1 launch", pat_ms, pat_plain,
+             pat_bound),
             (f"fast_margin 8 levels x {T} frames", fast_ms, fast_plain, fast_bound)):
         print(f"{name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({by}) {tag}")

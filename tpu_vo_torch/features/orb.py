@@ -1,13 +1,16 @@
 """ORB detect-and-compute, batched over frames (port of
 tpu_vo/features/orb.py, accelerator route).
 
-Per pyramid level, over all B frames at once:
-  select_maps (kernel B1): FAST-9/16 + strict NMS + border + dense
-      Harris + packed keys + vertical 2-row pool
-  _rank_from_maps: exact stage-1 cut of the 2n best FAST keys, then the
-      n best by Harris response (retainBest twice)
-  extract_patches (kernel B2): one 43x43 window per keypoint
-  angles, blur and steered rBRIEF bits from the windows (features/patches)
+Over all B frames and pyramid levels at once:
+  select_maps_levels (kernel B1, one launch for all levels): FAST-9/16 +
+      strict NMS + border + dense Harris + packed keys + vertical 2-row
+      pool
+  _rank_from_maps, per level: exact stage-1 cut of the 2n best FAST keys,
+      then the n best by Harris response (retainBest twice)
+  extract_patches_levels (kernel B2, one launch for all levels' slots):
+      one 43x43 window per keypoint
+  angles, blur and steered rBRIEF bits from all windows at once
+      (features/patches; per-window functions)
 Slots are ordered by level, then by descending Harris response; every
 stage runs at fixed capacity with a validity mask.
 
@@ -28,8 +31,8 @@ from tpu_vo_torch.configs import ORBConfig
 from tpu_vo_torch.features import brief, fast, harris, patches
 from tpu_vo_torch.features.fast import _border_mask
 from tpu_vo_torch.image.pyramid import build_pyramid
-from tpu_vo_torch.ops.patch import extract_patches
-from tpu_vo_torch.ops.select import _bit_reverse, select_maps
+from tpu_vo_torch.ops.patch import extract_patches_levels
+from tpu_vo_torch.ops.select import _bit_reverse, select_maps_levels
 
 
 class ORBFeatures(NamedTuple):
@@ -132,35 +135,32 @@ def _select_level_keypoints(lvl: torch.Tensor, n_level: int, cfg: ORBConfig):
 def detect_and_compute(img: torch.Tensor,
                        cfg: ORBConfig = ORBConfig()) -> ORBFeatures:
     """ORB features of (B, H, W) or (H, W) grayscale frames (uint8 or
-    float32 0..255); the kernels launch once per level for the batch."""
+    float32 0..255); each kernel launches once for all levels and frames."""
     single = img.dim() == 2
     frames = img[None] if single else img
     b = frames.shape[0]
     dev = frames.device
-    levels = build_pyramid(frames, cfg.n_levels, cfg.scale_factor)
     budgets = features_per_level(cfg.n_features, cfg.n_levels,
                                  cfg.scale_factor)
+    used = [(level, lvl.contiguous(), n_level) for level, (lvl, n_level) in enumerate(
+        zip(build_pyramid(frames, cfg.n_levels, cfg.scale_factor), budgets)) if n_level > 0]
+    levels = [lvl for _, lvl, _ in used]
+    maps = select_maps_levels(levels, cfg.fast_threshold, cfg.edge_threshold)
 
-    xs_all, ys_all, resp_all, ang_all, valid_all = [], [], [], [], []
-    oct_all, size_all, scale_all, bits_all = [], [], [], []
-    for level, (lvl, n_level) in enumerate(zip(levels, budgets)):
-        if n_level <= 0:
-            continue
+    xs_all, ys_all, resp_all, valid_all = [], [], [], []
+    oct_all, size_all, scale_all, starts = [], [], [], []
+    slots = 0
+    for (level, lvl, n_level), (packed, hmap, idx_bits) in zip(used, maps):
         h, w = lvl.shape[-2:]
-        lvl = lvl.contiguous()
-        packed, hmap, idx_bits = select_maps(lvl, cfg.fast_threshold,
-                                             cfg.edge_threshold)
         ys, xs, resp, valid = _rank_from_maps(packed, hmap, idx_bits, w,
                                               n_level, cfg, h * w)
-        raw = extract_patches(lvl, ys.contiguous(), xs.contiguous())
-        ang = patches.angles_from_patches(raw)
-        bits_all.append(patches.descriptor_bits_from_patches(raw, ang))
         scale = float(cfg.scale_factor ** level)
         k = xs.shape[1]
+        starts.append(slots)
+        slots += k
         xs_all.append(xs)
         ys_all.append(ys)
         resp_all.append(resp)
-        ang_all.append(ang)
         valid_all.append(valid)
         oct_all.append(torch.full((b, k), level, dtype=torch.int32, device=dev))
         size_all.append(torch.full((b, k), cfg.patch_size * scale,
@@ -168,17 +168,18 @@ def detect_and_compute(img: torch.Tensor,
         scale_all.append(torch.full((b, k), scale, dtype=torch.float32,
                                     device=dev))
 
-    bits = torch.cat(bits_all, dim=1)
+    ys, xs = torch.cat(ys_all, 1), torch.cat(xs_all, 1)
+    raw = extract_patches_levels(levels, ys.contiguous(), xs.contiguous(), starts)
+    ang = patches.angles_from_patches(raw)
+    bits = patches.descriptor_bits_from_patches(raw, ang)
     scale = torch.cat(scale_all, dim=1)
-    xy = (torch.stack([torch.cat(xs_all, 1), torch.cat(ys_all, 1)], dim=-1)
-          .to(torch.float32) * scale[..., None])
+    xy = torch.stack([xs, ys], dim=-1).to(torch.float32) * scale[..., None]
     valid = torch.cat(valid_all, dim=1)
     v1 = valid[..., None]
     feats = ORBFeatures(
         xy=torch.where(v1, xy, torch.zeros_like(xy)),
         response=torch.cat(resp_all, 1),
-        angle=torch.where(valid, torch.cat(ang_all, 1),
-                          torch.zeros((), device=dev)),
+        angle=torch.where(valid, ang, torch.zeros((), device=dev)),
         octave=torch.cat(oct_all, 1),
         size=torch.cat(size_all, 1),
         desc=torch.where(v1, brief.pack_bits_u8(bits),

@@ -17,10 +17,13 @@ import shutil
 import subprocess
 import time
 
+from tpu_vo_torch.ops.levels import LevelTable
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("select.cu", "patch.cu", "fast.cu", "patch_probe.cu")
+HEADERS = ("levels.cuh",)
 # -fmad=false: the select kernel's Harris arithmetic must round every
 # product and sum on its own, as the eager plain version does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -47,7 +50,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
@@ -91,11 +94,10 @@ def library() -> ctypes.CDLL:
         BuildInfo.seconds = time.perf_counter() - t0
     BuildInfo.path = path
     lib = ctypes.CDLL(path)
-    lib.tvo_select_maps.argtypes = [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
-                                    _I, _F, _F, _P]
-    lib.tvo_select_maps.restype = _I
-    lib.tvo_extract_patches.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
-    lib.tvo_extract_patches.restype = _I
+    lib.tvo_select_maps_levels.argtypes = [LevelTable, _I, _F, _I, _F, _F, _P]
+    lib.tvo_select_maps_levels.restype = _I
+    lib.tvo_extract_patches_levels.argtypes = [LevelTable, _P, _P, _P, _I, _P]
+    lib.tvo_extract_patches_levels.restype = _I
     lib.tvo_fast_margin.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P]
     lib.tvo_fast_margin.restype = _I
     lib.tvo_band_windows.argtypes = [_P, _P, _P, _P, *[_I] * 10, _P]

@@ -1,11 +1,12 @@
 """Fused keypoint selection: FAST + strict NMS + border + Harris + packed
-(score, index) keys + vertical 2-row max-pool, one pass per pyramid level.
+(score, index) keys + vertical 2-row max-pool of pyramid levels.
 
-`select_maps` replaces tpu_vo/ops/select_pallas.py `fused_select_maps`.
-For a CUDA tensor it launches kernel B1 (csrc/select.cu); for a CPU
-tensor it runs `select_maps_reference`, the plain version built from
-features/fast.py and features/harris.py. Both return, for levels
-(B, H, W) float32 on the integer grid 0..255:
+`select_maps` replaces tpu_vo/ops/select_pallas.py `fused_select_maps`,
+and `select_maps_levels` does the same for a list of levels. For CUDA
+tensors they launch kernel B1 (csrc/select.cu) once, for all levels; for
+CPU tensors they run `select_maps_reference`, the plain version built
+from features/fast.py and features/harris.py, level by level. Both
+return, for levels (B, H, W) float32 on the integer grid 0..255:
 
   packed   (B, ceil(H/2), W + W % 2) int32: the 2-row max of
            (score << idx_bits) | (mask - bitrev(flat_idx)) at NMS
@@ -25,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from tpu_vo_torch.features import fast, harris
+from tpu_vo_torch.ops import levels as lvl_table
 
 HALO = 4  # FAST circle (3) + NMS (1); Sobel (1) + box (3)
 
@@ -79,38 +81,70 @@ def select_maps_reference(levels: torch.Tensor, threshold: int, border: int):
     return pooled, hmap, bits
 
 
-def _select_maps_cuda(levels: torch.Tensor, threshold: int, border: int):
+def compass_candidates(img: torch.Tensor, threshold: int) -> torch.Tensor:
+    """(..., H, W) bool: pixels with at least two of the FAST circle's
+    compass points (0, 4, 8, 12) past the threshold on one side, d > thr
+    or -d > thr with d = center - point. A nine-long arc of the circle
+    holds at least two compass points, so every pixel this rejects has a
+    FAST margin <= threshold: kernel B1 skips its arc scan."""
+    thr = float(threshold)
+    d = [img - fast._shift(img, dy, dx)
+         for dx, dy in (fast.CIRCLE_OFFSETS[j] for j in (0, 4, 8, 12))]
+    dark = sum((x > thr).to(torch.int32) for x in d)
+    bright = sum((-x > thr).to(torch.int32) for x in d)
+    return (dark >= 2) | (bright >= 2)
+
+
+def _select_maps_cuda(levels, threshold: int, border: int):
     from tpu_vo_torch.ops import _build
 
-    _check(levels, border)
-    if not levels.is_contiguous():
-        raise ValueError("levels must be contiguous")
-    b, h, w = levels.shape
-    bits = idx_bits_for(h, w)
-    packed = torch.empty((b, (h + 1) // 2, w + w % 2), dtype=torch.int32,
-                         device=levels.device)
-    hmap = torch.empty((b, h, w), dtype=torch.float32, device=levels.device)
+    lvl_table.check_levels(levels)
+    b = levels[0].shape[0]
+    out = []
+    for lvl in levels:
+        _check(lvl, border)
+        h, w = lvl.shape[-2:]
+        bits = idx_bits_for(h, w)
+        packed = torch.empty((b, (h + 1) // 2, w + w % 2), dtype=torch.int32,
+                             device=lvl.device)
+        hmap = torch.empty((b, h, w), dtype=torch.float32, device=lvl.device)
+        out.append((packed, hmap, bits))
     if b == 0:
-        return packed, hmap, bits
-    lib = _build.library()
-    stream = torch.cuda.current_stream(levels.device).cuda_stream
-    err = lib.tvo_select_maps(
-        levels.data_ptr(), packed.data_ptr(), hmap.data_ptr(), b, h, w,
-        packed.shape[1], packed.shape[2], float(threshold), int(border),
-        bits, harris.HARRIS_K, harris.harris_scale4(), stream)
+        return out
+    table = lvl_table.level_table(levels, (), 0, *zip(*out))
+    stream = torch.cuda.current_stream(levels[0].device).cuda_stream
+    err = _build.library().tvo_select_maps_levels(
+        table, b, float(threshold), int(border), harris.HARRIS_K,
+        harris.harris_scale4(), stream)
     _build.check_launch(err, "select_maps")
     select_maps.launches += 1
-    return packed, hmap, bits
+    return out
+
+
+def select_maps_levels(levels, threshold: int, border: int):
+    """[(packed, harris, idx_bits)] of a list of (B, H, W) float32 pyramid
+    levels: kernel B1 launched once for up to MAX_LEVELS levels of CUDA
+    tensors, the plain version level by level on CPU tensors."""
+    levels = list(levels)
+    if levels and levels[0].device.type == "cpu":
+        return [select_maps_reference(lvl, threshold, border) for lvl in levels]
+    if levels and levels[0].device.type == "cuda":
+        return [m for i in range(0, len(levels), lvl_table.MAX_LEVELS)
+                for m in _select_maps_cuda(levels[i:i + lvl_table.MAX_LEVELS],
+                                           threshold, border)]
+    raise ValueError(f"select_maps_levels: unsupported levels "
+                     f"{[lvl.device for lvl in levels]}")
 
 
 def select_maps(levels: torch.Tensor, threshold: int, border: int):
     """(packed, harris, idx_bits) of (B, H, W) float32 pyramid levels:
-    kernel B1 on a CUDA tensor, the plain version on a CPU tensor."""
+    kernel B1 (a one-level table) on a CUDA tensor, the plain version on a
+    CPU tensor."""
     if levels.device.type == "cuda":
-        return _select_maps_cuda(levels, threshold, border)
+        return _select_maps_cuda([levels], threshold, border)[0]
     if levels.device.type == "cpu":
         return select_maps_reference(levels, threshold, border)
     raise ValueError(f"select_maps: unsupported device {levels.device}")
 
 
-select_maps.launches = 0  # kernel launches, counted by _select_maps_cuda
+select_maps.launches = 0  # kernel B1 launches, by either entry point

@@ -1,5 +1,7 @@
 """Synthetic VO sequences with known ground-truth motion, numpy-only
-(port of tpu_vo/utils/synthetic.py `make_sequence`).
+(port of tpu_vo/utils/synthetic.py `make_sequence`), and
+`compass_pattern`, frames that hold kernel B1's FAST compass test at its
+edge.
 
 A camera moves over two textured depth planes (real parallax, so the
 essential matrix is well defined); each frame is rendered through the
@@ -100,3 +102,34 @@ def make_sequence(
         frames.append(np.where(near_mask > 0, near, far))
 
     return frames, Rs, ts, K
+
+
+def compass_pattern(b: int, h: int, w: int, threshold: int, seed: int = 0) -> np.ndarray:
+    """(b, h, w) float32 frames on the integer grid in which FAST's compass
+    test sits at its edge. Centres on a 7-pixel grid have exactly 1 or 2
+    compass points (circle points 0, 4, 8, 12) past the threshold on the
+    dark side (d = centre - point = threshold + 1) and 1 or 2 on the
+    bright side (d = -(threshold + 1)), the others at |d| = threshold; the
+    other circle points pass on one side with probability 0.85. Every
+    other pixel is within the threshold of 128."""
+    from tpu_vo_torch.features.fast import CIRCLE_OFFSETS
+
+    rng = np.random.default_rng(seed)
+    v, t = 128, int(threshold)
+    img = rng.integers(v - t, v + t + 1, (b, h, w))
+    cy, cx = np.meshgrid(np.arange(3, h - 3, 7), np.arange(3, w - 3, 7), indexing="ij")
+    k = cy.size
+    bi = np.repeat(np.arange(b), k)
+    cy, cx = np.tile(cy.ravel(), b), np.tile(cx.ravel(), b)
+    n = bi.size
+    img[bi, cy, cx] = v
+    side = rng.integers(0, 2, (n, 1)) * 2 - 1
+    d = np.where(rng.random((n, 16)) < 0.85, side * (t + 1), rng.choice([-t, t], (n, 16)))
+    compass = rng.permuted(np.tile([0, 4, 8, 12], (n, 1)), axis=1)
+    nd, nb = rng.integers(1, 3, (n, 1)), rng.integers(1, 3, (n, 1))
+    rank = np.arange(4)
+    d[np.arange(n)[:, None], compass] = np.where(
+        rank < nd, t + 1, np.where(rank < nd + nb, -(t + 1), rng.choice([-t, t], (n, 4))))
+    for j, (dx, dy) in enumerate(CIRCLE_OFFSETS):
+        img[bi, cy + dy, cx + dx] = v - d[:, j]
+    return img.astype(np.float32)
