@@ -5,7 +5,9 @@
 Phases, in order; any failure raises and the exit code is non-zero:
 
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels from tpu_vo_torch/csrc (nvcc, sm_90a);
+  2. build the CUDA kernels from tpu_vo_torch/csrc (nvcc, sm_90a), and
+     count the tensor-core instructions (HMMA) of P2's phase_mxu_kernel
+     in the library's SASS (cuobjdump); none fails the run;
   3. compare each kernel with its plain PyTorch version on the card:
      select_maps_levels (B1, one launch for all levels) on the 8 pyramid
      levels of the main path's 32 1241x376 frames, of 8 frames of
@@ -35,8 +37,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      that P1, P2 and P3 each launched, then hold every variant of its
      sweep that fits in shared memory, and P1 at 128 and 512 lanes with
      fewer slots, against its plain version bit for bit, on the probe's
-     keypoints and on 5 at the right edge; the probe prints its timing
-     floor and each variant's ms;
+     keypoints and on 5 at the right edge, and P2 and P3 also on levels
+     whose pixels span 41 binades (patch_slots_probe.binade_levels); the
+     probe prints its timing floor and each variant's ms;
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
@@ -45,7 +48,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      run's shapes; P1 (8, 2,
      compact, 256 lanes), P2 (16, 8) and P3 (16, 8) and B2 at the probe's
      keypoints as the probe timed them, beside their plain versions and
-     bounds, and the f32 operations of P2's one-hot products;
+     bounds, and the bf16 operations of P2's one-hot products; P1-P3's
+     own device time (torch.profiler's kernel durations, no host work)
+     and P2's and P3's blocks per SM; the library call of B2, P1, P2
+     and P3: their plain versions' final gather as one aten::index call
+     on prebuilt indices, checked equal to the kernel's output;
   7. profile each stage and the main path with torch.profiler: device
      busy time, kernel launches, host-device copies and stream
      synchronizations per run, and the top device time.
@@ -61,6 +68,7 @@ import functools
 import json
 import os
 import statistics
+import subprocess
 import sys
 import time
 
@@ -79,6 +87,7 @@ from tpu_vo_torch.ops import patch_probe  # noqa: E402
 from tpu_vo_torch.ops.fast import fast_margin, fast_margin_reference  # noqa: E402
 from tpu_vo_torch.ops.patch import (RAW_RADIUS, RAW_SIZE, extract_patches,  # noqa: E402
                                     extract_patches_levels, extract_patches_reference)
+from tpu_vo_torch.ops.patch import _starts as patch_starts  # noqa: E402
 from tpu_vo_torch.ops.select import (compass_candidates, select_maps,  # noqa: E402
                                      select_maps_levels, select_maps_reference)
 from tpu_vo_torch.pipeline import runner, step  # noqa: E402
@@ -96,10 +105,15 @@ PROBE_EXTRA = ((8, 4, False, 128), (8, 4, True, 128), (8, 2, True, 512))
 PROBE_TIMED = {"band_windows": ("P1", dict(kp_chunk=8, nslots=2, compact=True, lanes=256)),
                "phase_windows_mxu": ("P2", dict(kp_chunk=16, nslots=8)),
                "phase_windows_roll": ("P3", dict(kp_chunk=16, nslots=8))}
-# f32 operations per window of P2's two one-hot products, (48, 128) x
-# (128, 43) and (48, 48) x (48, 43), a multiply and an add per term: how
-# P2 computes, not what its function needs, so printed beside its bound
-P2_OPS = 2 * (48 * 128 * 43 + 48 * 48 * 43)
+# their CUDA kernels' names, as the profiler reports them
+PROBE_KERNEL_FN = {"band_windows": "band_kernel", "phase_windows_mxu": "phase_mxu_kernel",
+                   "phase_windows_roll": "phase_roll_kernel"}
+# bf16 tensor-core operations per window of P2's two one-hot products as
+# mma.sync tiles them, (48, 128) x (128, 48) and (48, 48) x (48, 48), for
+# each of three bf16 parts, a multiply and an add per term: how P2
+# computes, not what its function needs, so printed beside its bound
+P2_OPS = 3 * 2 * (48 * 128 * 48 + 48 * 48 * 48)
+BF16_OPS_PER_S = 989e12  # the tensor cores' dense bf16 peak at 700 W
 SMALL_W, SMALL_H, SMALL_T = 480, 360, 8
 # Accuracy bars of the main path on make_sequence(32, 1241, 376, seed=0),
 # measured on the CPU on these frames: the port had pose_ok on 31/31 pairs
@@ -180,6 +194,57 @@ def _window_pixels(levels, kps) -> int:
     return total
 
 
+def _library_gather(levels, windows):
+    """(flat, idx) such that flat[idx], one aten::index call, is the
+    windows: the levels' pixels flattened, with a 0 after them; windows,
+    per level, (rows (B, n, R), cols (B, n, C)[, keep (B, n, R)]), a pixel
+    past the level or in a row where keep is False reading the 0."""
+    flat = torch.cat([lv.flatten() for lv in levels] + [levels[0].new_zeros(1)])
+    parts, off = [], 0
+    for lv, (rows, cols, *keep) in zip(levels, windows):
+        b, h, w = lv.shape
+        r, c = rows[..., :, None], cols[..., None, :]
+        bi = torch.arange(b, device=lv.device)[:, None, None, None]
+        ok = (r < h) & (c < w)
+        if keep:
+            ok = ok & keep[0][..., None]
+        parts.append(torch.where(ok, off + (bi * h + r) * w + c, flat.numel() - 1))
+        off += lv.numel()
+    return flat, torch.cat(parts, 1)
+
+
+def _kernel_alone_ms(fn, name: str, calls: int):
+    """Median device duration (ms) of the kernels named `name` over
+    `calls` calls of fn(), from torch.profiler: the kernel without the
+    wrapper's host work; None where the profiler records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    d = [e.time_range.end - e.time_range.start for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    return statistics.median(d) / 1e3 if d else None
+
+
+def _sass_count(lib_path: str, function: str, opcode: str) -> int:
+    """Instructions starting with `opcode` in the SASS of the kernels
+    whose name holds `function`, from cuobjdump."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True, text=True,
+                          check=True).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside and f" {opcode}" in line:
+            count += 1
+    return count
+
+
 def _pair_rot_err_deg(R_wc: np.ndarray, Rs_gt) -> np.ndarray:
     """Geodesic error (deg) of each consecutive relative rotation."""
     errs = []
@@ -258,6 +323,10 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BuildInfo.seconds:.2f} s) "
           f"-> {_build.BuildInfo.path}", flush=True)
     print(_build.BuildInfo.log.strip(), flush=True)
+    n_hmma = _sass_count(_build.BuildInfo.path, "phase_mxu_kernel", "HMMA")
+    print(f"phase_mxu_kernel (P2): {n_hmma} HMMA instructions in its SASS", flush=True)
+    if n_hmma == 0:
+        raise AssertionError("P2's products do not run on the tensor cores")
 
     cfg = VOConfig(image_width=W, image_height=H, orb=ORBConfig(n_features=1200),
                    ransac=RansacConfig(max_iters=256))
@@ -431,6 +500,7 @@ def main() -> int:
     eys = torch.randint(-5, h_p + 5, (b_p, 5), generator=g, dtype=torch.int32).to(dev)
     exs = torch.tensor([1170, 1180, 1200, 1240, 1245], dtype=torch.int32,
                        device=dev).repeat(b_p, 1)
+    bimgs = torch.from_numpy(patch_slots_probe.binade_levels(*pimgs.shape)).to(dev)
     probe_err = {"P1": 0.0, "P2": 0.0, "P3": 0.0}
     checked = []
     for name, run in ([(f"{k} {label}", run) for k, label, run, _ in patch_slots_probe.variants()]
@@ -445,8 +515,11 @@ def main() -> int:
         if run.func is patch_probe.band_windows:
             plain = functools.partial(patch_probe.band_windows_reference,
                                       compact=kw["compact"], lanes=kw["lanes"])
-        for y, x in ((pys, pxs), (eys, exs)):
-            a, b = run(pimgs, y, x), plain(pimgs, y, x)
+        inputs = [(pimgs, pys, pxs), (pimgs, eys, exs)]
+        if name[:2] in ("P2", "P3"):
+            inputs += [(bimgs, pys, pxs), (bimgs, eys, exs)]
+        for im, y, x in inputs:
+            a, b = run(im, y, x), plain(im, y, x)
             torch.cuda.synchronize()
             if not torch.equal(a, b):
                 raise AssertionError(f"{name} differs from its plain version at {tuple(y.shape)} "
@@ -455,8 +528,9 @@ def main() -> int:
         checked.append(name)
     if {n[:2] for n in checked} != set(probe_err):
         raise AssertionError(f"a probe kernel was not checked: {checked}")
-    print(f"probe kernels == plain on {pys.numel()} and {eys.numel()} right-edge keypoints: "
-          f"{checked}", flush=True)
+    del bimgs  # out of phase 6's peak memory
+    print(f"probe kernels == plain on {pys.numel()} and {eys.numel()} right-edge keypoints, "
+          f"P2 and P3 also on levels across 41 binades: {checked}", flush=True)
 
     # 6. times
     def main_path():
@@ -517,7 +591,32 @@ def main() -> int:
     ph_rows, ph_cols, ph_keep = patch_probe.phase_index(h_p, W, pys, pxs)
     ph_bytes = 4 * _union_pixels(pimgs.shape, ph_rows, ph_cols, ph_keep) + probe_out
     # the kernels' times are the probe's (phase 5b); their plain versions
-    # are timed here with the same tool
+    # and library calls are timed here with the same tool, and the
+    # kernels alone by the profiler
+    probe_windows = {"band_windows": (p1_rows, p1_cols),
+                     "phase_windows_mxu": (ph_rows, ph_cols, ph_keep),
+                     "phase_windows_roll": (ph_rows, ph_cols, ph_keep)}
+    probe_lib, probe_alone = {}, {}
+    for name, (kernel, args) in PROBE_TIMED.items():
+        run = functools.partial(probe_kernels[name], **args)
+        flat, idx = _library_gather([pimgs], [probe_windows[name]])
+        if not torch.equal(flat[idx], run(pimgs, pys, pxs)):
+            raise AssertionError(f"{name}'s library gather differs from the kernel")
+        probe_lib[name] = device_time_ms(lambda f=flat, i=idx: f[i],
+                                         reps=patch_slots_probe.REPS)
+        probe_alone[name] = _kernel_alone_ms(lambda r=run: r(pimgs, pys, pxs),
+                                             PROBE_KERNEL_FN[name], patch_slots_probe.REPS)
+        del flat, idx
+    per_sm = {k: patch_probe.phase_blocks_per_sm(k, PROBE_TIMED[name][1]["nslots"])
+              for k, name in (("P2", "phase_windows_mxu"), ("P3", "phase_windows_roll"))}
+    b2_flat, b2_idx = _library_gather(
+        levels, [(patch_starts(ys, lv.shape[-2])[..., None] + torch.arange(RAW_SIZE, device=dev),
+                  patch_starts(xs, lv.shape[-1])[..., None] + torch.arange(RAW_SIZE, device=dev))
+                 for lv, (ys, xs) in zip(levels, kp)])
+    if not torch.equal(b2_flat[b2_idx], extract_patches_levels(levels, main_ys, main_xs, starts)):
+        raise AssertionError("B2's library gather differs from the kernel")
+    pat_lib = _cuda_ms(lambda: b2_flat[b2_idx])
+    del b2_flat, b2_idx
     probe_times = {}
     for name, plain, bound in (
             ("band_windows", lambda: patch_probe.band_windows_reference(pimgs, pys, pxs, True, 256),
@@ -542,18 +641,24 @@ def main() -> int:
           f"({sel_bytes} B), {sel_instr / LANE_INSTR_PER_S * 1e3:.4f} ms by lane-instructions "
           f"({sel_instr}: {n_inner} pixels inside the border, {n_cand} compass candidates "
           f"among them) {tag}")
-    for name, k_ms, p_ms, (b_ms, by) in (
-            (f"select_maps_levels 8 levels x {T} frames, 1 launch", sel_ms, sel_plain, sel_bound),
+    for name, k_ms, p_ms, (b_ms, by), lib in (
+            (f"select_maps_levels 8 levels x {T} frames, 1 launch", sel_ms, sel_plain, sel_bound,
+             None),
             (f"extract_patches_levels 1200 kps x {T} frames, 1 launch", pat_ms, pat_plain,
-             pat_bound),
-            (f"fast_margin 8 levels x {T} frames", fast_ms, fast_plain, fast_bound)):
+             pat_bound, pat_lib),
+            (f"fast_margin 8 levels x {T} frames", fast_ms, fast_plain, fast_bound, None)):
+        lib = "none" if lib is None else f"{lib:.4f} ms"
         print(f"{name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
-              f"({by}) {tag}")
+              f"({by}), library call {lib} {tag}")
     for name, (k_ms, p_ms, (b_ms, by)) in probe_times.items():
+        alone = probe_alone[name]
+        alone = "not measured" if alone is None else f"{alone:.4f} ms"
         print(f"{name} {PROBE_TIMED[name][1]} at the probe's {probe_n} keypoints: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({by}) {tag}")
-    print(f"phase_windows_mxu's one-hot products: {P2_OPS} f32 operations per window, "
-          f"{_bound(0, P2_OPS * probe_n)[0]:.4f} ms at the f32 peak {tag}")
+              f"{k_ms:.4f} ms (kernel alone {alone}), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({by}), library call (aten::index) {probe_lib[name]:.4f} ms {tag}")
+    print(f"blocks per SM: P2 (16, 8) {per_sm['P2']}, P3 (16, 8) {per_sm['P3']} {tag}")
+    print(f"phase_windows_mxu's one-hot products: {P2_OPS} bf16 operations per window, "
+          f"{P2_OPS * probe_n / BF16_OPS_PER_S * 1e3:.4f} ms at the bf16 peak {tag}")
     print(f"extract_patches (B2) at the probe's {probe_n} keypoints: {b2_probe:.4f} ms, bound "
           f"{b2_probe_bound[0]:.4f} ms ({b2_probe_bound[1]}) {tag}")
 
@@ -563,9 +668,11 @@ def main() -> int:
         _profile(name, fn, card)
     _profile("main_path", main_path, card, rows=25)
 
-    # No single PyTorch call computes any of these functions, so
-    # library_ms is null; B3's launches are those of its own path (phase
-    # 5), P1-P3's those of the probe's (phase 5b).
+    # library_ms: for B2 and P1-P3, one aten::index call on prebuilt
+    # indices (their plain versions' final gather, checked equal to the
+    # kernel's output); no single PyTorch call computes B1's fused maps or
+    # B3's FAST scores, so theirs is null. B3's launches are those of its
+    # own path (phase 5), P1-P3's those of the probe's (phase 5b).
     report = {"kernels": [
         {"name": "select_maps", "route": "cuda", "source": "tpu_vo_torch/csrc/select.cu",
          "replaces": "tpu_vo/ops/select_pallas.py:359", "launches": launches["select_maps"],
@@ -575,7 +682,7 @@ def main() -> int:
          "replaces": "tpu_vo/ops/patch_pallas.py:181",
          "launches": launches["extract_patches"], "max_abs_err": patch_err,
          "ms": pat_ms, "plain_ms": pat_plain,
-         "bound_ms": pat_bound[0], "bound_by": pat_bound[1], "library_ms": None},
+         "bound_ms": pat_bound[0], "bound_by": pat_bound[1], "library_ms": pat_lib},
         {"name": "fast_margin", "route": "cuda", "source": "tpu_vo_torch/csrc/fast.cu",
          "replaces": "tpu_vo/ops/fast_pallas.py:153",
          "launches": b3_launches["fast_margin"], "max_abs_err": fast_err,
@@ -586,7 +693,7 @@ def main() -> int:
          "replaces": f"tools/patch_slots_probe.py:{line}", "launches": p_launches[name],
          "max_abs_err": probe_err[p], "ms": probe_times[name][0], "plain_ms": probe_times[name][1],
          "bound_ms": probe_times[name][2][0], "bound_by": probe_times[name][2][1],
-         "library_ms": None}
+         "library_ms": probe_lib[name]}
         for name, p, line in (("band_windows", "P1", 90), ("phase_windows_mxu", "P2", 226),
                               ("phase_windows_roll", "P3", 322))
     ]}

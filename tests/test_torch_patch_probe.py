@@ -2,9 +2,10 @@
 Pallas kernels of tools/patch_slots_probe.py in interpret mode, bit for
 bit (tolerance 0), on uniform non-integer f32 pixels and keypoints up to
 5 px past each edge: P1's right-edge clamp, P1's roll wrapping at 128
-lanes, and P2's and P3's zero tail rows. Then what the port refuses, the
-port of the probe tool on the CPU, and, on a card, each kernel against
-its plain version.
+lanes, and P2's and P3's zero tail rows. Then P2's three-way bf16 split
+and the band copy of P2 and P3 from the unpadded level (emulated), what
+the port refuses, the port of the probe tool on the CPU, and, on a card,
+each kernel against its plain version, also on pixels across 41 binades.
 
 Importing tools/patch_slots_probe.py points JAX's compilation cache at
 another directory and changes its thresholds (`:30-35`); the module
@@ -13,6 +14,7 @@ conftest's.
 """
 
 import importlib
+import os
 
 import jax
 import jax.numpy as jnp
@@ -21,8 +23,10 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from tpu_vo_torch.image.pyramid import build_pyramid
 from tpu_vo_torch.ops import patch as tpatch, patch_probe as pp
 from tpu_vo_torch.tools import patch_slots_probe as tprobe
+from tpu_vo_torch.utils.synthetic import make_sequence
 
 _CACHE_SETTINGS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
                    "jax_persistent_cache_min_entry_size_bytes")
@@ -134,18 +138,93 @@ def test_windows_refuse_levels_smaller_than_the_window(shape):
 
 
 def test_shared_memory_fit():
-    """Only nslots x band + barriers (+ P2's column product) within
-    232,448 B fits; P2's production (32, 16) needs 393,216 B of bands."""
+    """Only nslots x band (+ P1's barriers) within 232,448 B fits; P2's
+    production (32, 16) needs 393,216 B of bands. P2's and P3's slots hold
+    the band alone (no zero rows, no separate stage): 9 fit."""
     assert pp.smem_bytes("P1", 4, 256) == (57_344, 229_408)
-    assert pp.smem_bytes("P2", 8) == (24_576, 8 * 24_584 + 48 * 43 * 4)
-    assert pp.smem_bytes("P3", 8) == (28_672, 229_440)
+    assert pp.phase_warps(8) == 8 and pp.phase_warps(1) == 1 and pp.phase_warps(40) == 8
+    assert pp.smem_bytes("P2", 8) == (24_576, 196_608)
+    assert pp.smem_bytes("P3", 8) == (24_576, 196_608)
     for kernel, nslots, lanes in (("P1", 4, 256), ("P1", 2, 512), ("P2", 8, 128),
-                                  ("P3", 8, 128)):
+                                  ("P2", 9, 128), ("P3", 8, 128), ("P3", 9, 128)):
         pp.check_fits(kernel, nslots, lanes)
-    for kernel, nslots, lanes in (("P1", 8, 256), ("P1", 16, 128), ("P2", 16, 128),
-                                  ("P3", 16, 128)):
+    for kernel, nslots, lanes in (("P1", 8, 256), ("P1", 16, 128), ("P2", 10, 128),
+                                  ("P2", 16, 128), ("P3", 10, 128), ("P3", 16, 128)):
         with pytest.raises(ValueError, match=r"does not fit \(\d+ x [\d,]+ B"):
             pp.check_fits(kernel, nslots, lanes)
+
+
+def _split_input(name):
+    if name == "integers":
+        return torch.arange(256, dtype=torch.float32)
+    if name == "pyramid level":
+        frames = np.stack(make_sequence(n_frames=1, width=160, height=120, seed=0)[0])
+        return build_pyramid(torch.from_numpy(frames), 3, 1.2)[2].flatten()
+    rng = np.random.default_rng(5)
+    x = rng.uniform(1, 2, 4000) * 2.0 ** rng.integers(-100, 100, 4000)
+    x *= rng.choice([-1, 1], 4000)
+    x[:10] = 0.0  # +0: a -0 comes out +0, equal in value but not in bits
+    x[10:20] = 2.0 ** -100
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("name", ["integers", "pyramid level", "binades"])
+def test_bf16_split_is_exact(name):
+    """P2's split: each part is a bfloat16 value, and (hi + mid) + lo is
+    x bit for bit."""
+    x = _split_input(name)
+    hi, mid, lo = pp.bf16_split(x)
+    for part in (hi, mid, lo):
+        assert torch.equal(part.to(torch.bfloat16).to(torch.float32).view(torch.int32),
+                           part.view(torch.int32))
+    assert torch.equal(((hi + mid) + lo).view(torch.int32), x.view(torch.int32))
+    if name == "binades":
+        assert (lo != 0).float().mean() > 0.9  # every part carries bits
+
+
+def _bands(img, ys, xs, fill=0.0):
+    """(bands (B, N, 48, 128), roff, coff): the kernels' band copy,
+    emulated from the unpadded level by `phase_band`, with `fill` past
+    the level's last column."""
+    b, h, w = img.shape
+    row, col, roff, coff, ncols = pp.phase_band(h, w, ys, xs)
+    assert (row + pp.ROWS <= h).all() and (ncols >= coff + 43).all()
+    rows = row[..., None, None] + torch.arange(pp.ROWS)[:, None]
+    cols = col[..., None, None] + torch.arange(pp.PHASE_LANES)
+    bi = torch.arange(b)[:, None, None, None]
+    band = img[bi, rows, torch.clamp(cols, max=w - 1)]
+    inside = cols < col[..., None, None] + ncols[..., None, None]
+    return torch.where(inside, band, fill), roff, coff
+
+
+def _p2_products(bands, roff, coff):
+    """P2's arithmetic: per bf16 part, (48, 128) x oh_c then oh_r x that,
+    the parts added as (hi + mid) + lo."""
+    oh_c = (torch.arange(128)[:, None] == torch.arange(43) + coff[..., None, None]).float()
+    oh_r = (torch.arange(48) == torch.arange(48)[:, None] + roff[..., None, None]).float()
+    hi, mid, lo = (oh_r @ (part @ oh_c) for part in pp.bf16_split(bands))
+    return (hi + mid) + lo
+
+
+@pytest.mark.parametrize("w", [1241, 301])
+def test_phase_bands_come_from_the_unpadded_level(w):
+    """P2 and P3 copy their bands from the caller's level, zero past its
+    width: the windows read out of them (P3's roll and row offset, P2's
+    split one-hot products) are the plain version's, with keypoints at
+    the right edge. Past the width the zeros matter to P2: a NaN there
+    would reach its windows."""
+    img, ys, xs = _level(2, 64, w, 24, 4)
+    xs[:, :6] = (w - 70, w - 44, w - 22, w - 1, w + 3, w - 60)
+    img, ys, xs = _torch(img, ys, xs)
+    ref = pp.phase_windows_reference(img, ys, xs)
+    bands, roff, coff = _bands(img, ys, xs)
+    r, c = torch.arange(48)[:, None], torch.arange(43)
+    src = (roff[..., None, None] + r).clamp(max=47) * 128 + coff[..., None, None] + c
+    p3 = torch.gather(bands.flatten(2), 2, src.flatten(2)).view(ref.shape)
+    assert torch.equal(torch.where(r + roff[..., None, None] < 48, p3, 0.0), ref)
+    assert torch.equal(_p2_products(bands, roff, coff), ref)
+    nan_bands, _, _ = _bands(img, ys, xs, fill=float("nan"))
+    assert torch.isnan(_p2_products(nan_bands, roff, coff)[:, :6]).any()
 
 
 def test_phase_windows_equal_b2_above_the_bottom_rows():
@@ -196,6 +275,10 @@ _KERNELS = {
                 pp.phase_windows_mxu),
     "P3 16,8": (lambda *a: pp.phase_windows_roll(*a, 16, 8), pp.phase_windows_reference,
                 pp.phase_windows_roll),
+    "P2 8,4 binades": (lambda *a: pp.phase_windows_mxu(*a, 8, 4), pp.phase_windows_reference,
+                       pp.phase_windows_mxu),
+    "P3 8,4 binades": (lambda *a: pp.phase_windows_roll(*a, 8, 4), pp.phase_windows_reference,
+                       pp.phase_windows_roll),
 }
 
 
@@ -204,11 +287,27 @@ _KERNELS = {
 def test_probe_kernel_matches_plain(cuda, name):
     fn, ref, wrapper = _KERNELS[name]
     img, ys, xs = _torch(*_level(2, 376, 1241, 300, 3))
+    if name.endswith("binades"):
+        img = torch.from_numpy(tprobe.binade_levels(2, 376, 1241, seed=3))
     before = wrapper.launches
     got = fn(img.to(cuda), ys.to(cuda), xs.to(cuda))
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
     assert torch.equal(got.cpu(), ref(img, ys, xs))
+
+
+def test_phase_ablation_cuts_apply():
+    """Each of tools/phase_ablation's cuts changes csrc/patch_probe.cu in
+    the one place it names (the tool itself runs on a card only)."""
+    from tpu_vo_torch.ops import _build as pp_build
+    from tpu_vo_torch.tools import phase_ablation
+
+    with open(os.path.join(pp_build.CSRC, "patch_probe.cu")) as f:
+        full = f.read()
+    for cut, (old, new) in phase_ablation.CUT.items():
+        src = phase_ablation._source(cut)
+        assert src != full and src.count(new) == 1
+    assert {c for _, _, c, _ in phase_ablation.VARIANTS} == {None, *phase_ablation.CUT}
 
 
 @pytest.mark.cuda

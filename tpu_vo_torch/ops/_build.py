@@ -102,8 +102,10 @@ def library() -> ctypes.CDLL:
     lib.tvo_fast_margin.restype = _I
     lib.tvo_band_windows.argtypes = [_P, _P, _P, _P, *[_I] * 10, _P]
     lib.tvo_band_windows.restype = _I
-    lib.tvo_phase_windows.argtypes = [_P, _P, _P, _P, *[_I] * 9, _P]
+    lib.tvo_phase_windows.argtypes = [_P, _P, _P, _P, *[_I] * 8, _P]
     lib.tvo_phase_windows.restype = _I
+    lib.tvo_phase_windows_blocks_per_sm.argtypes = [_I, _I, _I]
+    lib.tvo_phase_windows_blocks_per_sm.restype = _I
     return lib
 
 

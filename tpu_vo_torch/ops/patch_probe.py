@@ -27,9 +27,12 @@ With r0 = clip(y - 21, 0, H - 48) and c0 = clip(x - 21, 0, W - 43):
   function, and the port computes it.
 - P2 and P3 compute one function, `phase_windows_reference`:
   out[r, j] = level[r0 + r, c0 + j] for r < 48 - (r0 mod 4), and 0 in
-  the last r0 mod 4 rows. P2 compacts its (48, 128) band by two one-hot
-  products, P3 by a lane roll and a row offset into a 56-row slot whose
-  last 8 rows are zero.
+  the last r0 mod 4 rows. Both copy a (48, 128) band from (r0 & ~3,
+  c0 & ~63) of the caller's level (`phase_band`; no padded copy, the
+  columns past W zero-filled by the copy) with one warp per window. P2
+  compacts it by two one-hot products on the tensor cores, each band
+  value split into three bf16 parts (`bf16_split`) so that they stay
+  exact; P3 by a lane roll and a row offset.
 
 H < 48 or W < 43 is refused (the TPU kernels clip with a negative upper
 bound), and so is P1 with (floor(W / 128) + 1) * 128 < lanes (the TPU
@@ -46,11 +49,13 @@ import torch
 from tpu_vo_torch.ops.patch import RAW_RADIUS, RAW_SIZE, _check
 
 ROWS = 48          # window rows, as the TPU kernels return them
-BAND_ROWS = 56     # P1's band rows, and P3's slot rows (48 + 8 zero rows)
+BAND_ROWS = 56     # P1's band rows
 PHASE_LANES = 128  # P2's and P3's band columns
 SMEM_LIMIT = 232_448  # shared memory one block may use on an H100
-_BARRIER_BYTES = 8     # one mbarrier per slot
-_MAX_GRID_Y = 65535    # CUDA's limit on gridDim.y, which holds the batch
+_BARRIER_BYTES = 8     # one mbarrier per slot (P1)
+_MAX_GRID_Y = 65535    # CUDA's limit on gridDim.y, which holds P1's batch
+_MAX_PHASE_WARPS = 8   # P2's and P3's largest block, 256 threads
+_MAX_WINDOWS = 2**30   # P2's and P3's window numbers are int32
 
 
 def _check_defined(levels, ys, xs) -> None:
@@ -75,13 +80,21 @@ def _check_lanes(w: int, lanes: int) -> None:
                          f"width {w} allows ({(w // 128 + 1) * 128} lanes)")
 
 
+def phase_warps(nslots: int) -> int:
+    """Warps per block of P2 and P3: one per slot, at most 8."""
+    return min(nslots, _MAX_PHASE_WARPS)
+
+
 def smem_bytes(kernel: str, nslots: int, lanes: int = PHASE_LANES):
     """(bytes of one band, bytes of shared memory a block of `kernel`
-    ("P1", "P2" or "P3") uses with `nslots` slots)."""
-    rows = {"P1": BAND_ROWS, "P2": ROWS, "P3": BAND_ROWS}[kernel]
-    band = 4 * rows * (lanes if kernel == "P1" else PHASE_LANES)
-    extra = 4 * ROWS * RAW_SIZE if kernel == "P2" else 0  # P2's column product
-    return band, nslots * (band + _BARRIER_BYTES) + extra
+    ("P1", "P2" or "P3") uses with `nslots` slots). P1 keeps an mbarrier
+    per slot; P2 and P3 the bands alone (P2 stages its window in the
+    band's slot)."""
+    if kernel == "P1":
+        band = 4 * BAND_ROWS * lanes
+        return band, nslots * (band + _BARRIER_BYTES)
+    band = 4 * ROWS * PHASE_LANES
+    return band, nslots * band
 
 
 def check_fits(kernel: str, nslots: int, lanes: int = PHASE_LANES) -> None:
@@ -121,13 +134,44 @@ def band_index(h: int, w: int, ys: torch.Tensor, xs: torch.Tensor,
     return r8[..., None] + r, cc[..., None] + j
 
 
+def phase_band(h: int, w: int, ys: torch.Tensor, xs: torch.Tensor):
+    """(row, col, roff, coff, ncols), each (B, N) int64: the (48, 128)
+    band that P2 and P3 copy for each window, as `PhaseBand` in
+    csrc/patch_probe.cu computes it from the caller's (h, w) level: from
+    (row, col) = (r0 & ~3, c0 & ~63), the window at (roff, coff) = (r0 & 3,
+    c0 & 63) in it. Its rows lie inside the level (row + 48 <= h); its
+    first `ncols` columns come from the level, the rest are zero."""
+    r0, c0 = _starts(ys, xs, h, w)
+    col = c0 & ~63
+    return r0 & ~3, col, r0 & 3, c0 & 63, torch.clamp(w - col, max=PHASE_LANES)
+
+
 def phase_index(h: int, w: int, ys: torch.Tensor, xs: torch.Tensor):
     """(rows (B, N, 48), cols (B, N, 43), keep (B, N, 48)): the level
     pixels of P2's and P3's windows, and the rows that are not zero."""
-    r0, c0 = _starts(ys, xs, h, w)
+    row, col, roff, coff, _ = phase_band(h, w, ys, xs)
     r = torch.arange(ROWS, device=ys.device)
-    keep = r < ROWS - (r0 & 3)[..., None]
-    return r0[..., None] + r, c0[..., None] + torch.arange(RAW_SIZE, device=ys.device), keep
+    keep = r < ROWS - roff[..., None]
+    return ((row + roff)[..., None] + r,
+            (col + coff)[..., None] + torch.arange(RAW_SIZE, device=ys.device), keep)
+
+
+def bf16_split(x: torch.Tensor):
+    """(hi, mid, lo): P2's three-way split of float32 x, with the
+    kernel's bit operations: hi = x with its low 16 bits cleared, r = x -
+    hi, mid = r with its low 16 bits cleared, lo = r - mid. Each part is
+    exact in bfloat16 and (hi + mid) + lo == x bit for bit for finite x
+    whose lo part is not subnormal (every |x| >= 2**-100, and 0; -0
+    gives +0)."""
+    mask = torch.tensor(-65536, dtype=torch.int32)  # 0xFFFF0000
+
+    def top(v):
+        return (v.view(torch.int32) & mask).view(torch.float32)
+
+    hi = top(x)
+    r = x - hi
+    mid = top(r)
+    return hi, mid, r - mid
 
 
 def _gather(img: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
@@ -154,25 +198,21 @@ def phase_windows_reference(levels: torch.Tensor, ys: torch.Tensor,
     return torch.where(keep[..., None], _gather(levels, rows, cols), 0.0)
 
 
-def _launch(wrapper, fn_name: str, pad: torch.Tensor, ys: torch.Tensor,
-            xs: torch.Tensor, h: int, w: int, *args: int) -> torch.Tensor:
-    """Launch the C function `fn_name` on the padded levels and count the
-    launch on `wrapper`."""
+def _launch(wrapper, fn_name: str, img: torch.Tensor, ys: torch.Tensor,
+            xs: torch.Tensor, *args: int) -> torch.Tensor:
+    """Launch the C function `fn_name`(img, ys, xs, out, *args, stream)
+    into a new (B, N, 48, 43) `out` and count the launch on `wrapper`."""
     from tpu_vo_torch.ops import _build
 
-    if not (ys.is_contiguous() and xs.is_contiguous()):
-        raise ValueError("ys and xs must be contiguous")
-    b, hp, wp = pad.shape
-    if b > _MAX_GRID_Y:
-        raise ValueError(f"{wrapper.__name__}: batch {b} above {_MAX_GRID_Y}")
-    n = ys.shape[-1]
-    out = torch.empty((b, n, ROWS, RAW_SIZE), dtype=torch.float32, device=pad.device)
-    if b * n == 0:
+    if not (img.is_contiguous() and ys.is_contiguous() and xs.is_contiguous()):
+        raise ValueError("levels, ys and xs must be contiguous")
+    out = torch.empty((*ys.shape, ROWS, RAW_SIZE), dtype=torch.float32, device=img.device)
+    if ys.numel() == 0:
         return out
     lib = _build.library()
-    stream = torch.cuda.current_stream(pad.device).cuda_stream
-    err = getattr(lib, fn_name)(pad.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-                                out.data_ptr(), b, h, w, n, hp, wp, *args, stream)
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+    err = getattr(lib, fn_name)(img.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+                                out.data_ptr(), *args, stream)
     _build.check_launch(err, wrapper.__name__)
     wrapper.launches += 1
     return out
@@ -189,23 +229,15 @@ def band_windows(levels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     _check_lanes(w, lanes)
     if levels.device.type == "cuda":
         check_fits("P1", nslots, lanes)
+        if b > _MAX_GRID_Y:
+            raise ValueError(f"band_windows: batch {b} above {_MAX_GRID_Y}")
         hp, wp = _band_padded_shape(h, w)
         pad = torch.nn.functional.pad(levels, (0, wp - w, 0, hp - h))
-        return _launch(band_windows, "tvo_band_windows", pad, ys, xs, h, w,
-                       kp_chunk, nslots, int(compact), lanes)
+        return _launch(band_windows, "tvo_band_windows", pad, ys, xs, b, h, w,
+                       ys.shape[-1], hp, wp, kp_chunk, nslots, int(compact), lanes)
     if levels.device.type == "cpu":
         return band_windows_reference(levels, ys, xs, compact, lanes)
     raise ValueError(f"band_windows: unsupported device {levels.device}")
-
-
-def _phase_padded(levels: torch.Tensor) -> torch.Tensor:
-    """The level zero-padded once to (hp + 4, wp + 64), hp = max(ceil8(H),
-    48), wp = max(ceil128(W), 128): phase copy (pr, pc) of the TPU wrapper
-    at (sr, sc) is this at (sr + 4 pr, sc + 64 pc), so the kernels copy
-    their bands straight from it."""
-    h, w = levels.shape[-2:]
-    hp, wp = max(-(-h // 8) * 8, ROWS), max(-(-w // 128) * 128, PHASE_LANES)
-    return torch.nn.functional.pad(levels, (0, wp + 64 - w, 0, hp + 4 - h))
 
 
 def _phase_windows(wrapper, kernel: str, levels, ys, xs, kp_chunk, nslots,
@@ -214,9 +246,12 @@ def _phase_windows(wrapper, kernel: str, levels, ys, xs, kp_chunk, nslots,
     _check_slots(kp_chunk, nslots)
     if levels.device.type == "cuda":
         check_fits(kernel, nslots)
-        h, w = levels.shape[-2:]
-        return _launch(wrapper, "tvo_phase_windows", _phase_padded(levels), ys, xs, h, w,
-                       kp_chunk, nslots, int(roll))
+        b, h, w = levels.shape
+        if b * ys.shape[-1] > _MAX_WINDOWS:
+            raise ValueError(f"{wrapper.__name__}: {b * ys.shape[-1]} windows above "
+                             f"{_MAX_WINDOWS}")
+        return _launch(wrapper, "tvo_phase_windows", levels.contiguous(), ys, xs, b, h, w,
+                       ys.shape[-1], kp_chunk, nslots, phase_warps(nslots), int(roll))
     if levels.device.type == "cpu":
         return phase_windows_reference(levels, ys, xs)
     raise ValueError(f"{wrapper.__name__}: unsupported device {levels.device}")
@@ -225,8 +260,8 @@ def _phase_windows(wrapper, kernel: str, levels, ys, xs, kp_chunk, nslots,
 def phase_windows_mxu(levels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
                       kp_chunk: int = 16, nslots: int = 8) -> torch.Tensor:
     """(B, N, 48, 43) windows through (48, 128) bands compacted by two
-    one-hot f32 products: kernel P2 on a CUDA tensor, the plain version on
-    a CPU tensor."""
+    one-hot products on the tensor cores, exact through a three-way bf16
+    split: kernel P2 on a CUDA tensor, the plain version on a CPU tensor."""
     return _phase_windows(phase_windows_mxu, "P2", levels, ys, xs, kp_chunk, nslots, False)
 
 
@@ -236,6 +271,18 @@ def phase_windows_roll(levels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     roll and a row offset: kernel P3 on a CUDA tensor, the plain version
     on a CPU tensor."""
     return _phase_windows(phase_windows_roll, "P3", levels, ys, xs, kp_chunk, nslots, True)
+
+
+def phase_blocks_per_sm(kernel: str, nslots: int) -> int:
+    """Blocks of P2 or P3 ("P2", "P3") with `nslots` slots that fit on one
+    SM of the current card (0 where none fits)."""
+    from tpu_vo_torch.ops import _build
+
+    n = _build.library().tvo_phase_windows_blocks_per_sm(nslots, phase_warps(nslots),
+                                                         int(kernel == "P3"))
+    if n < 0:
+        raise RuntimeError(f"{kernel}: occupancy query failed")
+    return n
 
 
 band_windows.launches = 0        # kernel launches, counted by _launch

@@ -80,6 +80,15 @@ def make_inputs(b: int, h: int, w: int, n: int, device):
     return tuple(torch.from_numpy(a).to(device) for a in (imgs, ys, xs))
 
 
+def binade_levels(b: int, h: int, w: int, seed: int = 1) -> np.ndarray:
+    """(b, h, w) f32 pixels uniform in [0, 256) times 2**k, k uniform in
+    -20..20 per pixel, from numpy `seed`: values across 41 binades, on
+    which P2's bf16 split is exercised in full."""
+    rng = np.random.default_rng(seed)
+    scale = 2.0 ** rng.integers(-20, 21, size=(b, h, w))
+    return (rng.uniform(0, 256, size=(b, h, w)) * scale).astype(np.float32)
+
+
 def variants(which=("p1", "p2", "p3")):
     """(kernel, label, run, band bytes per window) of the sweep; run is a
     partial of the kernel's wrapper, its settings in run.keywords."""
