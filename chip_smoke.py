@@ -13,8 +13,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
      levels of the main path's 32 1241x376 frames, of 8 frames of
      uniform noise and of the near-threshold compass pattern at the 8
      level shapes, and on odd shapes (37x101, 9x11, 105x347, 77x129) at
-     borders 31 and 4; fast_margin (B3) at the 8 level shapes, 37x101 and
-     9x11; extract_patches_levels (B2, one launch for all levels' slots)
+     borders 31 and 4; fast_margin_levels (B3, one launch for all
+     levels) on the main path's 8 levels, the noise and the compass
+     pattern at the 8 level shapes, and 37x101 and 9x11 (fast_margin, one
+     level); extract_patches_levels (B2, one launch for all levels' slots)
      on all 1200 slots of the main path's 32 frames, with slots clamped
      at every edge, and on a table with a 30x60 level whose slot count
      leaves a tail of fewer than 4 windows; all must agree bit for bit;
@@ -26,31 +28,34 @@ Phases, in order; any failure raises and the exit code is non-zero:
      answer on the card as on the CPU;
   5. drive the FAST-detect path at full width: the stage benchmark's
      ablation (tpu_vo_torch.tools.stage_bench) on 8 frames of 1241x376,
-     counters reset just before; check that B3 launched at least once
-     per level, and that the dense route's descriptors (fast.detect
-     selection, ic_angles_prefix, gaussian_blur, descriptor_bits) equal
-     the patch route's for the same keypoints; it prints each stage's
-     ms per frame;
+     counters reset just before; check that B3 launched exactly 4 times
+     per pass of the ablation (once per pyramid in each of its 4 FAST
+     stages) and once per fast.detect_levels call, and that the dense
+     route's descriptors (fast.detect_levels selection, ic_angles_prefix,
+     gaussian_blur, descriptor_bits) equal the patch route's for the same
+     keypoints; it prints each stage's ms per frame;
   5b. drive the patch-slots probe path at its full shapes: the probe
      tool (tpu_vo_torch.tools.patch_slots_probe) on 8 frames of
      1241x376 with 512 keypoints each, counters reset just before; check
      that P1, P2 and P3 each launched, then hold every variant of its
      sweep that fits in shared memory, and P1 at 128 and 512 lanes with
      fewer slots, against its plain version bit for bit, on the probe's
-     keypoints and on 5 at the right edge, and P2 and P3 also on levels
-     whose pixels span 41 binades (patch_slots_probe.binade_levels); the
-     probe prints its timing floor and each variant's ms;
+     keypoints and on 5 at the right edge and 5 at the bottom edge, and
+     P2 and P3 also on levels whose pixels span 41 binades
+     (patch_slots_probe.binade_levels); the probe prints its timing floor
+     and each variant's ms;
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
-     operations over 67 TFLOP/s (B1: its lane-instructions, counted from
-     this run's compass candidates, over 33.5 T per second), from this
-     run's shapes; P1 (8, 2,
+     operations over 67 TFLOP/s (B1 and B3: their lane-instructions,
+     counted from this run's compass candidates, over 33.5 T per second),
+     from this run's shapes; B3's kernel alone, its registers and blocks
+     per SM; P1 (8, 2,
      compact, 256 lanes), P2 (16, 8) and P3 (16, 8) and B2 at the probe's
      keypoints as the probe timed them, beside their plain versions and
      bounds, and the bf16 operations of P2's one-hot products; P1-P3's
      own device time (torch.profiler's kernel durations, no host work)
-     and P2's and P3's blocks per SM; the library call of B2, P1, P2
+     and their blocks per SM; the library call of B2, P1, P2
      and P3: their plain versions' final gather as one aten::index call
      on prebuilt indices, checked equal to the kernel's output;
   7. profile each stage and the main path with torch.profiler: device
@@ -78,13 +83,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpu_vo_torch.configs import ORBConfig, RansacConfig, VOConfig  # noqa: E402
-from tpu_vo_torch.features import brief, orb, orientation, patches  # noqa: E402
+from tpu_vo_torch.features import brief, fast, orb, orientation, patches  # noqa: E402
 from tpu_vo_torch.features.fast import _border_mask as fast_border  # noqa: E402
 from tpu_vo_torch.image.filters import gaussian_blur  # noqa: E402
 from tpu_vo_torch.image.pyramid import build_pyramid  # noqa: E402
 from tpu_vo_torch.ops import _build  # noqa: E402
-from tpu_vo_torch.ops import patch_probe  # noqa: E402
-from tpu_vo_torch.ops.fast import fast_margin, fast_margin_reference  # noqa: E402
+from tpu_vo_torch.ops import fast as fast_ops, patch_probe  # noqa: E402
+from tpu_vo_torch.ops.fast import (fast_margin, fast_margin_levels,  # noqa: E402
+                                   fast_margin_reference)
 from tpu_vo_torch.ops.patch import (RAW_RADIUS, RAW_SIZE, extract_patches,  # noqa: E402
                                     extract_patches_levels, extract_patches_reference)
 from tpu_vo_torch.ops.patch import _starts as patch_starts  # noqa: E402
@@ -108,6 +114,9 @@ PROBE_TIMED = {"band_windows": ("P1", dict(kp_chunk=8, nslots=2, compact=True, l
 # their CUDA kernels' names, as the profiler reports them
 PROBE_KERNEL_FN = {"band_windows": "band_kernel", "phase_windows_mxu": "phase_mxu_kernel",
                    "phase_windows_roll": "phase_roll_kernel"}
+# B3's launches per pass of the stage benchmark's ablation: one per pyramid
+# in each of +fast, +topk, +harris and +orientation
+B3_PER_PASS = 4
 # bf16 tensor-core operations per window of P2's two one-hot products as
 # mma.sync tiles them, (48, 128) x (128, 48) and (48, 48) x (48, 48), for
 # each of three bf16 parts, a multiply and an add per term: how P2
@@ -131,15 +140,15 @@ _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynch
 # bytes per second and f32 operations per second outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
-# f32 operations per pixel that the work needs, counted from the kernels'
-# arithmetic. FAST margin: 16 differences, then per polarity the 16
-# nine-long arc minima as a shared tree (3 x 16 pairwise mins, 16 mins
-# with the ninth value) and 15 maxes, then 4 for margin, corner and
-# score; needed inside the 3-pixel border only.
-FAST_OPS = 16 + 2 * (4 * 16 + 15) + 4
-# Kernel B1 is counted in issued lane-instructions, one per lane per clock
-# for f32 min/max and adds alike: 132 SMs x 128 lanes x 1.98 GHz.
+# Kernels B1 and B3 are counted in issued lane-instructions, one per lane
+# per clock for f32 min/max and adds alike: 132 SMs x 128 lanes x 1.98 GHz.
 LANE_INSTR_PER_S = 33.5e12
+# B3, per pixel inside its 3-pixel border: the compass test (4
+# differences, 8 compares, 4 to combine); per compass candidate among
+# them, the other 12 differences, the exact arc scan (47 min/max per
+# polarity) and 2 to join the polarities.
+FAST_COMPASS_OPS = 16
+FAST_ARC_OPS = 12 + 2 * 47 + 2
 # Per pixel inside the edge-threshold border: the compass test (4
 # differences, 8 compares, 4 to combine), strict NMS (8 maxes, 1 compare,
 # 1 and), Harris (two Sobel stencils of 6, 3 products, 3 separable 7x7 box
@@ -402,16 +411,24 @@ def main() -> int:
     fast_err = 0.0
     odd = [torch.randint(0, 256, shape, generator=g).float().to(dev)
            for shape in ((3, 37, 101), (2, 9, 11))]
-    for lvl in levels + odd:
-        ks, kc = fast_margin(lvl, ocfg.fast_threshold)
-        rs, rc = fast_margin_reference(lvl, ocfg.fast_threshold)
+    for name, lvls in (("main path", levels), ("noise", noise), ("compass pattern", pattern),
+                       ("odd shape 37x101", odd[:1]), ("odd shape 9x11", odd[1:])):
+        before = fast_margin.launches
+        got = fast_margin_levels(lvls, thr) if len(lvls) > 1 else [fast_margin(lvls[0], thr)]
         torch.cuda.synchronize()
-        if not (torch.equal(ks, rs) and torch.equal(kc, rc)):
-            raise AssertionError(f"fast_margin differs from its plain version at "
-                                 f"{tuple(lvl.shape)}: {int((kc != rc).sum())} corners, score "
-                                 f"max {float((ks - rs).abs().max())}")
-        fast_err = max(fast_err, float((ks - rs).abs().max()))
-    print(f"fast_margin == plain at {[tuple(lv.shape) for lv in levels + odd]}", flush=True)
+        if fast_margin.launches != before + 1:
+            raise AssertionError(f"B3 launched {fast_margin.launches - before} times for "
+                                 f"{len(lvls)} levels of the {name}")
+        for lvl, (ks, kc) in zip(lvls, got):
+            rs, rc = fast_margin_reference(lvl, thr)
+            torch.cuda.synchronize()
+            if not (torch.equal(ks, rs) and torch.equal(kc, rc)):
+                raise AssertionError(f"fast_margin_levels differs from its plain version on the "
+                                     f"{name} at {tuple(lvl.shape)}: {int((kc != rc).sum())} "
+                                     f"corners, score max {float((ks - rs).abs().max())}")
+            fast_err = max(fast_err, float((ks - rs).abs().max()))
+        print(f"fast_margin_levels == plain on the {name} at "
+              f"{[tuple(lv.shape) for lv in lvls]}, 1 launch", flush=True)
 
     # 4. the main path, counted
     kernels = {"select_maps": select_maps, "extract_patches": extract_patches,
@@ -460,12 +477,18 @@ def main() -> int:
     stage_bench.main(["ablate"])
     torch.cuda.synchronize()
     b3_launches = {name: k.launches for name, k in kernels.items()}
-    print(f"FAST-detect path launches: {b3_launches}", flush=True)
-    if (b3_launches["fast_margin"] < ocfg.n_levels or b3_launches["select_maps"] < 1
+    passes = stage_bench.WARMUP + stage_bench.ITERS
+    print(f"FAST-detect path launches: {b3_launches} in {passes} passes", flush=True)
+    if (b3_launches["fast_margin"] != B3_PER_PASS * passes or b3_launches["select_maps"] < 1
             or b3_launches["extract_patches"] < 1):
-        raise AssertionError(f"the ablation did not go through the kernels: {b3_launches}")
+        raise AssertionError(f"the ablation did not go through the kernels as expected "
+                             f"({B3_PER_PASS} B3 launches a pass): {b3_launches}")
     ab_frames = stage_bench.make_frames(stage_bench.B, H, W, dev)
     ab_levels = stage_bench.make_levels(ab_frames)
+    before = fast_margin.launches
+    fast.detect_levels(ab_levels, thr)
+    if fast_margin.launches != before + 1:
+        raise AssertionError(f"detect_levels launched B3 {fast_margin.launches - before} times")
     n_desc = 0
     for lvl, (ys, xs, valid) in zip(ab_levels, stage_bench.select_keypoints(ab_levels)):
         ang = orientation.ic_angles_prefix(lvl, ys, xs)
@@ -500,6 +523,9 @@ def main() -> int:
     eys = torch.randint(-5, h_p + 5, (b_p, 5), generator=g, dtype=torch.int32).to(dev)
     exs = torch.tensor([1170, 1180, 1200, 1240, 1245], dtype=torch.int32,
                        device=dev).repeat(b_p, 1)
+    bys = torch.tensor([h_p - 27, h_p - 22, h_p - 5, h_p - 1, h_p + 4], dtype=torch.int32,
+                       device=dev).repeat(b_p, 1)
+    bxs = torch.randint(-5, W + 5, (b_p, 5), generator=g, dtype=torch.int32).to(dev)
     bimgs = torch.from_numpy(patch_slots_probe.binade_levels(*pimgs.shape)).to(dev)
     probe_err = {"P1": 0.0, "P2": 0.0, "P3": 0.0}
     checked = []
@@ -515,7 +541,7 @@ def main() -> int:
         if run.func is patch_probe.band_windows:
             plain = functools.partial(patch_probe.band_windows_reference,
                                       compact=kw["compact"], lanes=kw["lanes"])
-        inputs = [(pimgs, pys, pxs), (pimgs, eys, exs)]
+        inputs = [(pimgs, pys, pxs), (pimgs, eys, exs), (pimgs, bys, bxs)]
         if name[:2] in ("P2", "P3"):
             inputs += [(bimgs, pys, pxs), (bimgs, eys, exs)]
         for im, y, x in inputs:
@@ -529,8 +555,9 @@ def main() -> int:
     if {n[:2] for n in checked} != set(probe_err):
         raise AssertionError(f"a probe kernel was not checked: {checked}")
     del bimgs  # out of phase 6's peak memory
-    print(f"probe kernels == plain on {pys.numel()} and {eys.numel()} right-edge keypoints, "
-          f"P2 and P3 also on levels across 41 binades: {checked}", flush=True)
+    print(f"probe kernels == plain on {pys.numel()}, {eys.numel()} right-edge and "
+          f"{bys.numel()} bottom-edge keypoints, P2 and P3 also on levels across 41 binades: "
+          f"{checked}", flush=True)
 
     # 6. times
     def main_path():
@@ -570,9 +597,19 @@ def main() -> int:
     pat_plain = _cuda_ms(lambda: [extract_patches_reference(lv, main_ys[:, o:e], main_xs[:, o:e])
                                   for lv, o, e in zip(levels, starts, ends)])
     kp = [(main_ys[:, o:e], main_xs[:, o:e]) for o, e in zip(starts, ends)]
-    fast_ms = sum(_cuda_ms(lambda lv=lv: fast_margin(lv, thr)) for lv in levels)
+    fast_ms = _cuda_ms(lambda: fast_margin_levels(levels, thr))
+    fast_alone = _kernel_alone_ms(lambda: fast_margin_levels(levels, thr), "fast_margin_kernel",
+                                  MAIN_REPS)
+    fast_regs, fast_per_sm = fast_ops.occupancy()
     fast_plain = sum(_cuda_ms(lambda lv=lv: fast_margin_reference(lv, thr), warmup=1, reps=2)
                      for lv in levels)
+    inner3 = [fast_border(lv.shape[-2], lv.shape[-1], 3, dev) for lv in levels]
+    n_inner3 = sum(lv.shape[0] * int(m.sum()) for lv, m in zip(levels, inner3))
+    n_cand3 = sum(int((compass_candidates(lv, thr) & m).sum()) for lv, m in zip(levels, inner3))
+    fast_bytes = sum(9 * b * h * w for b, h, w in shapes)
+    fast_instr = FAST_COMPASS_OPS * n_inner3 + FAST_ARC_OPS * n_cand3
+    fast_bound = max((fast_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                     (fast_instr / LANE_INSTR_PER_S * 1e3, "operations"))
     inner = [fast_border(lv.shape[-2], lv.shape[-1], border, dev) for lv in levels]
     n_inner = sum(lv.shape[0] * int(m.sum()) for lv, m in zip(levels, inner))
     n_cand = sum(int((compass_candidates(lv, thr) & m).sum()) for lv, m in zip(levels, inner))
@@ -583,8 +620,6 @@ def main() -> int:
     pat_bound = _bound(4 * _window_pixels(levels, kp)
                        + sum(ys.shape[0] * ys.shape[1] * (8 + 4 * RAW_SIZE * RAW_SIZE)
                              for ys, _ in kp), 0)
-    fast_bound = _bound(sum(9 * b * h * w for b, h, w in shapes),
-                        FAST_OPS * sum(b * (h - 6) * (w - 6) for b, h, w in shapes))
     probe_n = pys.numel()
     probe_out = probe_n * (8 + 4 * patch_probe.ROWS * RAW_SIZE)  # keypoints in, windows out
     p1_rows, p1_cols = patch_probe.band_index(h_p, W, pys, pxs, True, 256)
@@ -607,8 +642,9 @@ def main() -> int:
         probe_alone[name] = _kernel_alone_ms(lambda r=run: r(pimgs, pys, pxs),
                                              PROBE_KERNEL_FN[name], patch_slots_probe.REPS)
         del flat, idx
-    per_sm = {k: patch_probe.phase_blocks_per_sm(k, PROBE_TIMED[name][1]["nslots"])
-              for k, name in (("P2", "phase_windows_mxu"), ("P3", "phase_windows_roll"))}
+    per_sm = {k: patch_probe.blocks_per_sm(k, PROBE_TIMED[name][1]["nslots"])
+              for k, name in (("P1", "band_windows"), ("P2", "phase_windows_mxu"),
+                              ("P3", "phase_windows_roll"))}
     b2_flat, b2_idx = _library_gather(
         levels, [(patch_starts(ys, lv.shape[-2])[..., None] + torch.arange(RAW_SIZE, device=dev),
                   patch_starts(xs, lv.shape[-1])[..., None] + torch.arange(RAW_SIZE, device=dev))
@@ -641,22 +677,31 @@ def main() -> int:
           f"({sel_bytes} B), {sel_instr / LANE_INSTR_PER_S * 1e3:.4f} ms by lane-instructions "
           f"({sel_instr}: {n_inner} pixels inside the border, {n_cand} compass candidates "
           f"among them) {tag}")
+    print(f"fast_margin bound: {fast_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes "
+          f"({fast_bytes} B), {fast_instr / LANE_INSTR_PER_S * 1e3:.4f} ms by "
+          f"lane-instructions ({fast_instr}: {n_inner3} pixels inside the 3-pixel border, "
+          f"{n_cand3} compass candidates among them) {tag}")
     for name, k_ms, p_ms, (b_ms, by), lib in (
             (f"select_maps_levels 8 levels x {T} frames, 1 launch", sel_ms, sel_plain, sel_bound,
              None),
             (f"extract_patches_levels 1200 kps x {T} frames, 1 launch", pat_ms, pat_plain,
              pat_bound, pat_lib),
-            (f"fast_margin 8 levels x {T} frames", fast_ms, fast_plain, fast_bound, None)):
+            (f"fast_margin_levels 8 levels x {T} frames, 1 launch", fast_ms, fast_plain,
+             fast_bound, None)):
         lib = "none" if lib is None else f"{lib:.4f} ms"
         print(f"{name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({by}), library call {lib} {tag}")
+    alone = "not measured" if fast_alone is None else f"{fast_alone:.4f} ms"
+    print(f"fast_margin_kernel alone {alone} (median of {MAIN_REPS} launches), {fast_regs} "
+          f"registers, {fast_per_sm} blocks of 256 threads per SM {tag}")
     for name, (k_ms, p_ms, (b_ms, by)) in probe_times.items():
         alone = probe_alone[name]
         alone = "not measured" if alone is None else f"{alone:.4f} ms"
         print(f"{name} {PROBE_TIMED[name][1]} at the probe's {probe_n} keypoints: kernel "
               f"{k_ms:.4f} ms (kernel alone {alone}), plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({by}), library call (aten::index) {probe_lib[name]:.4f} ms {tag}")
-    print(f"blocks per SM: P2 (16, 8) {per_sm['P2']}, P3 (16, 8) {per_sm['P3']} {tag}")
+    print(f"blocks per SM: P1 (8, 2) {per_sm['P1']}, P2 (16, 8) {per_sm['P2']}, P3 (16, 8) "
+          f"{per_sm['P3']} {tag}")
     print(f"phase_windows_mxu's one-hot products: {P2_OPS} bf16 operations per window, "
           f"{P2_OPS * probe_n / BF16_OPS_PER_S * 1e3:.4f} ms at the bf16 peak {tag}")
     print(f"extract_patches (B2) at the probe's {probe_n} keypoints: {b2_probe:.4f} ms, bound "
@@ -672,7 +717,7 @@ def main() -> int:
     # indices (their plain versions' final gather, checked equal to the
     # kernel's output); no single PyTorch call computes B1's fused maps or
     # B3's FAST scores, so theirs is null. B3's launches are those of its
-    # own path (phase 5), P1-P3's those of the probe's (phase 5b).
+    # own path (phase 5, 4 a pass), P1-P3's those of the probe's (phase 5b).
     report = {"kernels": [
         {"name": "select_maps", "route": "cuda", "source": "tpu_vo_torch/csrc/select.cu",
          "replaces": "tpu_vo/ops/select_pallas.py:359", "launches": launches["select_maps"],

@@ -195,6 +195,51 @@ def test_ransac_through_idx_seam_f32(scene_pairs):
     assert np.all(np.abs(nt - nj) <= 0.02 * nj), (nt, nj)
 
 
+@pytest.mark.parametrize("n", [64, 128])
+def test_ransac_without_prescreen_equals_tpu_vo_f64(n):
+    """N <= prescreen (128): tpu_vo scores every hypothesis on the full set
+    (no finalist cut, no cheirality gate, sigma adapted on the full set).
+    Through the `idx` seam in float64 the port picks the same winner:
+    inliers, inlier count and success equal tpu_vo's, and E up to its sign
+    within 1e-5 (the 8-point tolerance of test_eight_point_matches is
+    1e-4)."""
+    rng = np.random.default_rng(n)
+    P = 4
+    x1, x2, _, _, _ = _two_view(rng, n, P, noise=3e-4)
+    out = rng.random((P, n)) < 0.25
+    x2 = np.where(out[..., None], rng.uniform(-0.5, 0.5, x2.shape), x2)
+    mask = rng.random((P, n)) > 0.1
+    thr = np.float64(2.0 / 718.856)
+    ransac = jax.jit(jr.find_essential_ransac)
+    idx, jres = [], []
+    for p in range(P):
+        key = jax.random.fold_in(jax.random.PRNGKey(0), p + 1)
+        m = jnp.asarray(mask[p])
+        idx.append(np.asarray(jr._draw_samples(key, m, 256, 5)))
+        jres.append(ransac(jnp.asarray(x1[p]), jnp.asarray(x2[p]), m, key, jnp.asarray(thr)))
+    res = tr.find_essential_ransac(torch.from_numpy(x1), torch.from_numpy(x2),
+                                   torch.from_numpy(mask), float(thr),
+                                   idx=torch.from_numpy(np.stack(idx).astype(np.int64)))
+    assert res.E.dtype == torch.float64 and res.success.all()
+    for p, j in enumerate(jres):
+        Ej, Et = np.asarray(j.E), res.E[p].numpy()
+        # E and -E are one model; the LO refit's 8-point SVD picks the sign
+        # and, run by LAPACK in another order, differs in the 6th decimal
+        sign = np.sign((Ej * Et).sum())
+        np.testing.assert_allclose(Et, sign * Ej, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(res.inliers[p].numpy(), np.asarray(j.inliers))
+        assert int(res.num_inliers[p]) == int(j.num_inliers)
+        assert bool(res.success[p]) == bool(j.success)
+
+
+def test_ransac_refuses_two_phase_scoring_without_finalists():
+    x = torch.zeros((1, 200, 2))
+    idx = torch.zeros((1, 4, 5), dtype=torch.int64)
+    with pytest.raises(ValueError, match="at least 1"):
+        tr.find_essential_ransac(x, x, torch.ones((1, 200), dtype=torch.bool), 0.01,
+                                 idx=idx, max_iters=4, finalists=-1)
+
+
 def test_ransac_generator_draws_do_not_depend_on_batching(scene_pairs):
     from tpu_vo_torch.pipeline.runner import pair_generators
 

@@ -138,20 +138,79 @@ def test_windows_refuse_levels_smaller_than_the_window(shape):
 
 
 def test_shared_memory_fit():
-    """Only nslots x band (+ P1's barriers) within 232,448 B fits; P2's
-    production (32, 16) needs 393,216 B of bands. P2's and P3's slots hold
-    the band alone (no zero rows, no separate stage): 9 fit."""
-    assert pp.smem_bytes("P1", 4, 256) == (57_344, 229_408)
-    assert pp.phase_warps(8) == 8 and pp.phase_warps(1) == 1 and pp.phase_warps(40) == 8
+    """Only nslots x slot within 232,448 B fits; P2's production (32, 16)
+    needs 393,216 B of bands. A P1 slot holds the (48, 43) window, 8,256 B
+    at any lanes: 28 fit (the TPU kernel's (56, 256) band took 57,344 B,
+    and 4 fitted). P2's and P3's slots hold the band alone (no zero rows,
+    no separate stage): 9 fit."""
+    assert pp.smem_bytes("P1", 4, 256) == (8_256, 33_024)
+    assert pp.smem_bytes("P1", 28, 512) == (8_256, 231_168)
+    assert pp.slot_warps(8) == 8 and pp.slot_warps(1) == 1 and pp.slot_warps(40) == 8
     assert pp.smem_bytes("P2", 8) == (24_576, 196_608)
     assert pp.smem_bytes("P3", 8) == (24_576, 196_608)
-    for kernel, nslots, lanes in (("P1", 4, 256), ("P1", 2, 512), ("P2", 8, 128),
-                                  ("P2", 9, 128), ("P3", 8, 128), ("P3", 9, 128)):
+    for kernel, nslots, lanes in (("P1", 4, 256), ("P1", 2, 512), ("P1", 16, 256),
+                                  ("P1", 28, 128), ("P2", 8, 128), ("P2", 9, 128),
+                                  ("P3", 8, 128), ("P3", 9, 128)):
         pp.check_fits(kernel, nslots, lanes)
-    for kernel, nslots, lanes in (("P1", 8, 256), ("P1", 16, 128), ("P2", 10, 128),
+    for kernel, nslots, lanes in (("P1", 29, 256), ("P1", 32, 128), ("P2", 10, 128),
                                   ("P2", 16, 128), ("P3", 10, 128), ("P3", 16, 128)):
         with pytest.raises(ValueError, match=r"does not fit \(\d+ x [\d,]+ B"):
             pp.check_fits(kernel, nslots, lanes)
+
+
+def _footprint(h, w, ys, xs, compact, lanes):
+    """(rows (B, N, 48), cols (B, N, 43)): the level pixels that P1's
+    kernel copies into each window, by its own formula (`BandWindow` in
+    csrc/patch_probe.cu): column col + j, less `lanes` from j = wrap on,
+    where the roll wraps."""
+    r0 = torch.clamp(ys.long() - 21, 0, h - 48)
+    c0 = torch.clamp(xs.long() - 21, 0, w - 43)
+    c128 = c0 & ~127
+    cc = torch.clamp(c128, max=(w // 128 + 1) * 128 - lanes)
+    if compact:
+        row, coff = r0, c0 - c128
+    else:
+        hp = max((h + 7) & ~7, 56)
+        row, coff = torch.clamp(r0 & ~7, 0, max(hp - 56, 0)), torch.zeros_like(c0)
+    j = torch.arange(43)
+    cols = (cc + coff)[..., None] + j - torch.where(j >= (lanes - coff)[..., None], lanes, 0)
+    return row[..., None] + torch.arange(48), cols
+
+
+@pytest.mark.parametrize("w", [1241, 1100, 300])
+@pytest.mark.parametrize("lanes", [128, 256, 512])
+def test_band_footprint_copy_equals_the_padded_band(w, lanes):
+    """P1's kernel copies each window's own elements from the caller's
+    level (emulated by `_footprint`), 0 past its edge, where the TPU kernel rolls
+    a band of the padded level: emulated here, bit for bit the plain
+    version, compact and not, with keypoints at the right and bottom
+    edges. At 128 lanes the roll wraps, and the window's columns are two
+    runs of the level; at 256 and 512 lanes windows near the right edge
+    come out shifted left (the band's clamp). No element reads the pad: rows stay
+    below r0 + 48 <= h (r8 <= r0), columns below floor128(c0) + 43 <=
+    c0 + 43 <= w with compact (where the clamp and the wrap only move
+    left) and without."""
+    img, ys, xs = _level(2, 64, w, 40, 6)
+    xs[:, :8] = (w - 1, w + 3, w - 22, w - 44, w - 60, w - 70, w - 130, 1180 % w)
+    ys[:, 8:12] = (63, 68, 40, 44)
+    img, ys, xs = _torch(img, ys, xs)
+    if (w // 128 + 1) * 128 < lanes:
+        with pytest.raises(ValueError, match="lane band is wider"):
+            pp.band_windows(img, ys, xs, 8, 2, True, lanes)
+        return
+    for compact in (True, False):
+        rows, cols = _footprint(64, w, ys, xs, compact, lanes)
+        assert (rows >= 0).all() and (rows < 64).all()
+        assert (cols >= 0).all() and (cols < w).all()
+        bi = torch.arange(2)[:, None, None, None]
+        got = img[bi, rows[..., None], cols[..., None, :]]
+        assert torch.equal(got, pp.band_windows_reference(img, ys, xs, compact, lanes))
+        assert torch.equal(got, pp.band_windows(img, ys, xs, 8, 2, compact, lanes))
+        two_runs = (cols.diff(dim=-1) != 1).any(-1)
+        assert two_runs.any() == (compact and lanes == 128)
+        if compact:  # the clamp of the band's column shifts windows left
+            shifted = cols[..., 0] < torch.clamp(xs.long() - 21, 0, w - 43)
+            assert shifted.any() == (lanes > 128)
 
 
 def _split_input(name):

@@ -5,7 +5,9 @@ tpu_vo's trajectory under 0.3 of its extent, rotation error against
 ground truth at most tpu_vo's + 1 deg, keypoint counts within 2%.
 Also: tpu_vo's features fed through interop into the port's
 estimate_pair, and the port's numpy-only make_sequence tracked by
-tpu_vo's runner."""
+tpu_vo's runner. And the runner at 64 and 128 keypoints (RANSAC without
+its prescreen) and chunked by frames and by pairs (bit for bit the
+unchunked run)."""
 
 import numpy as np
 import jax
@@ -131,3 +133,59 @@ def test_runner_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert runner.entry_device("cpu") == torch.device("cpu")
     poses, _ = runner.run_sequence_batched(frames, cfg, device="cpu")
     assert poses.R.device.type == "cpu" and poses.R.shape == (2, 3, 3)
+
+
+@pytest.mark.parametrize("n_features", [64, 128])
+def test_runner_runs_at_few_keypoints(n_features):
+    """N <= 128 matches: RANSAC scores every hypothesis on the full set,
+    as tpu_vo does (these configs are tpu_vo's own test configs)."""
+    from tpu_vo_torch.configs import ORBConfig
+
+    frames = torch.from_numpy(np.stack(make_sequence(n_frames=3, width=320, height=240,
+                                                     seed=1)[0]))
+    cfg = VOConfig(image_width=320, image_height=240,
+                   orb=ORBConfig(n_features=n_features, n_levels=2))
+    poses, diags = runner.run_sequence_batched(frames, cfg, device="cpu")
+    assert poses.R.shape == (3, 3, 3) and torch.isfinite(poses.R).all()
+    assert (diags["num_keypoints"] == n_features).all()
+    assert (diags["num_inliers"] > 0).all()
+
+
+@pytest.fixture(scope="module")
+def nine_frames():
+    from tpu_vo_torch.configs import ORBConfig
+
+    frames = torch.from_numpy(np.stack(make_sequence(n_frames=9, width=240, height=180,
+                                                     seed=2)[0]))
+    cfg = VOConfig(image_width=240, image_height=180,
+                   orb=ORBConfig(n_features=200, n_levels=3))
+    return frames, cfg, runner.run_sequence_batched(frames, cfg, device="cpu")
+
+
+def _assert_same_run(a, b):
+    (pa, da), (pb, db) = a, b
+    assert torch.equal(pa.R, pb.R) and torch.equal(pa.t, pb.t)
+    assert da.keys() == db.keys()
+    for k in da:
+        assert torch.equal(da[k], db[k]), k
+
+
+@pytest.mark.parametrize("frame_chunk, pair_chunk", [(3, 4), (3, None), (None, 4), (9, 8)])
+def test_runner_chunks_equal_the_unchunked_run(nine_frames, frame_chunk, pair_chunk):
+    frames, cfg, whole = nine_frames
+    assert whole[1]["pose_ok"].float().mean() >= 0.5
+    _assert_same_run(runner.run_sequence_batched(frames, cfg, device="cpu",
+                                                 frame_chunk=frame_chunk,
+                                                 pair_chunk=pair_chunk), whole)
+
+
+def test_runner_rejects_bad_chunks(nine_frames):
+    frames, cfg, whole = nine_frames
+    for kw in ({"frame_chunk": 0}, {"pair_chunk": -1}):
+        with pytest.raises(ValueError, match="positive int"):
+            runner.run_sequence_batched(frames, cfg, device="cpu", **kw)
+    for kw in ({"frame_chunk": 2}, {"pair_chunk": 3}):
+        with pytest.raises(ValueError, match="not divisible"):
+            runner.run_sequence_batched(frames, cfg, device="cpu", **kw)
+    _assert_same_run(runner.run_sequence_batched(frames, cfg, device="cpu", frame_chunk=20,
+                                                 pair_chunk=21), whole)

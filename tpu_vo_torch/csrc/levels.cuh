@@ -1,5 +1,6 @@
-// The pyramid-level table that kernels B1 (select.cu) and B2 (patch.cu)
-// take by value, so that one launch covers every level of a pyramid.
+// The pyramid-level table that kernels B1 (select.cu), B2 (patch.cu) and
+// B3 (fast.cu) take by value, so that one launch covers every level of a
+// pyramid.
 //
 // The C entry points receive it as a plain struct (ctypes.Structure
 // `ops/levels.LevelTable`, same field order) and hand it to the kernel as
@@ -21,7 +22,10 @@ struct LevelTable {
   int H[MAX_LEVELS], W[MAX_LEVELS];
   int Hp2[MAX_LEVELS], Wout[MAX_LEVELS];  // B1: ceil(H / 2), W + W % 2
   int idx_bits[MAX_LEVELS];               // B1: bit_length(H * W - 1)
-  int first[MAX_LEVELS];  // B1: the level's first tile (set by the launcher); B2: its first slot
+  int first[MAX_LEVELS];  // B1: the level's first tile (set by the launcher); B2: its first slot;
+                          // B3: its first block (set by the launcher)
+  float* score[MAX_LEVELS];           // B3 out: (B, H, W) f32
+  unsigned char* corner[MAX_LEVELS];  // B3 out: (B, H, W) bool
 };
 
 // The level whose [first[l], first[l + 1]) range holds i.

@@ -1,50 +1,65 @@
 // Kernels P1, P2 and P3: keypoint windows staged through shared memory
-// with bands in flight.
+// with slots in flight.
 //
 // Replace the three Pallas kernels of tools/patch_slots_probe.py, the
 // probe that chose kernel B2's design: P1 `build` (body `_kernel`), P2
 // `build_v2` (body `_v2_kernel`) and P3 `build_v3` (body `_v3_kernel`).
-// Each gives keypoint k of frame b a (48, 43) f32 window out of a band of
-// the level copied to shared memory; the plain versions and the index
-// formulas are in ops/patch_probe.py.
+// Each gives keypoint k of frame b the (48, 43) f32 window that the TPU
+// kernel cuts out of a band of the level; the plain versions and the
+// index formulas are in ops/patch_probe.py.
 //
-// P1 keeps the first port's structure: one block per KP_CHUNK keypoints,
-// NSLOTS (56, lanes) bands in flight, each filled by one cp.async.bulk
-// per row of the zero-padded level and completing on its own mbarrier
-// (the TPU kernel's DMA semaphore), one block-wide barrier per window.
-//
-// P2 and P3 share one pipeline, built for this card:
+// All three share one pipeline, built for this card:
 //
 // - What bounds them: bytes. Each window is 8,256 B out, and the level
 //   pixels the windows cover come in once: 45.5 MB for the probe's 4096
-//   windows, 0.0137 ms at 3.35 TB/s. The bands the probe varies keep the
-//   TPU kernels' 48 x 128 f32 (24,576 B a slot); they come from L2, 100
-//   MB a call, three times the windows' bytes.
+//   windows, 0.0137 ms at 3.35 TB/s (P1's windows cover 45.5 MB too).
 // - One warp per window, one slot per warp. A block of min(NSLOTS, 8)
 //   warps walks chunks of KP_CHUNK keypoints (a persistent grid: as many
 //   blocks as fit on the SMs, each taking chunk after chunk); keypoint j
 //   of a chunk goes to warp j mod warps, and each warp owns NSLOTS /
 //   warps slots. A warp refills its slot itself once it is done with it,
 //   so no block-wide barrier runs per window: a __syncwarp, then the next
-//   band's copies. The copies are cp.async (each thread's own copy, not
+//   window's copies. The copies are cp.async (each thread's own copy, not
 //   the asynchronous proxy, so no proxy fence comes before a refill), one
-//   commit group per band; cp.async.wait_group keeps a warp's other bands
-//   in flight while it waits for the oldest. On an H100, 8 warps with a
-//   slot each beat 4 warps with two: these kernels wait on latency, and
-//   more warps hide more of it.
-// - No padded copy of the level: the kernels read the caller's level.
-//   Band rows never pass the level (r0 <= H - 48), but band columns may
-//   pass W; cp.async's source size zero-fills them, which P2 needs (its
-//   products multiply them by 0, and 0 x NaN is not 0). A band row whose
-//   start is 16-B aligned comes in as 32 16-B copies, any other row as
-//   128 4-B copies: the level's pitch (1241 floats) leaves 3 rows in 4
+//   commit group per slot fill; cp.async.wait_group keeps a warp's other
+//   slots in flight while it waits for the oldest. On an H100, 8 warps
+//   with a slot each beat 4 warps with two: these kernels wait on
+//   latency, and more warps hide more of it.
+// - No padded copy of the level: the kernels read the caller's level,
+//   and cp.async's source size zero-fills what lies past it.
+// - The window leaves in 16-B stores, 516 float4s of its contiguous 8,256
+//   B.
+//
+// P1 stages what the window reads, not the TPU kernel's whole (56,
+// lanes) band (57,344 B at 256 lanes, of which 4 slots filled a block):
+// element (r, j) of the window, in the window's own order, so a slot is
+// the 8,256-B window and 28 fit in a block. The level pixel it holds is
+// the TPU kernel's (`BandWindow`): row r0 + r with `compact` (r8 + r
+// without); column c + j, less `lanes` where the roll wraps (coff + j >=
+// lanes, at 128 lanes: the window's columns are then two runs of the
+// level). No element reaches the TPU kernel's padding (rows stay below
+// r0 + 48 <= H since r8 <= r0, columns below floor128(c0) + 43 <= W); a
+// copy past the level would zero-fill all the same. A lane copies
+// elements lane, lane + 32, ... by 4-B cp.async, its row and column
+// advanced by adding, not dividing (rows of the level start at any 4-B
+// boundary, so 16-B copies would need the pad back); the slot then goes
+// out as it is.
+//
+// P2 and P3 copy a (48, 128) band per window:
+//
+// - The bands the probe varies keep the TPU kernels' 48 x 128 f32 (24,576
+//   B a slot); they come from L2, 100 MB a call, three times the windows'
+//   bytes. Band rows never pass the level (r0 <= H - 48), but band columns
+//   may pass W; cp.async's source size zero-fills them, which P2 needs
+//   (its products multiply them by 0, and 0 x NaN is not 0). A band row
+//   whose start is 16-B aligned comes in as 32 16-B copies, any other row
+//   as 128 4-B copies: the level's pitch (1241 floats) leaves 3 rows in 4
 //   unaligned, so a bulk or tensor copy would need the pad back. (Copying
 //   each row's aligned 132-float superset in 16-B pieces was slower.)
 // - A slot's 16-B chunks are XOR-swizzled by row (chunk q of row n at
 //   q ^ 4 (n & 1)), so that P2's 16-B fragment loads (4 lanes per row, 2
 //   rows per quarter-warp) hit 32 distinct banks.
-// - The window leaves in 16-B stores, 516 float4s of its contiguous 8,256
-//   B; the rows past 48 - (r0 & 3) are written as zeros. P3 reads each
+// - The rows past 48 - (r0 & 3) are written as zeros. P3 reads each
 //   float4's four elements from the slot, row and column advanced by
 //   adding, not dividing; P2 stages the window in its slot once the band
 //   is read and copies it out.
@@ -80,9 +95,8 @@ namespace {
 constexpr int R = 21;
 constexpr int S = 2 * R + 1;       // 43, window columns
 constexpr int ROWS = 48;           // window rows
-constexpr int BAND_ROWS = 56;      // P1's band rows
+constexpr int BAND_ROWS = 56;      // the TPU kernel P1's band rows
 constexpr int PHASE_LANES = 128;   // P2's and P3's band columns
-constexpr int NT = 256;
 constexpr int WIN = ROWS * S;            // 2064 floats, 8,256 B per window
 constexpr int WIN4 = WIN / 4;            // 516 float4s
 constexpr int PHASE_BAND = ROWS * PHASE_LANES;
@@ -95,129 +109,6 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return min(max(v, lo), hi);
 }
-
-// The slots' barriers, each expecting one arrival (the one that sets its
-// bytes) per phase. Called by thread 0.
-__device__ __forceinline__ void init_barriers(uint64_t* bars, int n) {
-  for (int s = 0; s < n; ++s)
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(&bars[s])),
-                 "r"(1u)
-                 : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-__device__ __forceinline__ void wait_barrier(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-// Start copying a (rows, lanes) band at src (row pitch `pitch` floats)
-// into dst (row pitch `lanes`); completes the barrier's current phase.
-// Called by the 32 threads of warp 0. Source and destination rows are
-// 16-byte aligned: the wrapper pads the level to a pitch of a multiple
-// of 64 floats and the bands start at multiples of 64 columns.
-__device__ __forceinline__ void start_band(float* dst, const float* src, int rows,
-                                           int lanes, int pitch, uint64_t* bar) {
-  const int lane = threadIdx.x & 31;
-  const uint32_t row_bytes = 4u * lanes;
-  // the slot was last read by the generic proxy; order those reads
-  // before the asynchronous proxy's writes
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-  if (lane == 0)
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                     smem_addr(bar)),
-                 "r"(row_bytes * rows)
-                 : "memory");
-  __syncwarp();
-  for (int r = lane; r < rows; r += 32)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1], %2, [%3];" ::"r"(smem_addr(dst + r * lanes)),
-        "l"(src + (size_t)r * pitch), "r"(row_bytes), "r"(smem_addr(bar))
-        : "memory");
-}
-
-// The slot pipeline of one block over its jn keypoints: `start(j, slot)`
-// (warp 0) begins keypoint j's band, `emit(j, slot)` (all threads) writes
-// its window once the band has arrived.
-template <class Start, class Emit>
-__device__ __forceinline__ void run_slots(int jn, int nslots, uint64_t* bars, Start start,
-                                          Emit emit) {
-  if (threadIdx.x < 32)
-    for (int j = 0; j < min(nslots, jn); ++j) start(j, j);
-  for (int j = 0; j < jn; ++j) {
-    const int slot = j % nslots;
-    wait_barrier(&bars[slot], (j / nslots) & 1);
-    emit(j, slot);
-    __syncthreads();  // every thread is done with the slot
-    if (threadIdx.x < 32 && j + nslots < jn) start(j + nslots, slot);
-  }
-}
-
-// P1's (56, lanes) band of the level padded to (Hp, Wp): at row r8 =
-// clip(floor8(r0), 0, Hp - 56) and column cc = min(c128, (W / 128 + 1) *
-// 128 - lanes), with the window at row offset r0 - r8 and lane roll
-// c0 - c128. The clamp of cc leaves the roll as it is: the TPU kernel's
-// windows near the right edge come out shifted left, and so do these.
-struct Band {
-  int row, col, roff, coff;
-  __device__ Band(int y, int x, int H, int W, int Hp, int lanes) {
-    const int r0 = clampi(y - R, 0, H - ROWS), c0 = clampi(x - R, 0, W - S);
-    row = clampi(r0 / 8 * 8, 0, max(Hp - BAND_ROWS, 0));
-    col = min(c0 / 128 * 128, (W / 128 + 1) * 128 - lanes);
-    roff = r0 - row;
-    coff = c0 % 128;
-  }
-};
-
-// P1: compact, the window at (roff, coff) of the band, the roll wrapping
-// at `lanes`, as the TPU kernel's roll and 9-way row dispatch; else the
-// band's top-left (48, 43).
-__global__ void __launch_bounds__(NT)
-band_kernel(const float* __restrict__ img, const int* __restrict__ ys,
-            const int* __restrict__ xs, float* __restrict__ out, int H, int W, int N,
-            int Hp, int Wp, int kp_chunk, int nslots, int compact, int lanes) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int band = BAND_ROWS * lanes;
-  float* slots = reinterpret_cast<float*>(smem_raw);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(slots + (size_t)nslots * band);
-  const int b = blockIdx.y, k0 = blockIdx.x * kp_chunk;
-  const int jn = min(kp_chunk, N - k0);
-  const float* level = img + (size_t)b * Hp * Wp;
-  const int* yk = ys + (size_t)b * N + k0;
-  const int* xk = xs + (size_t)b * N + k0;
-  if (threadIdx.x == 0) init_barriers(bars, nslots);
-  __syncthreads();
-
-  auto start = [&](int j, int slot) {
-    const Band p(yk[j], xk[j], H, W, Hp, lanes);
-    start_band(slots + (size_t)slot * band, level + (size_t)p.row * Wp + p.col, BAND_ROWS,
-               lanes, Wp, &bars[slot]);
-  };
-  auto emit = [&](int j, int slot) {
-    const Band p(yk[j], xk[j], H, W, Hp, lanes);
-    const int roff = compact ? p.roff : 0, coff = compact ? p.coff : 0;
-    const float* src = slots + (size_t)slot * band;
-    float* dst = out + ((size_t)b * N + k0 + j) * ROWS * S;
-    for (int i = threadIdx.x; i < ROWS * S; i += NT) {
-      const int r = i / S;
-      int c = coff + i - r * S;
-      if (c >= lanes) c -= lanes;  // the roll wraps (coff + 42 < 2 * lanes)
-      dst[i] = src[(roff + r) * lanes + c];
-    }
-  };
-  run_slots(jn, nslots, bars, start, emit);
-}
-
-// ---- P2 and P3 ----------------------------------------------------------
 
 // The (48, 128) band of P2 and P3: in the TPU wrapper, phase copy
 // (pr, pc) = ((r0 >> 2) & 1, (c0 >> 6) & 1) at (sr, sc) = (floor8(r0 -
@@ -303,43 +194,97 @@ __device__ __forceinline__ void wait_groups(int n) {
   }
 }
 
-// The slot pipeline of one warp: its slots are the block's slots
-// warp, warp + warps, ...; `emit(win, slot, band)` writes window win once
-// its band has arrived in slot, and may then use the slot as scratch. A group is committed for every slot
-// refill, empty or not, so that the oldest band is always `nmine - 1`
-// groups back.
-template <class Emit>
-__device__ __forceinline__ void run_warp(float* slots, const float* __restrict__ img,
-                                         const int* __restrict__ ys,
-                                         const int* __restrict__ xs, int H, int W, int N,
-                                         int total, int kp_chunk, int nslots, int warps,
-                                         Emit emit) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// The slot pipeline of one warp: its slots are the block's slots warp,
+// warp + warps, ... of `slot_floats` floats each; `copy(slot, win)` (all
+// 32 lanes) issues the copies of window win into slot, and `emit(win,
+// slot)` writes window win once they have arrived, and may then use the
+// slot as scratch. A group is committed for every slot refill, empty or
+// not, so that the oldest fill is always `nmine - 1` groups back.
+template <class Copy, class Emit>
+__device__ __forceinline__ void run_warp(float* slots, int slot_floats, int total, int kp_chunk,
+                                         int nslots, int warps, Copy copy, Emit emit) {
+  const int warp = threadIdx.x >> 5;
   const int nmine = (nslots - warp + warps - 1) / warps;  // this warp's slots
   Walk fill{(int)blockIdx.x, warp}, use = fill;
   for (int i = 0; i < nmine; ++i) {
     if (fill.valid(kp_chunk, total)) {
-      copy_band(slots + (size_t)(warp + i * warps) * PHASE_BAND, img, ys, xs,
-                fill.window(kp_chunk), H, W, N, lane);
+      copy(slots + (size_t)(warp + i * warps) * slot_floats, fill.window(kp_chunk));
       fill.next(warp, warps, kp_chunk, total);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
   }
   for (int i = 0; use.valid(kp_chunk, total); i = (i + 1 == nmine) ? 0 : i + 1) {
-    float* slot = slots + (size_t)(warp + i * warps) * PHASE_BAND;
+    float* slot = slots + (size_t)(warp + i * warps) * slot_floats;
     wait_groups(nmine - 1);
     __syncwarp();
-    const int win = use.window(kp_chunk);
-    emit(win, slot, PhaseBand(ys[win], xs[win], H, W));
+    emit(use.window(kp_chunk), slot);
     __syncwarp();  // every lane is done with the slot
     if (fill.valid(kp_chunk, total)) {
-      copy_band(slot, img, ys, xs, fill.window(kp_chunk), H, W, N, lane);
+      copy(slot, fill.window(kp_chunk));
       fill.next(warp, warps, kp_chunk, total);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
     use.next(warp, warps, kp_chunk, total);
   }
   asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// P1's window source: element (r, j) of keypoint (y, x)'s window is the
+// TPU kernel's band element, level pixel (row + r, col + j), less `lanes`
+// columns from j = wrap on (the roll wraps at lanes: at 128 lanes on most
+// keypoints), 0 past the level (never reached). The band starts at column cc = min(c128,
+// (W / 128 + 1) * 128 - lanes); the clamp leaves the roll by coff = c0 -
+// c128 as it is, so near the right edge the window comes out shifted
+// left, as the TPU kernel's does. With compact the window sits at row r0
+// of the level; without, it is the band's top-left (48, 43), from row r8
+// = clip(floor8(r0), 0, hp - 56) with hp = max(ceil8(H), 56).
+struct BandWindow {
+  int row, col, wrap;
+  __device__ BandWindow(int y, int x, int H, int W, int lanes, int compact) {
+    const int r0 = clampi(y - R, 0, H - ROWS), c0 = clampi(x - R, 0, W - S);
+    const int c128 = c0 & ~127, cc = min(c128, (W / 128 + 1) * 128 - lanes);
+    const int hp = max((H + 7) & ~7, BAND_ROWS);
+    const int coff = compact ? c0 - c128 : 0;
+    row = compact ? r0 : clampi(r0 & ~7, 0, max(hp - BAND_ROWS, 0));
+    col = cc + coff;
+    wrap = lanes - coff;
+  }
+};
+
+// P1: the window's 2064 elements into the slot in the window's order
+// (element e = 43 r + j at e), then out by 16-B stores.
+__global__ void __launch_bounds__(MAX_WARPS * 32)
+band_kernel(const float* __restrict__ img, const int* __restrict__ ys,
+            const int* __restrict__ xs, float* __restrict__ out, int H, int W, int N, int total,
+            int kp_chunk, int nslots, int warps, int compact, int lanes) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* slots = reinterpret_cast<float*>(smem_raw);
+  const int lane = threadIdx.x & 31;
+  run_warp(
+      slots, WIN, total, kp_chunk, nslots, warps,
+      [&](float* slot, int win) {
+        const BandWindow p(ys[win], xs[win], H, W, lanes, compact);
+        const float* level = img + (size_t)(win / N) * H * W;
+        const uint32_t base = smem_addr(slot);
+        int r = 0, j = lane;  // element e = (r, j): j < 43, and 32 < 43 wraps j once at most
+        for (int e = lane; e < WIN; e += 32) {
+          const int gy = p.row + r, gx = p.col + j - (j >= p.wrap ? lanes : 0);
+          const bool in = gy < H && gx < W;
+          asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(base + 4u * e),
+                       "l"(in ? level + (size_t)gy * W + gx : level), "r"(in ? 4 : 0)
+                       : "memory");
+          j += 32;
+          if (j >= S) {
+            j -= S;
+            ++r;
+          }
+        }
+      },
+      [&](int win, const float* slot) {
+        const float4* src = reinterpret_cast<const float4*>(slot);
+        float4* dst = reinterpret_cast<float4*>(out + (size_t)win * WIN);
+        for (int f = lane; f < WIN4; f += 32) dst[f] = src[f];
+      });
 }
 
 // P3: out[r][c] = band[roff + r][coff + c] for r + roff < 48, else 0 (the
@@ -353,8 +298,10 @@ phase_roll_kernel(const float* __restrict__ img, const int* __restrict__ ys,
   float* slots = reinterpret_cast<float*>(smem_raw);
   const int lane = threadIdx.x & 31;
   const int r_lane = 4 * lane / S, c_lane = 4 * lane - r_lane * S;
-  run_warp(slots, img, ys, xs, H, W, N, total, kp_chunk, nslots, warps,
-           [&](int win, const float* slot, const PhaseBand& p) {
+  run_warp(slots, PHASE_BAND, total, kp_chunk, nslots, warps,
+           [&](float* slot, int win) { copy_band(slot, img, ys, xs, win, H, W, N, lane); },
+           [&](int win, const float* slot) {
+             const PhaseBand p(ys[win], xs[win], H, W);
              float4* dst = reinterpret_cast<float4*>(out + (size_t)win * WIN);
              int r = r_lane, c = c_lane;
              for (int f = lane; f < WIN4; f += 32) {
@@ -508,8 +455,10 @@ phase_mxu_kernel(const float* __restrict__ img, const int* __restrict__ ys,
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* slots = reinterpret_cast<float*>(smem_raw);
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  run_warp(slots, img, ys, xs, H, W, N, total, kp_chunk, nslots, warps,
-           [&](int win, float* slot, const PhaseBand& p) {
+  run_warp(slots, PHASE_BAND, total, kp_chunk, nslots, warps,
+           [&](float* slot, int win) { copy_band(slot, img, ys, xs, win, H, W, N, lane); },
+           [&](int win, float* slot) {
+             const PhaseBand p(ys[win], xs[win], H, W);
              float fin[3][6][4];
 #pragma unroll
              for (int mi = 0; mi < 3; ++mi) {
@@ -527,48 +476,46 @@ phase_mxu_kernel(const float* __restrict__ img, const int* __restrict__ ys,
            });
 }
 
-template <class Kernel, class... Args>
-int launch(Kernel kernel, int B, int N, int kp_chunk, size_t smem, void* stream,
-           Args... args) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + kp_chunk - 1) / kp_chunk, B);
-  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
 constexpr int MAX_DEVICES = 16;
 constexpr int MAX_SLOTS = 64;
+constexpr int NKERNELS = 3;  // 0: P2, 1: P3, 2: P1
 
-size_t phase_smem(int nslots) { return (size_t)nslots * PHASE_BAND * 4; }
+const void* window_kernel(int k) {
+  return k == 0 ? (const void*)phase_mxu_kernel
+                : k == 1 ? (const void*)phase_roll_kernel : (const void*)band_kernel;
+}
 
-// Blocks of P2 (roll = 0) or P3 (roll = 1) that fit on one SM, or -1 on an
+// Shared memory of a block of kernel k with nslots slots: P2's and P3's
+// slots hold a (48, 128) band, P1's a (48, 43) window.
+size_t window_smem(int k, int nslots) { return (size_t)nslots * 4 * (k == 2 ? WIN : PHASE_BAND); }
+
+// Blocks of kernel k that fit on one SM of the current device, or -1 on an
 // error. The largest shared-memory size is allowed once per process and
 // device, and the answer is kept per (device, kernel, nslots, warps).
-int phase_blocks_per_sm(int nslots, int warps, int roll) {
-  static bool allowed[MAX_DEVICES][2];
-  static int known[MAX_DEVICES][2][MAX_SLOTS + 1][MAX_WARPS + 1];
+int blocks_per_sm(int k, int nslots, int warps) {
+  static bool allowed[MAX_DEVICES][NKERNELS];
+  static int known[MAX_DEVICES][NKERNELS][MAX_SLOTS + 1][MAX_WARPS + 1];
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || warps < 1 || warps > MAX_WARPS) return -1;
-  const void* kernel = roll ? (const void*)phase_roll_kernel : (const void*)phase_mxu_kernel;
+  if (cudaGetDevice(&dev) != cudaSuccess || k < 0 || k >= NKERNELS || warps < 1 ||
+      warps > MAX_WARPS || nslots < 1)
+    return -1;
+  const void* kernel = window_kernel(k);
   const bool cached = dev < MAX_DEVICES && nslots <= MAX_SLOTS;
-  if (cached && known[dev][roll][nslots][warps] > 0) return known[dev][roll][nslots][warps];
-  if (!(dev < MAX_DEVICES && allowed[dev][roll])) {
+  if (cached && known[dev][k][nslots][warps] > 0) return known[dev][k][nslots][warps];
+  if (!(dev < MAX_DEVICES && allowed[dev][k])) {
     int optin = 0;
     if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
             cudaSuccess ||
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin) !=
             cudaSuccess)
       return -1;
-    if (dev < MAX_DEVICES) allowed[dev][roll] = true;
+    if (dev < MAX_DEVICES) allowed[dev][k] = true;
   }
   int blocks = 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, warps * 32,
-                                                    phase_smem(nslots)) !=
-      cudaSuccess)
+                                                    window_smem(k, nslots)) != cudaSuccess)
     return -1;
-  if (cached) known[dev][roll][nslots][warps] = blocks;
+  if (cached) known[dev][k][nslots][warps] = blocks;
   return blocks;
 }
 
@@ -582,39 +529,50 @@ int sm_count() {
   return n;
 }
 
+// The persistent grid of kernel k: as many blocks as fit on the SMs, at
+// most one per chunk of kp_chunk windows; 0 where none fits, -1 on an
+// error.
+int persistent_blocks(int k, int total, int kp_chunk, int nslots, int warps) {
+  const int per_sm = blocks_per_sm(k, nslots, warps), sms = sm_count();
+  if (per_sm <= 0 || sms < 0) return per_sm < 0 || sms < 0 ? -1 : 0;
+  return min((total + kp_chunk - 1) / kp_chunk, per_sm * sms);
+}
+
+int launch_error(int blocks) {
+  return blocks < 0 ? (int)cudaErrorInvalidValue : (int)cudaErrorInvalidConfiguration;
+}
+
 }  // namespace
 
-// img: (B, Hp, Wp) f32, the level zero-padded as ops/patch_probe.py pads
-// it; ys, xs: (B, N) int32; out: (B, N, 48, 43) f32.
+// Blocks per SM of P2 (kernel = 0), P3 (1) or P1 (2); 0 where none fits,
+// -1 on an error.
+extern "C" int tvo_windows_blocks_per_sm(int kernel, int nslots, int warps) {
+  return blocks_per_sm(kernel, nslots, warps);
+}
+
+// P1. img: (B, H, W) f32, the caller's level; ys, xs: (B, N) int32; out:
+// (B, N, 48, 43) f32, 16-B aligned. `warps` warps per block.
 extern "C" int tvo_band_windows(const void* img, const void* ys, const void* xs, void* out,
-                                int B, int H, int W, int N, int Hp, int Wp, int kp_chunk,
-                                int nslots, int compact, int lanes, void* stream) {
-  const size_t smem = (size_t)nslots * (4 * BAND_ROWS * lanes + 8);
-  return launch(band_kernel, B, N, kp_chunk, smem, stream, (const float*)img,
-                (const int*)ys, (const int*)xs, (float*)out, H, W, N, Hp, Wp, kp_chunk,
-                nslots, compact, lanes);
+                                int B, int H, int W, int N, int kp_chunk, int nslots, int warps,
+                                int compact, int lanes, void* stream) {
+  const int total = B * N, blocks = persistent_blocks(2, total, kp_chunk, nslots, warps);
+  if (blocks <= 0) return launch_error(blocks);
+  band_kernel<<<blocks, warps * 32, window_smem(2, nslots), (cudaStream_t)stream>>>(
+      (const float*)img, (const int*)ys, (const int*)xs, (float*)out, H, W, N, total, kp_chunk,
+      nslots, warps, compact, lanes);
+  return (int)cudaGetLastError();
 }
 
-// Blocks per SM of P2 (roll = 0) or P3 (roll = 1); 0 where none fits, -1
-// on an error.
-extern "C" int tvo_phase_windows_blocks_per_sm(int nslots, int warps, int roll) {
-  return phase_blocks_per_sm(nslots, warps, roll);
-}
-
-// img: (B, H, W) f32, the caller's level; ys, xs: (B, N) int32; out:
-// (B, N, 48, 43) f32, 16-B aligned. roll = 0: P2 (one-hot products);
+// P2 and P3. img: (B, H, W) f32, the caller's level; ys, xs: (B, N) int32;
+// out: (B, N, 48, 43) f32, 16-B aligned. roll = 0: P2 (one-hot products);
 // roll = 1: P3 (roll and row offset). `warps` warps per block.
 extern "C" int tvo_phase_windows(const void* img, const void* ys, const void* xs, void* out,
                                  int B, int H, int W, int N, int kp_chunk, int nslots,
                                  int warps, int roll, void* stream) {
-  const int per_sm = phase_blocks_per_sm(nslots, warps, roll), sms = sm_count();
-  if (per_sm < 0 || sms < 0) return (int)cudaErrorInvalidValue;
-  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
-  const int total = B * N, chunks = (total + kp_chunk - 1) / kp_chunk;
-  const int blocks = min(chunks, per_sm * sms);
-  const size_t smem = phase_smem(nslots);
+  const int total = B * N, blocks = persistent_blocks(roll, total, kp_chunk, nslots, warps);
+  if (blocks <= 0) return launch_error(blocks);
   auto kernel = roll ? phase_roll_kernel : phase_mxu_kernel;
-  kernel<<<blocks, warps * 32, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, warps * 32, window_smem(roll, nslots), (cudaStream_t)stream>>>(
       (const float*)img, (const int*)ys, (const int*)xs, (float*)out, H, W, N, total,
       kp_chunk, nslots, warps);
   return (int)cudaGetLastError();

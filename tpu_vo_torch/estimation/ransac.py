@@ -6,8 +6,11 @@ finalist cheirality gate and the linear LO refit).
 Every (pair, hypothesis) is solved and scored in parallel: 256 minimal
 samples -> up to 2560 candidates per pair, ranked on a fixed valid-first
 subset of `prescreen` correspondences, then the top `finalists` scored on
-the full set. Ties after `_quantize_ranking` break by lowest index
-(stable sorts, first-minimum argmin), as in the JAX package.
+the full set. Where the set is no larger than the subset (N <= prescreen)
+or either count is 0, every candidate is scored on the full set, with no
+finalist cut and no cheirality gate, and adaptive sigma adapts on the
+full set. Ties after `_quantize_ranking` break by lowest index (stable
+sorts, first-minimum argmin), as in the JAX package.
 
 Sampling: `idx` takes explicit (P, max_iters, 5) sample indices (the
 seam the tests feed with the JAX package's draws); otherwise one CPU
@@ -109,8 +112,9 @@ def _take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 def _adapted_score_sq(Es, x1s, x2s, sub_inl0, sub_loss, valid_models,
                       score_sq, thr_sq):
-    """clip(9 * median inlier Sampson residual of the provisional subset
-    winner, base, thr^2) per pair, shaped (P, 1, 1)."""
+    """clip(9 * median inlier Sampson residual of the provisional winner
+    on (x1s, x2s), base, thr^2) per pair, shaped (P, 1, 1): the prescreen
+    subset with two-phase scoring, else the full set."""
     inf = torch.full_like(sub_loss, float("inf"))
     prov = torch.argmin(torch.where(valid_models, _quantize_ranking(sub_loss), inf), -1)
     err_p = _errors(_take(Es, prov[:, None]), x1s, x2s)[:, 0]   # (P, S)
@@ -147,8 +151,10 @@ def find_essential_ransac(
       (P, max_iters, 5) sample indices.
     """
     p_, n = mask.shape
-    if not 0 < prescreen < n or finalists < 1:
-        raise ValueError(f"two-phase scoring needs 0 < prescreen < N={n}")
+    two_phase = bool(prescreen) and bool(finalists) and prescreen < n
+    if two_phase and (prescreen < 1 or finalists < 1):
+        raise ValueError(f"two-phase scoring needs prescreen {prescreen} and finalists "
+                         f"{finalists} of at least 1")
     dtype, dev = x1.dtype, x1.device
     thr = torch.as_tensor(threshold, dtype=dtype, device=dev).expand(p_)
     thr_sq = (thr ** 2).view(-1, 1, 1)
@@ -162,28 +168,34 @@ def find_essential_ransac(
     valid_models = valid_models.reshape(p_, -1)
     num_hypotheses = valid_models.sum(-1).to(torch.int32)
 
-    # Phase 1: rank every hypothesis on a fixed valid-first subset.
-    sub = _valid_first(mask)[:, :prescreen]
-    x1s, x2s, ms = _take(x1, sub), _take(x2, sub), _take(mask, sub)
-    sub_inl0, sub_loss = _score_msac(Es, x1s, x2s, ms, thr_sq, score_sq)
-    if adaptive_sigma:
-        score_sq = _adapted_score_sq(Es, x1s, x2s, sub_inl0, sub_loss,
-                                     valid_models, score_sq, thr_sq)
-        _, sub_loss = _score_msac(Es, x1s, x2s, ms, thr_sq, score_sq)
-    sub_rank = torch.where(valid_models, -_quantize_ranking(sub_loss),
-                           torch.full_like(sub_loss, -float("inf")))
-    top = torch.sort(sub_rank, dim=-1, descending=True, stable=True).indices
-    top = top[:, :min(finalists, Es.shape[1])]
-    Es = _take(Es, top)
-    valid_models = _take(valid_models, top)
     gate_ok = None
-    if cheirality_gate:
-        inl_sub = _score(Es, x1s, x2s, ms, thr_sq)
-        frac = _finalist_cheirality_frac(Es, x1s, x2s, inl_sub, distance_thresh)
-        gate_ok = valid_models & (frac >= cheirality_min_frac)
+    if two_phase:
+        # Phase 1: rank every hypothesis on a fixed valid-first subset.
+        sub = _valid_first(mask)[:, :prescreen]
+        x1s, x2s, ms = _take(x1, sub), _take(x2, sub), _take(mask, sub)
+        sub_inl0, sub_loss = _score_msac(Es, x1s, x2s, ms, thr_sq, score_sq)
+        if adaptive_sigma:
+            score_sq = _adapted_score_sq(Es, x1s, x2s, sub_inl0, sub_loss,
+                                         valid_models, score_sq, thr_sq)
+            _, sub_loss = _score_msac(Es, x1s, x2s, ms, thr_sq, score_sq)
+        sub_rank = torch.where(valid_models, -_quantize_ranking(sub_loss),
+                               torch.full_like(sub_loss, -float("inf")))
+        top = torch.sort(sub_rank, dim=-1, descending=True, stable=True).indices
+        top = top[:, :min(finalists, Es.shape[1])]
+        Es = _take(Es, top)
+        valid_models = _take(valid_models, top)
+        if cheirality_gate:
+            inl_sub = _score(Es, x1s, x2s, ms, thr_sq)
+            frac = _finalist_cheirality_frac(Es, x1s, x2s, inl_sub, distance_thresh)
+            gate_ok = valid_models & (frac >= cheirality_min_frac)
 
-    # Phase 2: the finalists on the full set.
+    # Phase 2: the finalists (every hypothesis without phase 1) on the
+    # full set; without phase 1, adaptive sigma adapts here.
     inlier_masks, losses = _score_msac(Es, x1, x2, mask, thr_sq, score_sq)
+    if adaptive_sigma and not two_phase:
+        score_sq = _adapted_score_sq(Es, x1, x2, inlier_masks, losses, valid_models,
+                                     score_sq, thr_sq)
+        inlier_masks, losses = _score_msac(Es, x1, x2, mask, thr_sq, score_sq)
     inf = torch.full_like(losses, float("inf"))
     losses = torch.where(valid_models, _quantize_ranking(losses), inf)
     if gate_ok is not None:

@@ -8,7 +8,8 @@ max(dark, bright) > threshold. `fast_score_map` is the plain version of
 kernel B3 (ops/fast.py) and, with `nonmax_suppress`, a building block of
 kernel B1's plain version (ops/select.py). `detect` is kernel B3
 followed by NMS: the first step of the dense ORB selection route
-(features/orb.py `_select_level_keypoints`).
+(features/orb.py `_select_level_keypoints`); `detect_levels` does the
+same for a pyramid, with one launch of B3 for all its levels.
 """
 
 from __future__ import annotations
@@ -83,3 +84,15 @@ def detect(img: torch.Tensor, threshold: int, nonmax: bool = True):
     score, corner = score.view(img.shape), corner.view(img.shape)
     keep = nonmax_suppress(score, corner) if nonmax else corner
     return score, keep
+
+
+def detect_levels(levels, threshold: int):
+    """[(score, keep)] of a list of (B, H, W) float32 pyramid levels on the
+    integer grid: kernel B3 launched once for all levels of CUDA tensors
+    (ops/fast.py `fast_margin_levels`), its plain version level by level on
+    CPU tensors, then the strict 3x3 NMS of each level."""
+    from tpu_vo_torch.ops.fast import fast_margin_levels
+
+    return [(score, nonmax_suppress(score, corner))
+            for score, corner in fast_margin_levels([lv.contiguous() for lv in levels],
+                                                    threshold)]

@@ -16,8 +16,9 @@ stage runs at fixed capacity with a validity mask.
 
 `_select_level_keypoints` is the JAX package's other selection route,
 the one it takes where the fused kernel does not run: fast.detect
-(kernel B3 + NMS), border, top-2n by FAST score, harris_at, top-n by
-Harris. detect_and_compute does not use it; tools/stage_bench.py does.
+(kernel B3 + NMS; or its maps from fast.detect_levels, one launch for a
+pyramid), border, top-2n by FAST score, harris_at, top-n by Harris.
+detect_and_compute does not use it; tools/stage_bench.py does.
 """
 
 from __future__ import annotations
@@ -111,10 +112,13 @@ def _rank_from_maps(packed, harris_map, idx_bits, w, n_level, cfg, area):
     return _harris_cut(v2, idx2 // w, idx2 % w, resp, n_level, k2, cfg, area)
 
 
-def _select_level_keypoints(lvl: torch.Tensor, n_level: int, cfg: ORBConfig):
+def _select_level_keypoints(lvl: torch.Tensor, n_level: int, cfg: ORBConfig,
+                            detected=None):
     """FAST -> border -> top-2n by FAST -> Harris -> top-n for (B, H, W)
     float32 levels (tpu_vo/features/orb.py `_select_level_keypoints`, its
-    fast.detect branch). Returns (ys, xs, response, valid), each (B, k1).
+    fast.detect branch). `detected` is the level's (score, keep) from
+    fast.detect_levels, or None to run fast.detect here. Returns (ys, xs,
+    response, valid), each (B, k1).
 
     Both cuts break ties by lowest flat index, like lax.top_k: FAST
     scores tie often. With cfg.retain_best_keep_ties the stage-1 cut has
@@ -122,7 +126,7 @@ def _select_level_keypoints(lvl: torch.Tensor, n_level: int, cfg: ORBConfig):
     """
     b, h, w = lvl.shape
     k2 = min((4 if cfg.retain_best_keep_ties else 2) * n_level, h * w)
-    score, keep = fast.detect(lvl, cfg.fast_threshold)
+    score, keep = fast.detect(lvl, cfg.fast_threshold) if detected is None else detected
     keep = keep & _border_mask(h, w, cfg.edge_threshold, lvl.device)
     masked = torch.where(keep, score, torch.zeros((), device=lvl.device))
     v2, idx2 = _stable_topk(masked.view(b, -1), k2)

@@ -9,6 +9,7 @@ flags so that an edited source is rebuilt.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -16,6 +17,8 @@ import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 from tpu_vo_torch.ops.levels import LevelTable
 
@@ -98,15 +101,26 @@ def library() -> ctypes.CDLL:
     lib.tvo_select_maps_levels.restype = _I
     lib.tvo_extract_patches_levels.argtypes = [LevelTable, _P, _P, _P, _I, _P]
     lib.tvo_extract_patches_levels.restype = _I
-    lib.tvo_fast_margin.argtypes = [_P, _P, _P, _I, _I, _I, _F, _P]
-    lib.tvo_fast_margin.restype = _I
-    lib.tvo_band_windows.argtypes = [_P, _P, _P, _P, *[_I] * 10, _P]
+    lib.tvo_fast_margin_levels.argtypes = [LevelTable, _I, _F, _P]
+    lib.tvo_fast_margin_levels.restype = _I
+    lib.tvo_fast_margin_occupancy.argtypes = [ctypes.POINTER(_I)]
+    lib.tvo_fast_margin_occupancy.restype = _I
+    lib.tvo_band_windows.argtypes = [_P, _P, _P, _P, *[_I] * 9, _P]
     lib.tvo_band_windows.restype = _I
     lib.tvo_phase_windows.argtypes = [_P, _P, _P, _P, *[_I] * 8, _P]
     lib.tvo_phase_windows.restype = _I
-    lib.tvo_phase_windows_blocks_per_sm.argtypes = [_I, _I, _I]
-    lib.tvo_phase_windows_blocks_per_sm.restype = _I
+    lib.tvo_windows_blocks_per_sm.argtypes = [_I, _I, _I]
+    lib.tvo_windows_blocks_per_sm.restype = _I
     return lib
+
+
+@contextlib.contextmanager
+def on_device(t: torch.Tensor):
+    """Make t's device the current one for a launch, and yield the handle
+    of its current stream: a kernel launches, and the launchers' caches
+    per device look up, on the device of the tensors it is given."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def check_launch(err: int, name: str) -> None:

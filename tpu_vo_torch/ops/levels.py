@@ -1,4 +1,4 @@
-"""The pyramid-level table that kernels B1 and B2 take by value
+"""The pyramid-level table that kernels B1, B2 and B3 take by value
 (csrc/levels.cuh, same fields in the same order), so that one launch
 covers up to MAX_LEVELS levels."""
 
@@ -19,7 +19,7 @@ class LevelTable(ctypes.Structure):
     _fields_ = [("n", ctypes.c_int), ("total", ctypes.c_int),
                 ("img", _Ptrs), ("packed", _Ptrs), ("harris", _Ptrs),
                 ("H", _Ints), ("W", _Ints), ("Hp2", _Ints), ("Wout", _Ints),
-                ("idx_bits", _Ints), ("first", _Ints)]
+                ("idx_bits", _Ints), ("first", _Ints), ("score", _Ptrs), ("corner", _Ptrs)]
 
 
 def check_levels(levels: Sequence[torch.Tensor]) -> None:
@@ -37,9 +37,11 @@ def check_levels(levels: Sequence[torch.Tensor]) -> None:
 
 def level_table(levels: Sequence[torch.Tensor], first: Sequence[int] = (), total: int = 0,
                 packed: Sequence[torch.Tensor] = (), harris: Sequence[torch.Tensor] = (),
-                idx_bits: Sequence[int] = ()) -> LevelTable:
+                idx_bits: Sequence[int] = (), score: Sequence[torch.Tensor] = (),
+                corner: Sequence[torch.Tensor] = ()) -> LevelTable:
     """The table of `levels`: B2's first slot of each level and slots per
-    frame, or B1's outputs (B1's launcher fills in its tile offsets)."""
+    frame, B1's outputs or B3's (the launchers of B1 and B3 fill in their
+    block offsets)."""
     t = LevelTable(n=len(levels), total=total)
     for i, lvl in enumerate(levels):
         h, w = lvl.shape[-2:]
@@ -50,4 +52,6 @@ def level_table(levels: Sequence[torch.Tensor], first: Sequence[int] = (), total
         t.first[i] = start
     for i, (p, hm, bits) in enumerate(zip(packed, harris, idx_bits)):
         t.packed[i], t.harris[i], t.idx_bits[i] = p.data_ptr(), hm.data_ptr(), bits
+    for i, (s, c) in enumerate(zip(score, corner)):
+        t.score[i], t.corner[i] = s.data_ptr(), c.data_ptr()
     return t

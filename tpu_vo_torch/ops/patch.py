@@ -82,9 +82,9 @@ def _extract_patches_cuda(levels, ys: torch.Tensor, xs: torch.Tensor,
     if b * n == 0:
         return out
     table = lvl_table.level_table(levels, slot_offsets, n)
-    stream = torch.cuda.current_stream(ys.device).cuda_stream
-    err = _build.library().tvo_extract_patches_levels(
-        table, ys.data_ptr(), xs.data_ptr(), out.data_ptr(), b, stream)
+    with _build.on_device(ys) as stream:
+        err = _build.library().tvo_extract_patches_levels(
+            table, ys.data_ptr(), xs.data_ptr(), out.data_ptr(), b, stream)
     _build.check_launch(err, "extract_patches")
     extract_patches.launches += 1
     return out

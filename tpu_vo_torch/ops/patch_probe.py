@@ -10,21 +10,25 @@ pl.pallas_call (the probe that chose kernel B2's design) as CUDA kernels
 
 Each takes (B, H, W) float32 levels and int32 (B, N) keypoints and
 returns (B, N, 48, 43) float32 windows: for a CUDA tensor through its
-kernel, for a CPU tensor through its plain version. A kernel block takes
-`kp_chunk` keypoints and keeps `nslots` bands in flight, as a grid step
-of the TPU kernel does.
+kernel, for a CPU tensor through its plain version. A kernel takes
+`kp_chunk` keypoints at a time in each block and keeps `nslots` windows
+in flight there, one warp per window (at most 8 warps a block), as a grid
+step of the TPU kernel does.
 
 With r0 = clip(y - 21, 0, H - 48) and c0 = clip(x - 21, 0, W - 43):
 
-- P1 pads the level with zeros to hp = max(ceil8(H), 56) rows and
-  wp = (ceil(W / 128) + 1) * 128 columns and copies one (56, lanes) band
-  per keypoint, from row r8 = clip(floor8(r0), 0, hp - 56) and column
-  cc = min(floor128(c0), (floor(W / 128) + 1) * 128 - lanes). With
-  `compact`, out[r, j] = pad[r0 + r, cc + (c0 - floor128(c0) + j) mod
-  lanes]; without, out[r, j] = pad[r8 + r, cc + j], the band's top-left
-  corner. The clamp of cc does not move the column offset, so near the
-  right edge the window comes out shifted left; that is the TPU kernel's
-  function, and the port computes it.
+- P1's TPU kernel pads the level with zeros to hp = max(ceil8(H), 56)
+  rows and wp = (ceil(W / 128) + 1) * 128 columns and copies one (56,
+  lanes) band per keypoint, from row r8 = clip(floor8(r0), 0, hp - 56)
+  and column cc = min(floor128(c0), (floor(W / 128) + 1) * 128 - lanes).
+  With `compact`, out[r, j] = pad[r0 + r, cc + (c0 - floor128(c0) + j)
+  mod lanes]; without, out[r, j] = pad[r8 + r, cc + j], the band's
+  top-left corner. The clamp of cc does not move the column offset, so
+  near the right edge the window comes out shifted left; that is the TPU
+  kernel's function, and the port computes it. The CUDA kernel copies
+  only the window's own elements from the caller's level, each from the
+  pixel that `band_index` names (zero-filled past its edge, which no
+  element reaches): no padded copy, and a slot of 8,256 B.
 - P2 and P3 compute one function, `phase_windows_reference`:
   out[r, j] = level[r0 + r, c0 + j] for r < 48 - (r0 mod 4), and 0 in
   the last r0 mod 4 rows. Both copy a (48, 128) band from (r0 & ~3,
@@ -39,7 +43,7 @@ bound), and so is P1 with (floor(W / 128) + 1) * 128 < lanes (the TPU
 kernel's copy would start at a negative column). Only the kernels are
 bound by shared memory: a variant whose slots do not fit in one block
 raises ValueError on a CUDA tensor; the plain versions compute every
-variant.
+variant. A kernel launches on the device of the tensors it is given.
 """
 
 from __future__ import annotations
@@ -52,10 +56,9 @@ ROWS = 48          # window rows, as the TPU kernels return them
 BAND_ROWS = 56     # P1's band rows
 PHASE_LANES = 128  # P2's and P3's band columns
 SMEM_LIMIT = 232_448  # shared memory one block may use on an H100
-_BARRIER_BYTES = 8     # one mbarrier per slot (P1)
-_MAX_GRID_Y = 65535    # CUDA's limit on gridDim.y, which holds P1's batch
-_MAX_PHASE_WARPS = 8   # P2's and P3's largest block, 256 threads
-_MAX_WINDOWS = 2**30   # P2's and P3's window numbers are int32
+_MAX_WARPS = 8        # the kernels' largest block, 256 threads
+_MAX_WINDOWS = 2**30  # the kernels' window numbers are int32
+_KERNEL_ID = {"P2": 0, "P3": 1, "P1": 2}  # the C entry's kernel numbers
 
 
 def _check_defined(levels, ys, xs) -> None:
@@ -80,31 +83,27 @@ def _check_lanes(w: int, lanes: int) -> None:
                          f"width {w} allows ({(w // 128 + 1) * 128} lanes)")
 
 
-def phase_warps(nslots: int) -> int:
-    """Warps per block of P2 and P3: one per slot, at most 8."""
-    return min(nslots, _MAX_PHASE_WARPS)
+def slot_warps(nslots: int) -> int:
+    """Warps per block of P1, P2 and P3: one per slot, at most 8."""
+    return min(nslots, _MAX_WARPS)
 
 
 def smem_bytes(kernel: str, nslots: int, lanes: int = PHASE_LANES):
-    """(bytes of one band, bytes of shared memory a block of `kernel`
-    ("P1", "P2" or "P3") uses with `nslots` slots). P1 keeps an mbarrier
-    per slot; P2 and P3 the bands alone (P2 stages its window in the
-    band's slot)."""
-    if kernel == "P1":
-        band = 4 * BAND_ROWS * lanes
-        return band, nslots * (band + _BARRIER_BYTES)
-    band = 4 * ROWS * PHASE_LANES
-    return band, nslots * band
+    """(bytes of one slot, bytes of shared memory a block of `kernel`
+    ("P1", "P2" or "P3") uses with `nslots` slots). A P1 slot holds the
+    (48, 43) window, whatever its band's lanes; a P2 or P3 slot its (48,
+    128) band (P2 stages its window in the band's slot)."""
+    slot = 4 * ROWS * (RAW_SIZE if kernel == "P1" else PHASE_LANES)
+    return slot, nslots * slot
 
 
 def check_fits(kernel: str, nslots: int, lanes: int = PHASE_LANES) -> None:
-    """Raise ValueError where `nslots` bands of `kernel` do not fit in the
+    """Raise ValueError where `nslots` slots of `kernel` do not fit in the
     shared memory of one block."""
-    band, total = smem_bytes(kernel, nslots, lanes)
+    slot, total = smem_bytes(kernel, nslots, lanes)
     if total > SMEM_LIMIT:
-        raise ValueError(f"does not fit ({nslots} x {band:,} B = {nslots * band:,} B "
-                         f"of bands, {total:,} B in all > {SMEM_LIMIT:,} B of shared "
-                         f"memory per block)")
+        raise ValueError(f"does not fit ({nslots} x {slot:,} B = {total:,} B of slots "
+                         f"> {SMEM_LIMIT:,} B of shared memory per block)")
 
 
 def _starts(ys: torch.Tensor, xs: torch.Tensor, h: int, w: int):
@@ -198,6 +197,11 @@ def phase_windows_reference(levels: torch.Tensor, ys: torch.Tensor,
     return torch.where(keep[..., None], _gather(levels, rows, cols), 0.0)
 
 
+def _check_windows(wrapper, n: int) -> None:
+    if n > _MAX_WINDOWS:
+        raise ValueError(f"{wrapper.__name__}: {n} windows above {_MAX_WINDOWS}")
+
+
 def _launch(wrapper, fn_name: str, img: torch.Tensor, ys: torch.Tensor,
             xs: torch.Tensor, *args: int) -> torch.Tensor:
     """Launch the C function `fn_name`(img, ys, xs, out, *args, stream)
@@ -209,10 +213,9 @@ def _launch(wrapper, fn_name: str, img: torch.Tensor, ys: torch.Tensor,
     out = torch.empty((*ys.shape, ROWS, RAW_SIZE), dtype=torch.float32, device=img.device)
     if ys.numel() == 0:
         return out
-    lib = _build.library()
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    err = getattr(lib, fn_name)(img.data_ptr(), ys.data_ptr(), xs.data_ptr(),
-                                out.data_ptr(), *args, stream)
+    with _build.on_device(img) as stream:
+        err = getattr(_build.library(), fn_name)(img.data_ptr(), ys.data_ptr(), xs.data_ptr(),
+                                                 out.data_ptr(), *args, stream)
     _build.check_launch(err, wrapper.__name__)
     wrapper.launches += 1
     return out
@@ -229,12 +232,9 @@ def band_windows(levels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     _check_lanes(w, lanes)
     if levels.device.type == "cuda":
         check_fits("P1", nslots, lanes)
-        if b > _MAX_GRID_Y:
-            raise ValueError(f"band_windows: batch {b} above {_MAX_GRID_Y}")
-        hp, wp = _band_padded_shape(h, w)
-        pad = torch.nn.functional.pad(levels, (0, wp - w, 0, hp - h))
-        return _launch(band_windows, "tvo_band_windows", pad, ys, xs, b, h, w,
-                       ys.shape[-1], hp, wp, kp_chunk, nslots, int(compact), lanes)
+        _check_windows(band_windows, b * ys.shape[-1])
+        return _launch(band_windows, "tvo_band_windows", levels.contiguous(), ys, xs, b, h, w,
+                       ys.shape[-1], kp_chunk, nslots, slot_warps(nslots), int(compact), lanes)
     if levels.device.type == "cpu":
         return band_windows_reference(levels, ys, xs, compact, lanes)
     raise ValueError(f"band_windows: unsupported device {levels.device}")
@@ -247,11 +247,9 @@ def _phase_windows(wrapper, kernel: str, levels, ys, xs, kp_chunk, nslots,
     if levels.device.type == "cuda":
         check_fits(kernel, nslots)
         b, h, w = levels.shape
-        if b * ys.shape[-1] > _MAX_WINDOWS:
-            raise ValueError(f"{wrapper.__name__}: {b * ys.shape[-1]} windows above "
-                             f"{_MAX_WINDOWS}")
+        _check_windows(wrapper, b * ys.shape[-1])
         return _launch(wrapper, "tvo_phase_windows", levels.contiguous(), ys, xs, b, h, w,
-                       ys.shape[-1], kp_chunk, nslots, phase_warps(nslots), int(roll))
+                       ys.shape[-1], kp_chunk, nslots, slot_warps(nslots), int(roll))
     if levels.device.type == "cpu":
         return phase_windows_reference(levels, ys, xs)
     raise ValueError(f"{wrapper.__name__}: unsupported device {levels.device}")
@@ -273,13 +271,13 @@ def phase_windows_roll(levels: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
     return _phase_windows(phase_windows_roll, "P3", levels, ys, xs, kp_chunk, nslots, True)
 
 
-def phase_blocks_per_sm(kernel: str, nslots: int) -> int:
-    """Blocks of P2 or P3 ("P2", "P3") with `nslots` slots that fit on one
-    SM of the current card (0 where none fits)."""
+def blocks_per_sm(kernel: str, nslots: int) -> int:
+    """Blocks of P1, P2 or P3 ("P1", "P2", "P3") with `nslots` slots that
+    fit on one SM of the current card (0 where none fits)."""
     from tpu_vo_torch.ops import _build
 
-    n = _build.library().tvo_phase_windows_blocks_per_sm(nslots, phase_warps(nslots),
-                                                         int(kernel == "P3"))
+    n = _build.library().tvo_windows_blocks_per_sm(_KERNEL_ID[kernel], nslots,
+                                                   slot_warps(nslots))
     if n < 0:
         raise RuntimeError(f"{kernel}: occupancy query failed")
     return n

@@ -112,10 +112,10 @@ def _select_maps_cuda(levels, threshold: int, border: int):
     if b == 0:
         return out
     table = lvl_table.level_table(levels, (), 0, *zip(*out))
-    stream = torch.cuda.current_stream(levels[0].device).cuda_stream
-    err = _build.library().tvo_select_maps_levels(
-        table, b, float(threshold), int(border), harris.HARRIS_K,
-        harris.harris_scale4(), stream)
+    with _build.on_device(levels[0]) as stream:
+        err = _build.library().tvo_select_maps_levels(
+            table, b, float(threshold), int(border), harris.HARRIS_K,
+            harris.harris_scale4(), stream)
     _build.check_launch(err, "select_maps")
     select_maps.launches += 1
     return out

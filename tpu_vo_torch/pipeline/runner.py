@@ -1,15 +1,19 @@
 """The batched three-stage sequence runner (port of
 tpu_vo/pipeline/runner.py `run_sequence_batched`):
 
-  1. ORB features of all T frames, one launch per kernel and level;
-  2. matching + RANSAC + pose recovery of all T-1 consecutive pairs as
-     one batch dimension;
+  1. ORB features of the T frames, one launch of each kernel per chunk
+     of `frame_chunk` frames (all T at once by default);
+  2. matching + RANSAC + pose recovery of the T-1 consecutive pairs as
+     one batch dimension, `pair_chunk` pairs at a time (all by default);
   3. world poses by a prefix composition of the relative motions.
+
+The chunks bound peak memory, as the JAX runner's `_chunked_map` does:
+stage 1 holds every frame's windows and their blur temporaries at once.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -62,19 +66,62 @@ def entry_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def _check_chunks(frame_chunk: Optional[int], pair_chunk: Optional[int]) -> None:
+    """Reject a chunk below 1 (tpu_vo/pipeline/runner.py `_validate_chunks`).
+    Its other check, KNOWN_FAULTING_PAIR_CHUNKS, guards a fault of the TPU
+    runtime and is not ported: every pair_chunk runs here."""
+    for name, v in (("frame_chunk", frame_chunk), ("pair_chunk", pair_chunk)):
+        if v is not None and v < 1:
+            raise ValueError(f"{name} must be a positive int, got {v}")
+
+
+def _spans(n: int, chunk: Optional[int]):
+    """[(start, end)] of the chunks of n items: one span when chunk is
+    None or at least n, as tpu_vo's `_chunked_map` runs one vmap; else
+    chunk must divide n."""
+    if chunk is None or chunk >= n:
+        return [(0, n)]
+    if n % chunk:
+        raise ValueError(f"sequence length {n} not divisible by {chunk}")
+    return [(a, a + chunk) for a in range(0, n, chunk)]
+
+
+def _cat(parts):
+    """Concatenate along dim 0 the tensors of a list of equally shaped
+    NamedTuples or dicts of tensors and NamedTuples."""
+    first = parts[0]
+    if len(parts) == 1:
+        return first
+    if isinstance(first, torch.Tensor):
+        return torch.cat(parts, 0)
+    if isinstance(first, dict):
+        return {k: _cat([p[k] for p in parts]) for k in first}
+    return type(first)(*(_cat(list(f)) for f in zip(*parts)))
+
+
 def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
-                         device=None):
+                         device=None, frame_chunk: Optional[int] = None,
+                         pair_chunk: Optional[int] = None):
     """Batched three-stage VO over (T, H, W) uint8 frames, moved to
-    `device` (the card when None; see entry_device). Returns (poses: Pose
-    with leading dim T, diagnostics dict of (T-1,) tensors)."""
+    `device` (the card when None; see entry_device). Stage 1 runs
+    `frame_chunk` frames at a time and stage 2 `pair_chunk` pairs at a
+    time (None: all at once); a chunk must divide T (T - 1 for pairs)
+    unless it is at least that long. Returns (poses: Pose with leading
+    dim T, diagnostics dict of (T-1,) tensors), the same for every
+    chunking."""
     check_supported(cfg)
+    _check_chunks(frame_chunk, pair_chunk)
     frames = frames.to(entry_device(device))
     T = frames.shape[0]
-    feats = detect_and_compute(frames, cfg.orb)
+    feats = _cat([detect_and_compute(frames[a:e], cfg.orb)
+                  for a, e in _spans(T, frame_chunk)])
     prev = ORBFeatures(*(f[:-1] for f in feats))
     cur = ORBFeatures(*(f[1:] for f in feats))
-    est = estimate_pair(prev, cur, cfg,
-                        generators=pair_generators(seed, range(1, T)))
+    gens = pair_generators(seed, range(1, T))
+    est = _cat([estimate_pair(ORBFeatures(*(f[a:e] for f in prev)),
+                              ORBFeatures(*(f[a:e] for f in cur)), cfg,
+                              generators=gens[a:e])
+                for a, e in _spans(T - 1, pair_chunk)])
     poses = chain_relative_poses(est["R"], est["t"], est["have_rt"],
                                  est["pose_ok"], cfg)
     diags = {

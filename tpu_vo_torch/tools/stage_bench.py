@@ -6,8 +6,9 @@ the cumulative ablation of detect_and_compute (pyramid -> +fast -> +topk
 -> +harris -> +orientation -> full), on B = 8 KITTI-style 1241x376
 frames, 8 levels, 1200 keypoints. Times are CUDA-event means in ms per
 frame, each line tagged with the card's name and power limit. The
-ablation runs kernel B3 through features/fast.detect in its +fast ...
-+orientation stages, and kernels B1 and B2 in its full stage.
+ablation runs kernel B3 through features/fast.detect_levels, one launch
+per pyramid, in its +fast ... +orientation stages (4 launches a pass),
+and kernels B1 and B2 in its full stage.
 
     python -m tpu_vo_torch.tools.stage_bench [blur|orientation|topk|ablate ...]
 
@@ -36,6 +37,7 @@ from tpu_vo_torch.utils import profiling
 H, W = 376, 1241
 B = 8  # frames per call, as the pipeline batches them
 CFG = ORBConfig()
+WARMUP, ITERS = 3, 20  # calls of a stage before and while it is timed
 
 
 def make_frames(b: int, h: int, w: int, device) -> torch.Tensor:
@@ -53,8 +55,8 @@ def _budgets(cfg: ORBConfig):
     return features_per_level(cfg.n_features, cfg.n_levels, cfg.scale_factor)
 
 
-def _ms_per_frame(fn, b: int, device: torch.device, iters: int = 20,
-                  warmup: int = 3) -> float:
+def _ms_per_frame(fn, b: int, device: torch.device, iters: int = ITERS,
+                  warmup: int = WARMUP) -> float:
     """Mean ms per frame of fn() over `iters` calls after `warmup`: CUDA
     events on the card, the host clock on the CPU."""
     if device.type == "cuda":
@@ -124,8 +126,8 @@ def select_keypoints(levels, cfg: ORBConfig = CFG):
     """FAST + Harris selection per level (the part before orientation):
     (ys, xs, valid) of the dense route, (B, n_level) each."""
     out = []
-    for lv, n in zip(levels, _budgets(cfg)):
-        ys, xs, _, valid = orb._select_level_keypoints(lv, n, cfg)
+    for lv, n, det in zip(levels, _budgets(cfg), fast.detect_levels(levels, cfg.fast_threshold)):
+        ys, xs, _, valid = orb._select_level_keypoints(lv, n, cfg, det)
         out.append((ys, xs, valid))
     return out
 
@@ -187,9 +189,8 @@ def bench_orientation(frames, levels, tag):
 def scores_per_level(levels, cfg: ORBConfig = CFG):
     """FAST scores at NMS survivors inside the border, 0 elsewhere."""
     outs = []
-    for lvl in levels:
+    for lvl, (score, keep) in zip(levels, fast.detect_levels(levels, cfg.fast_threshold)):
         h, w = lvl.shape[-2:]
-        score, keep = fast.detect(lvl, cfg.fast_threshold)
         keep = keep & _border_mask(h, w, cfg.edge_threshold, lvl.device)
         outs.append(torch.where(keep, score, torch.zeros((), device=lvl.device)))
     return outs
@@ -268,7 +269,7 @@ def ablation_stages(cfg: ORBConfig = CFG):
         return make_levels(img, cfg)
 
     def thru_fast(img):
-        return [fast.detect(lv, cfg.fast_threshold)[0] for lv in pyramid(img)]
+        return [score for score, _ in fast.detect_levels(pyramid(img), cfg.fast_threshold)]
 
     def thru_topk(img):
         return topk_current(scores_per_level(pyramid(img), cfg), budgets)
