@@ -19,13 +19,33 @@ Phases, in order; any failure raises and the exit code is non-zero:
      level); extract_patches_levels (B2, one launch for all levels' slots)
      on all 1200 slots of the main path's 32 frames, with slots clamped
      at every edge, and on a table with a 30x60 level whose slot count
-     leaves a tail of fewer than 4 windows; all must agree bit for bit;
+     leaves a tail of fewer than 4 windows; B1 and B2 also on one frame
+     (B = 1, as the streaming path calls them) at all 8 levels; all must
+     agree bit for bit;
   4. drive the main path, run_sequence_batched on a (32, 376, 1241) uint8
      synthetic sequence with 1200 keypoints and 256-hypothesis 5-point
      RANSAC, with the kernels' launch counters reset just before; check
      that B1 and B2 each launched exactly once, the poses are finite and
      the trajectory is accurate, and that a small sequence gives the same
      answer on the card as on the CPU;
+  4b. drive the streaming path: api.VisualOdometry over the same 32
+     frames, counters reset just before; check that B1 and B2 each
+     launched once per frame, pose_ok and the rotation error meet the
+     main path's bars, and run_sequence_scan gives finite poses and F
+     (the first frame's F, estimated against no features, included) and
+     run_sequence_batched's pose_ok per pair and world positions within
+     1e-4; print the per-frame ms (CUDA events; median and quartiles
+     after 2 warm-up frames); check that RANSAC's first-maximum (count
+     scoring) and torch.argmin (MSAC) take the first of tied values on
+     the card;
+  4c. run_sequence_batched with each VOConfig option (the ratio test,
+     count scoring, 8-point samples, min_valid_fraction 0.5) on the small
+     sequence, card against CPU as in phase 4;
+  4d. the CLI: 24 frames of the main path written as 8-bit gray PNGs
+     (all five row filters) in a KITTI tree with calib.txt, times.txt
+     and poses/00.txt, run by tpu_vo_torch.cli.main on the card, counters
+     reset just before; check that B1 and B2 launched once per frame, the
+     three trajectory files hold 24 poses and an ATE figure was printed;
   5. drive the FAST-detect path at full width: the stage benchmark's
      ablation (tpu_vo_torch.tools.stage_bench) on 8 frames of 1241x376,
      counters reset just before; check that B3 launched exactly 4 times
@@ -58,9 +78,11 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and their blocks per SM; the library call of B2, P1, P2
      and P3: their plain versions' final gather as one aten::index call
      on prebuilt indices, checked equal to the kernel's output;
-  7. profile each stage and the main path with torch.profiler: device
-     busy time, kernel launches, host-device copies and stream
-     synchronizations per run, and the top device time.
+     B1 and B2 at B = 1 (one frame's 8 levels);
+  7. profile each stage, the main path and the streaming path (8 frames
+     of run_sequence_scan) with torch.profiler: device busy time, kernel
+     launches, host-device copies and stream synchronizations per run,
+     and the top device time.
 
 The line before the last is a JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds; the last line is
@@ -69,12 +91,15 @@ sources, launch counts, errors, times and bounds; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,11 +107,16 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from tpu_vo_torch.configs import ORBConfig, RansacConfig, VOConfig  # noqa: E402
+from tpu_vo_torch import api, cli  # noqa: E402
+from tpu_vo_torch.configs import MatchConfig, ORBConfig, RansacConfig, VOConfig  # noqa: E402
+from tpu_vo_torch.estimation.ransac import first_argmax  # noqa: E402
 from tpu_vo_torch.features import brief, fast, orb, orientation, patches  # noqa: E402
 from tpu_vo_torch.features.fast import _border_mask as fast_border  # noqa: E402
 from tpu_vo_torch.image.filters import gaussian_blur  # noqa: E402
 from tpu_vo_torch.image.pyramid import build_pyramid  # noqa: E402
+from tpu_vo_torch.io.dataset import load_frame, write_png  # noqa: E402
+from tpu_vo_torch.io.kitti import load_kitti_poses  # noqa: E402
+from tpu_vo_torch.io.trajectory_io import load_trajectory_tum  # noqa: E402
 from tpu_vo_torch.ops import _build  # noqa: E402
 from tpu_vo_torch.ops import fast as fast_ops, patch_probe  # noqa: E402
 from tpu_vo_torch.ops.fast import (fast_margin, fast_margin_levels,  # noqa: E402
@@ -124,6 +154,18 @@ B3_PER_PASS = 4
 P2_OPS = 3 * 2 * (48 * 128 * 48 + 48 * 48 * 48)
 BF16_OPS_PER_S = 989e12  # the tensor cores' dense bf16 peak at 700 W
 SMALL_W, SMALL_H, SMALL_T = 480, 360, 8
+# The VOConfig options that the default path does not take, each run once
+# on the small sequence (phase 4c)
+OPTIONS = {"ratio test": {"match": MatchConfig(use_ratio_test=True)},
+           "count scoring": {"ransac": RansacConfig(score_method="count")},
+           "8-point samples": {"ransac": RansacConfig(use_five_point=False)},
+           "min_valid_fraction 0.5": {"ransac": RansacConfig(min_valid_fraction=0.5)}}
+CLI_T = 24            # frames of the CLI phase
+STREAM_PROFILE_T = 8  # streamed frames per profiled run
+# The streaming path against the batched one on the same 32 frames: each
+# pair draws the same samples; the world positions differ by the order of
+# composition (frame after frame, against prefix doubling)
+MAX_STREAM_POS_DIFF = 1e-4
 # Accuracy bars of the main path on make_sequence(32, 1241, 376, seed=0),
 # measured on the CPU on these frames: the port had pose_ok on 31/31 pairs
 # and a mean per-pair rotation error of 0.833 deg (max 2.26), the JAX
@@ -265,6 +307,139 @@ def _pair_rot_err_deg(R_wc: np.ndarray, Rs_gt) -> np.ndarray:
     return np.asarray(errs)
 
 
+def _card_vs_cpu(label, frames, Rs_gt, cfg):
+    """Run run_sequence_batched on the CPU and on the card over the same
+    frames; print how they agree; fail where the card's pose_ok falls
+    below the bar or its rotation error exceeds the CPU's by 0.5 deg."""
+    pc, dc = runner.run_sequence_batched(frames, cfg, seed=0, device="cpu")
+    pg, dg = runner.run_sequence_batched(frames, cfg, seed=0)
+    rc = _pair_rot_err_deg(pc.R.double().numpy(), Rs_gt)
+    rg = _pair_rot_err_deg(pg.R.double().cpu().numpy(), Rs_gt)
+    dev_rot = _pair_rot_err_deg(pg.R.double().cpu().numpy(), list(pc.R.double().numpy()))
+    kp_agree = float((dg["num_keypoints"].cpu() == dc["num_keypoints"]).float().mean())
+    ok_agree = float((dg["pose_ok"].cpu() == dc["pose_ok"]).float().mean())
+    print(f"{label}, card vs CPU: pose_ok {float(dg['pose_ok'].float().mean()):.3f} vs "
+          f"{float(dc['pose_ok'].float().mean()):.3f} (equal on {ok_agree:.3f} of pairs), "
+          f"rotation error vs truth {rg.mean():.4f} vs {rc.mean():.4f} deg, per-pair rotation "
+          f"difference max {dev_rot.max():.4f} deg, keypoint counts equal on {kp_agree:.3f} of "
+          f"frames", flush=True)
+    if not (float(dg["pose_ok"].float().mean()) >= MIN_POSE_OK and rg.mean() < rc.mean() + 0.5):
+        raise AssertionError(f"the card and the CPU disagree on the {label}")
+
+
+def _write_kitti_tree(root, frames, Rs, ts, K) -> str:
+    """root/sequences/00 (image_0/*.png, the row filters in turn; calib.txt
+    with P0 = K [I | 0]; times.txt) and root/poses/00.txt from the
+    ground truth; returns the sequence directory."""
+    seq = os.path.join(root, "sequences", "00")
+    os.makedirs(os.path.join(seq, "image_0"))
+    for i, f in enumerate(frames):
+        write_png(os.path.join(seq, "image_0", f"{i:06d}.png"), f, filter_type=i % 5)
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        P = np.hstack([K, np.zeros((3, 1))])
+        f.write("P0: " + " ".join(f"{v:.12e}" for v in P.ravel()) + "\n")
+    np.savetxt(os.path.join(seq, "times.txt"), 0.1 * np.arange(len(frames)), fmt="%.6f")
+    os.makedirs(os.path.join(root, "poses"))
+    T_wc = np.concatenate([np.asarray(Rs), np.asarray(ts)[..., None]], -1)
+    np.savetxt(os.path.join(root, "poses", "00.txt"), T_wc.reshape(len(frames), 12), fmt="%.9e")
+    return seq
+
+
+def _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card):
+    """VisualOdometry over the frames, counted and timed per frame; its
+    accuracy; run_sequence_scan against the batched run (poses, diags)
+    of the same frames; the tie rules of RANSAC's winners on the card."""
+    T = len(frames_np)
+    for k in kernels.values():
+        k.launches = 0
+    vo = api.VisualOdometry(cfg.image_width, cfg.image_height, config=cfg)
+    frame_ms = []
+    for i, img in enumerate(frames_np):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        vo.process_frame(api.Frame.from_image(i, img))
+        end.record()
+        end.synchronize()
+        frame_ms.append(start.elapsed_time(end))
+    stream_launches = {name: k.launches for name, k in kernels.items()}
+    print(f"streaming path launches: {stream_launches} for {T} frames", flush=True)
+    if stream_launches["select_maps"] != T or stream_launches["extract_patches"] != T:
+        raise AssertionError(f"the streaming path did not launch B1 and B2 once per frame: "
+                             f"{stream_launches}")
+    stream_ms = statistics.median(frame_ms[2:])
+    sq1, _, sq3 = statistics.quantiles(frame_ms[2:], n=4)
+    s_ok = float(np.mean([r["pose_ok"] for r in vo.get_records()[1:]]))
+    s_R = np.stack([p.R.double().numpy() for p in vo.get_trajectory_poses()])
+    s_rot = _pair_rot_err_deg(s_R, Rs_gt)
+    print(f"streaming path (VisualOdometry.process_frame): {stream_ms:.3f} ms per frame (median "
+          f"of {T - 2} after 2 warm-up frames, quartiles {sq1:.3f}-{sq3:.3f} ms) = "
+          f"{1000.0 / stream_ms:.2f} frames/s; pose_ok {s_ok:.3f}, mean per-pair rotation error "
+          f"{s_rot.mean():.4f} deg (max {s_rot.max():.4f}) [{card}]", flush=True)
+    if s_ok < MIN_POSE_OK or not s_rot.mean() < MAX_MEAN_PAIR_ROT_ERR_DEG:
+        raise AssertionError("streaming path accuracy below its bar")
+    scan = runner.run_sequence_scan(frames, cfg, seed=0)
+    if not (scan.pose.R.shape == (T, 3, 3) and scan.F.shape == (T, 3, 3)
+            and all(bool(torch.isfinite(x).all()) for x in (scan.pose.R, scan.pose.t, scan.F))):
+        raise AssertionError("run_sequence_scan gave non-finite or misshapen outputs")
+    same_ok = float((scan.pose_ok[1:] == diags["pose_ok"]).float().mean())
+    pos_diff = float((scan.pose.t - poses.t).abs().max())
+    vo_t = torch.stack([p.t for p in vo.get_trajectory_poses()])
+    facade_diff = float((vo_t - scan.pose.t.cpu()).abs().max())
+    print(f"run_sequence_scan vs run_sequence_batched, seed 0: pose_ok equal on {same_ok:.3f} of "
+          f"pairs, world positions differ by at most {pos_diff:.3e} (bar {MAX_STREAM_POS_DIFF}); "
+          f"VisualOdometry vs run_sequence_scan {facade_diff:.3e}", flush=True)
+    if same_ok < 1.0 or not pos_diff <= MAX_STREAM_POS_DIFF:
+        raise AssertionError("the streaming and batched runners disagree")
+    ties = torch.randint(0, 3, (64, 300), generator=torch.Generator().manual_seed(1))
+    first_max = first_argmax(ties.to(frames.device)).cpu()
+    first_min = torch.argmin(ties.to(frames.device).float(), -1).cpu()
+    want_max = torch.from_numpy(np.argmax(ties.numpy(), -1))  # numpy: the first of ties
+    want_min = torch.from_numpy(np.argmin(ties.numpy(), -1))
+    print(f"ties on the card: first_argmax takes the first maximum on "
+          f"{float((first_max == want_max).float().mean()):.3f} of 64 rows, torch.argmin the "
+          f"first minimum on {float((first_min == want_min).float().mean()):.3f}", flush=True)
+    if not (torch.equal(first_max, want_max) and torch.equal(first_min, want_min)):
+        raise AssertionError("RANSAC's tie rule (first maximum, first minimum) fails on the card")
+
+
+def _cli_phase(frames_np, Rs, ts, K, kernels, card):
+    """tpu_vo_torch.cli.main over a KITTI tree of the frames as PNG
+    files, counted; its three trajectory files and its ATE line."""
+    n = len(frames_np)
+    with tempfile.TemporaryDirectory() as root:
+        seq_dir = _write_kitti_tree(root, frames_np, Rs, ts, K)
+        out_dir = os.path.join(root, "out")
+        png = os.path.join(seq_dir, "image_0")
+        decode_ms = {}
+        for i, name in ((0, "no filter"), (4, "Paeth")):
+            t0 = time.perf_counter()
+            load_frame(os.path.join(png, f"{i:06d}.png"))
+            decode_ms[name] = (time.perf_counter() - t0) * 1e3
+        for k in kernels.values():
+            k.launches = 0
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = cli.main([seq_dir, "--no-viewer", "--quiet", "--out-dir", out_dir])
+        cli_s = time.perf_counter() - t0
+        cli_launches = {name: k.launches for name, k in kernels.items()}
+        text = text.getvalue()
+        stamps, _ = load_trajectory_tum(os.path.join(out_dir, "trajectory_tum.txt"))
+        kitti_R, _ = load_kitti_poses(os.path.join(out_dir, "trajectory_kitti.txt"))
+        with np.load(os.path.join(out_dir, "trajectory.npz")) as z:
+            n_npz = len(z["t"])
+    lines = [ln.strip() for ln in text.splitlines() if "ate_rmse=" in ln or "Throughput" in ln]
+    print(f"CLI over a KITTI tree of {n} PNG frames: exit {rc}, {cli_s:.3f} s in all, "
+          f"launches {cli_launches}, poses in the TUM/KITTI/npz files {len(stamps)}/"
+          f"{len(kitti_R)}/{n_npz}; {' | '.join(lines)}; PNG decode of one {K[0, 2] * 2:.0f}x{K[1, 2] * 2:.0f} "
+          f"frame (host): {decode_ms['no filter']:.1f} ms unfiltered, {decode_ms['Paeth']:.1f} ms "
+          f"Paeth [{card}]", flush=True)
+    if (rc != 0 or (len(stamps), len(kitti_R), n_npz) != (n,) * 3
+            or not any("ate_rmse=" in ln for ln in lines)
+            or cli_launches["select_maps"] != n or cli_launches["extract_patches"] != n):
+        raise AssertionError("the CLI run failed its checks")
+
+
 def _busy_ms(intervals) -> float:
     """Length of the union of (start, end) intervals, in the same unit."""
     total, cur_s, cur_e = 0.0, None, None
@@ -340,11 +515,12 @@ def main() -> int:
     cfg = VOConfig(image_width=W, image_height=H, orb=ORBConfig(n_features=1200),
                    ransac=RansacConfig(max_iters=256))
     ocfg = cfg.orb
-    frames_np, Rs_gt, _, _ = make_sequence(n_frames=T, width=W, height=H, seed=0)
+    frames_np, Rs_gt, ts_gt, K_gt = make_sequence(n_frames=T, width=W, height=H, seed=0)
     frames = torch.from_numpy(np.stack(frames_np)).to(dev)
 
     # 3. kernels against their plain versions, on the card
     levels = [lv.contiguous() for lv in build_pyramid(frames, ocfg.n_levels, ocfg.scale_factor)]
+    levels1 = [lv[:1].contiguous() for lv in levels]  # one frame, as the streaming path has
     budgets = orb.features_per_level(ocfg.n_features, ocfg.n_levels, ocfg.scale_factor)
     thr, border = ocfg.fast_threshold, ocfg.edge_threshold
     shapes = [tuple(lv.shape) for lv in levels]
@@ -356,7 +532,8 @@ def main() -> int:
            for h, w in ((37, 101), (9, 11), (105, 347), (77, 129))]
     sel_err = 0.0
     maps = None
-    for name, lvls, brd in (("main path", levels, border), ("noise", noise, border),
+    for name, lvls, brd in (("main path", levels, border), ("main path at B = 1", levels1, border),
+                            ("noise", noise, border),
                             ("compass pattern", pattern, border), ("odd shapes", odd, border),
                             ("odd shapes", odd, 4)):
         lvls = [lv.contiguous() for lv in lvls]
@@ -397,6 +574,8 @@ def main() -> int:
     patch_err = 0.0
     for name, lvls, ys, xs, offs in (
             (f"all {kys.shape[1]} slots of the main path", levels, kys, kxs, starts),
+            (f"all {kys.shape[1]} slots of one frame of the main path (B = 1)", levels1,
+             kys[:1].contiguous(), kxs[:1].contiguous(), starts),
             ("a 30x60 level and a tail of 2 windows", small_levels, tys, txs, [0, 17, 29])):
         a = extract_patches_levels(lvls, ys, xs, offs)
         b = torch.cat([extract_patches_reference(lv, ys[:, o:e], xs[:, o:e])
@@ -454,20 +633,19 @@ def main() -> int:
     small_np, small_gt, _, _ = make_sequence(n_frames=SMALL_T, width=SMALL_W,
                                              height=SMALL_H, seed=3)
     small = torch.from_numpy(np.stack(small_np))
-    scfg = VOConfig(image_width=SMALL_W, image_height=SMALL_H)
-    pc, dc = runner.run_sequence_batched(small, scfg, seed=0, device="cpu")
-    pg, dg = runner.run_sequence_batched(small, scfg, seed=0)
-    rc = _pair_rot_err_deg(pc.R.double().numpy(), small_gt)
-    rg = _pair_rot_err_deg(pg.R.double().cpu().numpy(), small_gt)
-    dev_rot = _pair_rot_err_deg(pg.R.double().cpu().numpy(), list(pc.R.double().numpy()))
-    kp_agree = float((dg["num_keypoints"].cpu() == dc["num_keypoints"]).float().mean())
-    print(f"small sequence, card vs CPU: pose_ok {float(dg['pose_ok'].float().mean()):.3f} vs "
-          f"{float(dc['pose_ok'].float().mean()):.3f}, rotation error vs truth "
-          f"{rg.mean():.4f} vs {rc.mean():.4f} deg, per-pair rotation difference "
-          f"max {dev_rot.max():.4f} deg, keypoint counts equal on {kp_agree:.3f} of frames",
-          flush=True)
-    if not (float(dg["pose_ok"].float().mean()) >= MIN_POSE_OK and rg.mean() < rc.mean() + 0.5):
-        raise AssertionError("the card and the CPU disagree on the small sequence")
+    _card_vs_cpu("small sequence", small, small_gt,
+                 VOConfig(image_width=SMALL_W, image_height=SMALL_H))
+
+    # 4b. the streaming path, counted: VisualOdometry frame by frame
+    _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
+
+    # 4c. every VOConfig option on the small sequence, card against CPU
+    for name, option in OPTIONS.items():
+        _card_vs_cpu(f"small sequence, {name}", small, small_gt,
+                     VOConfig(image_width=SMALL_W, image_height=SMALL_H, **option))
+
+    # 4d. the CLI over a KITTI tree of PNG frames, counted
+    _cli_phase(frames_np[:CLI_T], Rs_gt[:CLI_T], ts_gt[:CLI_T], K_gt, kernels, card)
 
     # 5. the FAST-detect path at full width, counted: the stage
     # benchmark's ablation on 8 frames (B3 in +fast ... +orientation, B1
@@ -667,6 +845,18 @@ def main() -> int:
     b2_probe = probe_rows[0]["ms"]
     b2_probe_bound = _bound(4 * _window_pixels([pimgs], [(pys, pxs)])
                             + probe_n * (8 + 4 * RAW_SIZE * RAW_SIZE), 0)
+    ys1, xs1 = main_ys[:1].contiguous(), main_xs[:1].contiguous()
+    sel1 = (_cuda_ms(lambda: select_maps_levels(levels1, thr, border)),
+            _kernel_alone_ms(lambda: select_maps_levels(levels1, thr, border), "select_kernel",
+                             MAIN_REPS),
+            sum(_cuda_ms(lambda lv=lv: select_maps_reference(lv, thr, border)) for lv in levels1))
+    pat1 = (_cuda_ms(lambda: extract_patches_levels(levels1, ys1, xs1, starts)),
+            _kernel_alone_ms(lambda: extract_patches_levels(levels1, ys1, xs1, starts),
+                             "extract_kernel", MAIN_REPS),
+            _cuda_ms(lambda: [extract_patches_reference(lv, ys1[:, o:e], xs1[:, o:e])
+                              for lv, o, e in zip(levels1, starts, ends)]))
+    stream8_ms = _cuda_ms(lambda: runner.run_sequence_scan(frames[:STREAM_PROFILE_T], cfg,
+                                                           seed=0), warmup=1)
     tag = f"[{card}]"
     print(f"main path: {T} frames in {ms_main:.3f} ms (median of {MAIN_REPS}, quartiles "
           f"{q1:.3f}-{q3:.3f} ms) = {T * 1000.0 / ms_main:.2f} frames/s, peak device memory "
@@ -691,6 +881,12 @@ def main() -> int:
         lib = "none" if lib is None else f"{lib:.4f} ms"
         print(f"{name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({by}), library call {lib} {tag}")
+    for name, (k_ms, alone, p_ms) in (("select_maps_levels", sel1), ("extract_patches_levels", pat1)):
+        alone = "not measured" if alone is None else f"{alone:.4f} ms"
+        print(f"{name} at B = 1 (one frame's 8 levels, as the streaming path calls it), 1 launch: "
+              f"kernel {k_ms:.4f} ms (alone {alone}), plain {p_ms:.3f} ms {tag}")
+    print(f"run_sequence_scan over {STREAM_PROFILE_T} frames: {stream8_ms:.3f} ms "
+          f"({stream8_ms / STREAM_PROFILE_T:.3f} ms per frame; median of {REPS}) {tag}")
     alone = "not measured" if fast_alone is None else f"{fast_alone:.4f} ms"
     print(f"fast_margin_kernel alone {alone} (median of {MAIN_REPS} launches), {fast_regs} "
           f"registers, {fast_per_sm} blocks of 256 threads per SM {tag}")
@@ -712,6 +908,9 @@ def main() -> int:
                      ("stage3_chain", stage3)):
         _profile(name, fn, card)
     _profile("main_path", main_path, card, rows=25)
+    _profile(f"streaming_{STREAM_PROFILE_T}_frames",
+             lambda: runner.run_sequence_scan(frames[:STREAM_PROFILE_T], cfg, seed=0), card,
+             rows=15)
 
     # library_ms: for B2 and P1-P3, one aten::index call on prebuilt
     # indices (their plain versions' final gather, checked equal to the

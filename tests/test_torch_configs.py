@@ -71,6 +71,12 @@ print(" ".join(mods))
 # The modules of the patch-slots probe, which replace tools/ modules
 PROBE_MODULES = ["tpu_vo_torch.ops.patch_probe", "tpu_vo_torch.tools.device_time",
                  "tpu_vo_torch.tools.patch_slots_probe"]
+# The streaming path's modules, which replace tpu_vo modules that import jax
+# (api, cli, io/trajectory_io) or sit in a package that does (io/)
+STREAM_MODULES = ["tpu_vo_torch.api", "tpu_vo_torch.cli", "tpu_vo_torch.io.dataset",
+                  "tpu_vo_torch.io.kitti", "tpu_vo_torch.io.trajectory_io",
+                  "tpu_vo_torch.image.color", "tpu_vo_torch.utils.records",
+                  "tpu_vo_torch.utils.metrics"]
 
 
 def test_port_imports_without_jax_or_tpu_vo():
@@ -80,3 +86,4 @@ def test_port_imports_without_jax_or_tpu_vo():
     mods = out.stdout.split()
     assert len(mods) >= 20
     assert set(PROBE_MODULES) <= set(mods)
+    assert set(STREAM_MODULES) <= set(mods)

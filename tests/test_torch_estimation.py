@@ -12,8 +12,13 @@ tpu_vo.
   RANSAC: through the `idx` seam, fed tpu_vo's `_draw_samples`; the
     winning pose within 0.1 deg of tpu_vo's on >= 90% of the pairs of a
     make_sequence scene in float64, num_inliers within 2%; in float32
-    the winner may move within the estimator's noise (see the test).
+    the winner may move within the estimator's noise (see the test). On
+    two-view scenes with outliers in float64, every option (count
+    scoring, 8-point samples, with and without the prescreen) picks
+    tpu_vo's winner: E up to sign within 1e-5, inliers equal.
 """
+
+import functools
 
 import numpy as np
 import jax
@@ -195,14 +200,10 @@ def test_ransac_through_idx_seam_f32(scene_pairs):
     assert np.all(np.abs(nt - nj) <= 0.02 * nj), (nt, nj)
 
 
-@pytest.mark.parametrize("n", [64, 128])
-def test_ransac_without_prescreen_equals_tpu_vo_f64(n):
-    """N <= prescreen (128): tpu_vo scores every hypothesis on the full set
-    (no finalist cut, no cheirality gate, sigma adapted on the full set).
-    Through the `idx` seam in float64 the port picks the same winner:
-    inliers, inlier count and success equal tpu_vo's, and E up to its sign
-    within 1e-5 (the 8-point tolerance of test_eight_point_matches is
-    1e-4)."""
+def _ransac_equals_tpu_vo_f64(n, score="msac", use_five_point=True, max_iters=256):
+    """Through the `idx` seam in float64, fed tpu_vo's draws: inliers,
+    inlier count and success equal tpu_vo's, and E up to its sign within
+    1e-5 (the 8-point tolerance of test_eight_point_matches is 1e-4)."""
     rng = np.random.default_rng(n)
     P = 4
     x1, x2, _, _, _ = _two_view(rng, n, P, noise=3e-4)
@@ -210,16 +211,17 @@ def test_ransac_without_prescreen_equals_tpu_vo_f64(n):
     x2 = np.where(out[..., None], rng.uniform(-0.5, 0.5, x2.shape), x2)
     mask = rng.random((P, n)) > 0.1
     thr = np.float64(2.0 / 718.856)
-    ransac = jax.jit(jr.find_essential_ransac)
+    kw = dict(max_iters=max_iters, use_five_point=use_five_point, score=score)
+    ransac = jax.jit(functools.partial(jr.find_essential_ransac, **kw))
     idx, jres = [], []
     for p in range(P):
         key = jax.random.fold_in(jax.random.PRNGKey(0), p + 1)
         m = jnp.asarray(mask[p])
-        idx.append(np.asarray(jr._draw_samples(key, m, 256, 5)))
+        idx.append(np.asarray(jr._draw_samples(key, m, max_iters, 5 if use_five_point else 8)))
         jres.append(ransac(jnp.asarray(x1[p]), jnp.asarray(x2[p]), m, key, jnp.asarray(thr)))
     res = tr.find_essential_ransac(torch.from_numpy(x1), torch.from_numpy(x2),
                                    torch.from_numpy(mask), float(thr),
-                                   idx=torch.from_numpy(np.stack(idx).astype(np.int64)))
+                                   idx=torch.from_numpy(np.stack(idx).astype(np.int64)), **kw)
     assert res.E.dtype == torch.float64 and res.success.all()
     for p, j in enumerate(jres):
         Ej, Et = np.asarray(j.E), res.E[p].numpy()
@@ -230,6 +232,51 @@ def test_ransac_without_prescreen_equals_tpu_vo_f64(n):
         np.testing.assert_array_equal(res.inliers[p].numpy(), np.asarray(j.inliers))
         assert int(res.num_inliers[p]) == int(j.num_inliers)
         assert bool(res.success[p]) == bool(j.success)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_ransac_without_prescreen_equals_tpu_vo_f64(n):
+    """N <= prescreen (128): tpu_vo scores every hypothesis on the full set
+    (no finalist cut, no cheirality gate, sigma adapted on the full set),
+    and the port picks the same winner."""
+    _ransac_equals_tpu_vo_f64(n)
+
+
+@pytest.mark.parametrize("n, score, use_five_point, max_iters", [
+    (200, "count", True, 256),    # count ranking on the subset, then the finalists
+    (100, "count", True, 256),    # count ranking on the full set (N <= 128)
+    (200, "msac", False, 256),    # 8-point samples, two-phase MSAC
+    (100, "count", False, 256),   # 8-point samples, counted on the full set
+    (200, "count", False, 12),    # 12 8-point models: the 16 finalists cut to 12
+])
+def test_ransac_options_equal_tpu_vo_f64(n, score, use_five_point, max_iters):
+    """score="count" (first-maximum winner, the count refit) and 8-point
+    samples (every model valid, success at 8 inliers) pick tpu_vo's
+    winner through the `idx` seam."""
+    _ransac_equals_tpu_vo_f64(n, score, use_five_point, max_iters)
+
+
+def test_first_argmax_takes_the_first_maximum():
+    x = torch.tensor([[3, 7, 7, 1], [-1, -1, -1, -1], [0, 2, 5, 5]])
+    np.testing.assert_array_equal(tr.first_argmax(x).numpy(), np.argmax(x.numpy(), -1))
+
+
+def test_ransac_on_an_all_invalid_mask_is_finite_and_masked():
+    """The first frame of the streaming path estimates against an empty
+    feature set: every option draws from slot 0 and returns finite,
+    failed results."""
+    x = torch.rand((2, 150, 2), generator=torch.Generator().manual_seed(0))
+    mask = torch.zeros((2, 150), dtype=torch.bool)
+    for five, score in ((True, "msac"), (True, "count"), (False, "msac"), (False, "count")):
+        for n in (150, 64):
+            gens = [torch.Generator().manual_seed(i) for i in range(2)]
+            idx = tr.draw_samples(gens, mask[:, :n], 256, 5 if five else 8)
+            assert (idx == 0).all()
+            res = tr.find_essential_ransac(x[:, :n], x[:, :n], mask[:, :n], 0.003, idx=idx,
+                                           use_five_point=five, score=score)
+            assert torch.isfinite(res.E).all()
+            assert not res.success.any() and not res.inliers.any()
+            assert (res.num_inliers == 0).all()
 
 
 def test_ransac_refuses_two_phase_scoring_without_finalists():

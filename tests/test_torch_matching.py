@@ -1,5 +1,6 @@
-"""Port matching against tpu_vo: Hamming distances, the cross-check and
-the adaptive threshold are exact, ties included (lowest index first)."""
+"""Port matching against tpu_vo: Hamming distances, the cross-check, the
+adaptive threshold and the ratio test are exact, ties included (lowest
+index first; a tie at the first distance fails the ratio test)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -83,3 +84,26 @@ def test_empty_and_all_invalid():
     assert not tm.valid.any()
     for a, b in zip(js, ts):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+@pytest.mark.parametrize("seed, ratio", [(0, 0.75), (1, 0.75), (2, 0.9)])
+def test_ratio_test_match_exact(seed, ratio):
+    d1, d2, v1, v2 = _descriptors(seed, 150, 140)
+    jm = jham.ratio_test_match(jnp.asarray(d1), jnp.asarray(d2), jnp.asarray(v1),
+                               jnp.asarray(v2), ratio)
+    tm = tham.ratio_test_match(_t(d1), _t(d2), torch.from_numpy(v1), torch.from_numpy(v2),
+                               ratio)
+    # the duplicated train rows give rows whose two nearest distances tie
+    dist = tham.masked_distances(_t(d1), _t(d2), torch.from_numpy(v1), torch.from_numpy(v2))
+    two = torch.sort(dist, dim=-1).values[:, :2]
+    assert ((two[:, 0] == two[:, 1]) & (two[:, 0] < tham.MAX_DIST)).sum() >= 5
+    assert 10 <= np.asarray(jm.valid).sum() < 150
+    np.testing.assert_array_equal(np.asarray(jm.valid), tm.valid.numpy())
+    np.testing.assert_array_equal(np.asarray(jm.train_idx), tm.train_idx.numpy())
+    np.testing.assert_array_equal(np.asarray(jm.distance), tm.distance.numpy())
+    for a, b in zip(jfilter.match_statistics(jm), tfilter.match_statistics(tm)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    batched = tham.ratio_test_match(_t(d1)[None], _t(d2)[None], torch.from_numpy(v1)[None],
+                                    torch.from_numpy(v2)[None], ratio)
+    for a, b in zip(batched, tm):
+        assert torch.equal(a[0], b)

@@ -7,7 +7,7 @@ Also: tpu_vo's features fed through interop into the port's
 estimate_pair, and the port's numpy-only make_sequence tracked by
 tpu_vo's runner. And the runner at 64 and 128 keypoints (RANSAC without
 its prescreen) and chunked by frames and by pairs (bit for bit the
-unchunked run)."""
+unchunked run). And the min_valid_fraction gates against tpu_vo's."""
 
 import numpy as np
 import jax
@@ -86,14 +86,20 @@ def test_chain_relative_poses_matches():
     np.testing.assert_allclose(np.asarray(j.t), c.t.numpy(), rtol=1e-5, atol=1e-5)
 
 
-def test_tpu_vo_features_through_port_estimate_pair(scene, jax_out):
-    """tpu_vo's stage-1 features, carried over by interop, give the port's
-    stage 2 the same matches as tpu_vo's own stage 2."""
+@pytest.fixture(scope="module")
+def jax_feats(scene):
+    """tpu_vo's stage-1 features of the scene's frames."""
     from tpu_vo.features.orb import detect_and_compute as jax_detect
 
-    cfg = VOConfig(image_width=W, image_height=H)
-    feats = jax.jit(jax.vmap(lambda f: jax_detect(f, JVOConfig().orb)))(
+    return jax.jit(jax.vmap(lambda f: jax_detect(f, JVOConfig().orb)))(
         jnp.asarray(np.stack(scene[0])))
+
+
+def test_tpu_vo_features_through_port_estimate_pair(jax_feats, jax_out):
+    """tpu_vo's stage-1 features, carried over by interop, give the port's
+    stage 2 the same matches as tpu_vo's own stage 2."""
+    cfg = VOConfig(image_width=W, image_height=H)
+    feats = jax_feats
     f = interop.features_from_numpy({k: np.asarray(v) for k, v in feats._asdict().items()})
     prev = ORBFeatures(*(a[:-1] for a in f))
     cur = ORBFeatures(*(a[1:] for a in f))
@@ -113,13 +119,43 @@ def test_numpy_make_sequence_tracked_by_tpu_vo(scene, jax_run, jax_out):
     assert rot <= relative_pose_error(jax_out[0], scene[1]) + 1.0
 
 
-def test_unported_options_raise():
-    from tpu_vo_torch.configs import MatchConfig, RansacConfig
+@pytest.mark.parametrize("fraction", [0.9])
+def test_min_valid_fraction_gates_equal_tpu_vo(jax_feats, fraction):
+    """ransac.min_valid_fraction: tpu_vo's features through both packages'
+    estimate_pair, RANSAC fed tpu_vo's draws, in float64 (in float32 the
+    cheirality count of this scene is chaotic in both packages: points
+    near the 50-unit depth cut flip with E's last bits). Same pose_ok,
+    have_rt and cheirality counts; the gate drops some pairs and keeps
+    others."""
+    from tpu_vo.configs import RansacConfig as JRansacConfig
+    from tpu_vo.estimation.ransac import _draw_samples
+    from tpu_vo.pipeline import step as jstep
+    from tpu_vo_torch.configs import RansacConfig
+    from tpu_vo_torch.matching.filter import adaptive_threshold_filter
+    from tpu_vo_torch.matching.hamming import mutual_nearest_match
 
-    for cfg in (VOConfig(match=MatchConfig(use_ratio_test=True)),
-                VOConfig(ransac=RansacConfig(score_method="count"))):
-        with pytest.raises(NotImplementedError):
-            step.check_supported(cfg)
+    feats = jax_feats._replace(xy=jax_feats.xy.astype(jnp.float64))
+    jcfg = JVOConfig(image_width=W, image_height=H,
+                     ransac=JRansacConfig(min_valid_fraction=fraction))
+    jest = jax.jit(lambda a, b, k: jstep.estimate_pair(a, b, k, jcfg))
+    f = interop.features_from_numpy({k: np.asarray(v) for k, v in feats._asdict().items()})
+    prev = ORBFeatures(*(a[:-1] for a in f))
+    cur = ORBFeatures(*(a[1:] for a in f))
+    cfg = VOConfig(image_width=W, image_height=H,
+                   ransac=RansacConfig(min_valid_fraction=fraction))
+    good, _ = adaptive_threshold_filter(
+        mutual_nearest_match(prev.desc32, cur.desc32, prev.valid, cur.valid), cfg.match)
+    idx, want = [], []
+    for i in range(T - 1):
+        key = jax.random.fold_in(jax.random.PRNGKey(0), i + 1)
+        idx.append(np.asarray(_draw_samples(key, jnp.asarray(good.valid[i].numpy()), 256, 5)))
+        e = jest(*(jax.tree.map(lambda x, j=j: x[j], feats) for j in (i, i + 1)), key)
+        want.append([bool(e["pose_ok"]), bool(e["have_rt"]), int(e["n_valid_points"])])
+    est = step.estimate_pair(prev, cur, cfg, idx=torch.from_numpy(np.stack(idx).astype(np.int64)))
+    got = [list(r) for r in zip(est["pose_ok"].tolist(), est["have_rt"].tolist(),
+                                est["n_valid_points"].tolist())]
+    assert got == want
+    assert 0 < sum(r[1] for r in got) < T - 1
 
 
 def test_runner_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

@@ -2,20 +2,31 @@
 
 Same module layout and public names as `tpu_vo` (the JAX reference, which
 stays beside it unchanged). Plain code is eager PyTorch on whatever device
-the input tensors live on; the entry points (run_sequence_batched, the
-stage benchmark) run on the card unless given device="cpu". The kernels
-are written by hand in CUDA C++ (`csrc/`) and launched only for CUDA
-tensors:
+the input tensors live on; the entry points (run_sequence_batched,
+run_sequence_scan, api.VisualOdometry, the CLI, the tools) run on the
+card unless given device="cpu". The kernels are written by hand in CUDA
+C++ (`csrc/`) and launched only for CUDA tensors:
 
-  geometry/    SE3 poses, intrinsics, epipolar algebra, cheirality
-  image/       Gaussian kernel and full-frame blur, cascaded pyramid
+  geometry/    SE3 poses and quaternions, intrinsics, epipolar algebra,
+               cheirality
+  image/       Gaussian kernel and full-frame blur, cascaded pyramid,
+               BGR/RGB to gray
   features/    FAST / Harris / NMS / orientation / rBRIEF / ORB
-  ops/         select_maps (B1), extract_patches (B2), fast_margin (B3)
-  matching/    Hamming distances, mutual-NN cross-check, adaptive filter
-  estimation/  8-point, SoA Nister 5-point, batched RANSAC, recover_pose
-  pipeline/    estimate_pair, chain_relative_poses, run_sequence_batched
-  utils/       numpy-only synthetic sequences, fences and CUDA-event timers
-  tools/       stage_bench, the frontend stage benchmark
+  ops/         select_maps (B1), extract_patches (B2), fast_margin (B3),
+               the patch-slots probe's window kernels (P1-P3)
+  matching/    Hamming distances, mutual-NN cross-check, ratio test,
+               adaptive filter
+  estimation/  8-point, SoA Nister 5-point, batched RANSAC (MSAC or
+               count, 5- or 8-point samples), recover_pose
+  pipeline/    estimate_pair, vo_step, run_sequence_scan,
+               chain_relative_poses, run_sequence_batched
+  io/          image listing and PNG decoding, KITTI sequences,
+               trajectory files and checkpoints
+  utils/       numpy-only synthetic sequences, fences and CUDA-event
+               timers, per-frame records, trajectory metrics
+  tools/       stage_bench, the patch-slots probe and the kernel ablations
+  api.py       Frame, VisualOdometry
+  cli.py       python -m tpu_vo_torch.cli <dir> --no-viewer
 
 This package imports neither jax nor tpu_vo.
 """

@@ -58,6 +58,14 @@ def invert_relative(R_c2_c1: torch.Tensor, t_c2_c1: torch.Tensor):
     return RT, -_matvec(RT, t_c2_c1)
 
 
+def compose_next_pose(prev: Pose, R_c1_c2: torch.Tensor, t_c1_c2: torch.Tensor,
+                      scale: torch.Tensor) -> Pose:
+    """T_w_c2 = T_w_c1 * T_c1_c2 with the translation increment scaled:
+    R = R_prev R_c1_c2, t = t_prev + scale * (R_prev t_c1_c2), so scale 0
+    is the reference's rotation-only fallback."""
+    return Pose(prev.R @ R_c1_c2, prev.t + scale[..., None] * _matvec(prev.R, t_c1_c2))
+
+
 def skew(v: torch.Tensor) -> torch.Tensor:
     """Cross-product matrix [v]_x of shape (..., 3, 3)."""
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
@@ -67,3 +75,41 @@ def skew(v: torch.Tensor) -> torch.Tensor:
         torch.stack([z, zero, -x], dim=-1),
         torch.stack([-y, x, zero], dim=-1),
     ], dim=-2)
+
+
+def rotation_to_quaternion(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 4) quaternion (x, y, z, w), TUM convention, by
+    Shepperd's method: the candidate of the largest diagonal combination."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-24))
+
+    s0 = safe_sqrt(1.0 + tr) * 2.0
+    q0 = torch.stack([(m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0, 0.25 * s0], -1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1, (m21 - m12) / s1], -1)
+    s2 = safe_sqrt(1.0 - m00 + m11 - m22) * 2.0
+    q2 = torch.stack([(m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2, (m02 - m20) / s2], -1)
+    s3 = safe_sqrt(1.0 - m00 - m11 + m22) * 2.0
+    q3 = torch.stack([(m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3, (m10 - m01) / s3], -1)
+    pick = torch.argmax(torch.stack([tr, m00, m11, m22], -1), -1)
+    qs = torch.stack([q0, q1, q2, q3], -2)
+    q = torch.gather(qs, -2, pick[..., None, None].expand(*pick.shape, 1, 4))[..., 0, :]
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) quaternion (x, y, z, w) -> (..., 3, 3)."""
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack([
+        torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1),
+        torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
+        torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
+    ], -2)

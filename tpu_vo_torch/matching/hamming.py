@@ -4,9 +4,11 @@ cross-check (port of tpu_vo/matching/hamming.py).
 Descriptors unpack to +-1 float32 vectors; popcount(a XOR b) =
 (256 - <a, b>) / 2, so the distance matrix is one 256-deep f32 matmul
 with integer results below 2^24 (exact; TF32 is off package-wide).
-Query i matches train j iff j = argmin_j d(i, j) and i = argmin_i d(i, j),
-lowest index first on ties like OpenCV's sequential scans; invalid slots
-get MAX_DIST and never match. All functions take leading batch dims.
+Cross-check: query i matches train j iff j = argmin_j d(i, j) and
+i = argmin_i d(i, j), lowest index first on ties like OpenCV's sequential
+scans. Ratio test: the nearest j when its distance is below `ratio` times
+the second nearest. Invalid slots get MAX_DIST and never match. All
+functions take leading batch dims.
 """
 
 from __future__ import annotations
@@ -59,5 +61,23 @@ def mutual_nearest_match(d1: torch.Tensor, d2: torch.Tensor,
     return Matches(
         train_idx=best_j,
         distance=torch.where(ok, d_best, torch.full_like(d_best, MAX_DIST)),
+        valid=ok,
+    )
+
+
+def ratio_test_match(d1: torch.Tensor, d2: torch.Tensor, valid1: torch.Tensor,
+                     valid2: torch.Tensor, ratio: float = 0.75) -> Matches:
+    """Lowe ratio-test matching: query i keeps its nearest train j when
+    d1st < ratio * d2nd, the second distance taken with MAX_DIST written
+    over the (first-minimum) best column, so a tie at the first distance
+    fails the test."""
+    dist = masked_distances(d1, d2, valid1, valid2)
+    best_j = torch.argmin(dist, dim=-1)
+    d1st = torch.gather(dist, -1, best_j[..., None])[..., 0]
+    d2nd = dist.scatter(-1, best_j[..., None], MAX_DIST).amin(-1)
+    ok = valid1 & (d1st < MAX_DIST) & (d1st < ratio * d2nd)
+    return Matches(
+        train_idx=best_j,
+        distance=torch.where(ok, d1st, torch.full_like(d1st, MAX_DIST)),
         valid=ok,
     )

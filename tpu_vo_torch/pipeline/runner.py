@@ -1,5 +1,10 @@
-"""The batched three-stage sequence runner (port of
-tpu_vo/pipeline/runner.py `run_sequence_batched`):
+"""Sequence runners (port of tpu_vo/pipeline/runner.py).
+
+`run_sequence_scan`, the streaming runner: `vo_step` over the frames one
+at a time, the state flowing frame to frame; each kernel launches once
+per frame.
+
+`run_sequence_batched`, the batched three-stage runner:
 
   1. ORB features of the T frames, one launch of each kernel per chunk
      of `frame_chunk` frames (all T at once by default);
@@ -13,29 +18,21 @@ stage 1 holds every frame's windows and their blur temporaries at once.
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
-import numpy as np
 import torch
 
 from tpu_vo_torch.configs import VOConfig
 from tpu_vo_torch.features.orb import ORBFeatures, detect_and_compute
 from tpu_vo_torch.geometry import se3
 from tpu_vo_torch.geometry.se3 import Pose
-from tpu_vo_torch.pipeline.step import check_supported, estimate_pair
-
-
-def pair_generators(seed: int, pairs) -> List[torch.Generator]:
-    """One CPU generator per pair i (the pair of frames i-1 and i), seeded
-    from (seed, i): a pair draws the same samples however the sequence
-    is batched and on whatever device it runs."""
-    gens = []
-    for i in pairs:
-        state = np.random.SeedSequence([int(seed), int(i)]).generate_state(2)
-        g = torch.Generator()
-        g.manual_seed(int(state[0]) << 32 | int(state[1]))
-        gens.append(g)
-    return gens
+from tpu_vo_torch.pipeline.step import (
+    VOStepOutput,
+    estimate_pair,
+    initial_state,
+    pair_generators,
+    vo_step,
+)
 
 
 def chain_relative_poses(R: torch.Tensor, t: torch.Tensor, have_rt: torch.Tensor,
@@ -86,17 +83,34 @@ def _spans(n: int, chunk: Optional[int]):
     return [(a, a + chunk) for a in range(0, n, chunk)]
 
 
-def _cat(parts):
-    """Concatenate along dim 0 the tensors of a list of equally shaped
-    NamedTuples or dicts of tensors and NamedTuples."""
+def _cat(parts, join=torch.cat):
+    """Join along dim 0 (torch.cat, or torch.stack into a new dim 0) the
+    tensors of a list of equally shaped NamedTuples or dicts of tensors
+    and NamedTuples."""
     first = parts[0]
-    if len(parts) == 1:
+    if len(parts) == 1 and join is torch.cat:
         return first
     if isinstance(first, torch.Tensor):
-        return torch.cat(parts, 0)
+        return join(parts, 0)
     if isinstance(first, dict):
-        return {k: _cat([p[k] for p in parts]) for k in first}
-    return type(first)(*(_cat(list(f)) for f in zip(*parts)))
+        return {k: _cat([p[k] for p in parts], join) for k in first}
+    return type(first)(*(_cat(list(f), join) for f in zip(*parts)))
+
+
+def run_sequence_scan(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
+                      device=None) -> VOStepOutput:
+    """Streaming VO over (T, H, W) uint8 frames, moved to `device` (the
+    card when None; see entry_device): `vo_step` frame by frame. Returns
+    the per-frame outputs stacked along a leading T (poses: the
+    trajectory, the first the identity). Pair i draws the samples that
+    run_sequence_batched gives it."""
+    frames = frames.to(entry_device(device))
+    state = initial_state(cfg, seed, frames.device)
+    outs = []
+    for frame in frames:
+        state, out = vo_step(state, frame, cfg)
+        outs.append(out)
+    return _cat(outs, torch.stack)
 
 
 def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
@@ -109,7 +123,6 @@ def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
     unless it is at least that long. Returns (poses: Pose with leading
     dim T, diagnostics dict of (T-1,) tensors), the same for every
     chunking."""
-    check_supported(cfg)
     _check_chunks(frame_chunk, pair_chunk)
     frames = frames.to(entry_device(device))
     T = frames.shape[0]
