@@ -64,6 +64,35 @@ Phases, in order; any failure raises and the exit code is non-zero:
      P2 and P3 also on levels whose pixels span 41 binades
      (patch_slots_probe.binade_levels); the probe prints its timing floor
      and each variant's ms;
+  5c. parity with the OpenCV reference (the accuracy path): render the
+     card's two legs of tpu_vo_torch/data/reference_trajectories.json
+     (the corridor at 640x480 and 1241x376, T 24, seed 3; rendered on
+     the host in worker processes started after the build, and waited
+     for before phase 4b, so that no timed phase runs beside them),
+     require their sha256 to equal the file's, then run_sequence_batched
+     with VOConfig.reference_parity() on 5 RANSAC seeds each, counters
+     reset just before; every seed's aligned ATE over the extent must
+     lie within max(1.15 band, 0.01), and B1 and B2 launch once a run;
+     then B1 and B2 against their plain versions bit for bit at each
+     leg's own shapes (the 24 frames' pyramid, the keypoints ranked
+     from B1's maps under the keep-ties budget of 4n);
+  5d. config 5: the corridor at 640x480, 1000 keypoints, 32 frames
+     through tools/run_benchmarks.window_refined (features 8 frames a
+     launch, pairs, models/refinement.refine_window with 6 LM iterations,
+     the chain), counters reset just before (4 launches each of B1 and
+     B2); frames/s and the refine's share by CUDA events; the refined and
+     unrefined aligned ATE against the committed reference and ground
+     truth; refine_window on the card against the CPU on the same inputs
+     in float32 and float64; B1 and B2 against their plain versions bit
+     for bit on each 8-frame chunk's pyramid and keypoints;
+  5e. config 4, cut to B = 4 sequences of 16 frames at 640x480 (the
+     benchmark has 8 of 64): parallel/sharding.run_batch_of_sequences,
+     counters reset just before (8 launches each of B1 and B2 at
+     frame_chunk 8; pair_chunk 15, one sequence's pairs); frames/s by
+     CUDA events; each sequence's pose_ok equal to, and its positions
+     within 1e-4 of, run_sequence_batched on the card with the same
+     chunks; B1 and B2 against their plain versions bit for bit on each
+     8-frame chunk's pyramid and keypoints;
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
@@ -85,16 +114,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and the top device time.
 
 The line before the last is a JSON object with the kernels' names,
-sources, launch counts, errors, times and bounds; the last line is
+sources, launch counts, errors, times and bounds (B1's and B2's also
+with their launches on each path, `launches_by_path`); the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
 import io
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -126,10 +158,15 @@ from tpu_vo_torch.ops.patch import (RAW_RADIUS, RAW_SIZE, extract_patches,  # no
 from tpu_vo_torch.ops.patch import _starts as patch_starts  # noqa: E402
 from tpu_vo_torch.ops.select import (compass_candidates, select_maps,  # noqa: E402
                                      select_maps_levels, select_maps_reference)
+from tpu_vo_torch.models.refinement import refine_window  # noqa: E402
+from tpu_vo_torch.parallel.sharding import run_batch_of_sequences  # noqa: E402
 from tpu_vo_torch.pipeline import runner, step  # noqa: E402
-from tpu_vo_torch.tools import patch_slots_probe, stage_bench  # noqa: E402
+from tpu_vo_torch.tools import (patch_slots_probe, reference_band, run_benchmarks,  # noqa: E402
+                                stage_bench)
 from tpu_vo_torch.tools.device_time import device_time_ms  # noqa: E402
 from tpu_vo_torch.utils.profiling import card as _card, cuda_times  # noqa: E402
+from tpu_vo_torch.utils import synthetic  # noqa: E402
+from tpu_vo_torch.utils.metrics import ate_rmse_aligned, trajectory_report  # noqa: E402
 from tpu_vo_torch.utils.synthetic import compass_pattern, make_sequence  # noqa: E402
 
 W, H, T = 1241, 376, 32
@@ -174,6 +211,24 @@ MAX_STREAM_POS_DIFF = 1e-4
 MIN_POSE_OK = 0.7
 MAX_MEAN_PAIR_ROT_ERR_DEG = 1.5
 WARMUP, REPS, MAIN_REPS, PROFILE_RUNS = 2, 5, 20, 3
+# The accuracy path (phases 5c-5e): the card's parity legs of the
+# committed reference, config 5 and config 4 cut to B sequences of T4
+# frames; every scene is rendered on the host by RENDER_WORKERS processes,
+# all done before the first timed phase
+PARITY_LEGS = ("card_corridor_640x480", "card_corridor_1241x376")
+PARITY_SEEDS = 5
+C5_T, C5_W, C5_H, C5_KPS = run_benchmarks.CONFIGS[5][:4]
+_, C4_W, C4_H, C4_KPS = run_benchmarks.CONFIGS[4][:4]
+C4_B, C4_T = 4, 16    # the cut: the benchmark has 8 sequences of 64 frames
+# each frame chunk and each pair chunk within one sequence, so that a
+# sequence's own run makes the same launches on the same inputs
+C4_FRAME_CHUNK = run_benchmarks.FRAME_CHUNK
+RENDER_WORKERS = 3
+# refine_window on the card against the CPU on the same inputs, in float32
+# (the pipeline's) and in float64 (where the LM's accept decisions do not
+# turn on the last bits)
+MAX_REFINE_DIFF = 1e-3
+MAX_REFINE_DIFF_F64 = 1e-8
 # CUDA runtime calls that make the host wait for the card
 _SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
                "cudaMemcpy")
@@ -307,6 +362,49 @@ def _pair_rot_err_deg(R_wc: np.ndarray, Rs_gt) -> np.ndarray:
     return np.asarray(errs)
 
 
+def _reset(kernels):
+    """Set the launch counters of {name: wrapper} to 0."""
+    for k in kernels.values():
+        k.launches = 0
+
+
+def _hold_b1_b2(label, frames, ocfg, card):
+    """B1 and B2 against their plain versions bit for bit at a path's own
+    shapes: the pyramid of `frames` (one stage-1 launch's) and the
+    keypoints that detect_and_compute ranks from B1's maps under `ocfg`.
+    Counted launches go to the counters: call it outside a counted run."""
+    budgets = orb.features_per_level(ocfg.n_features, ocfg.n_levels, ocfg.scale_factor)
+    used = [(lv.contiguous(), n) for lv, n in zip(
+        build_pyramid(frames, ocfg.n_levels, ocfg.scale_factor), budgets) if n > 0]
+    levels = [lv for lv, _ in used]
+    thr, brd = ocfg.fast_threshold, ocfg.edge_threshold
+    maps = select_maps_levels(levels, thr, brd)
+    ys_all, xs_all, starts = [], [], [0]
+    for (lvl, n), (pk, hk, bk) in zip(used, maps):
+        pr, hr, br = select_maps_reference(lvl, thr, brd)
+        torch.cuda.synchronize()
+        if bk != br or not torch.equal(pk, pr) or not torch.equal(hk, hr):
+            raise AssertionError(f"{label}: select_maps_levels differs from its plain version at "
+                                 f"{tuple(lvl.shape)}: packed {int((pk != pr).sum())} cells, "
+                                 f"harris max {float((hk - hr).abs().max())}")
+        h, w = lvl.shape[-2:]
+        ys, xs, _, _ = orb._rank_from_maps(pk, hk, bk, w, n, ocfg, h * w)
+        ys_all.append(ys)
+        xs_all.append(xs)
+        starts.append(starts[-1] + ys.shape[1])
+    ys, xs = torch.cat(ys_all, 1).contiguous(), torch.cat(xs_all, 1).contiguous()
+    a = extract_patches_levels(levels, ys, xs, starts[:-1])
+    b = torch.cat([extract_patches_reference(lv, ys[:, o:e], xs[:, o:e])
+                   for lv, o, e in zip(levels, starts, starts[1:])], 1)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{label}: extract_patches_levels differs from its plain version "
+                             f"on {int((a != b).flatten(2).any(-1).sum())} windows")
+    print(f"{label}: select_maps_levels == plain at {[tuple(lv.shape) for lv in levels]}, "
+          f"border {brd}; extract_patches_levels == plain on {ys.numel()} slots "
+          f"({starts[-1]} a frame) [{card}]", flush=True)
+
+
 def _card_vs_cpu(label, frames, Rs_gt, cfg):
     """Run run_sequence_batched on the CPU and on the card over the same
     frames; print how they agree; fail where the card's pose_ok falls
@@ -350,8 +448,7 @@ def _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
     accuracy; run_sequence_scan against the batched run (poses, diags)
     of the same frames; the tie rules of RANSAC's winners on the card."""
     T = len(frames_np)
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     vo = api.VisualOdometry(cfg.image_width, cfg.image_height, config=cfg)
     frame_ms = []
     for i, img in enumerate(frames_np):
@@ -400,6 +497,7 @@ def _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
           f"first minimum on {float((first_min == want_min).float().mean()):.3f}", flush=True)
     if not (torch.equal(first_max, want_max) and torch.equal(first_min, want_min)):
         raise AssertionError("RANSAC's tie rule (first maximum, first minimum) fails on the card")
+    return stream_launches
 
 
 def _cli_phase(frames_np, Rs, ts, K, kernels, card):
@@ -415,8 +513,7 @@ def _cli_phase(frames_np, Rs, ts, K, kernels, card):
             t0 = time.perf_counter()
             load_frame(os.path.join(png, f"{i:06d}.png"))
             decode_ms[name] = (time.perf_counter() - t0) * 1e3
-        for k in kernels.values():
-            k.launches = 0
+        _reset(kernels)
         text = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(text):
@@ -438,6 +535,7 @@ def _cli_phase(frames_np, Rs, ts, K, kernels, card):
             or not any("ate_rmse=" in ln for ln in lines)
             or cli_launches["select_maps"] != n or cli_launches["extract_patches"] != n):
         raise AssertionError("the CLI run failed its checks")
+    return cli_launches
 
 
 def _busy_ms(intervals) -> float:
@@ -493,6 +591,163 @@ def _profile(name, fn, card, rows=0):
                                         max_name_column_width=60), flush=True)
 
 
+def _start_renders(pool):
+    """Submit the accuracy path's scenes to `pool`: {key: future of
+    (frames, Rs, ts, K)}, the parity legs and "config5" by their names in
+    the reference file, ("c4", b) config 4's sequences. Each future's
+    `done_s` is set to the seconds from the submission to its end."""
+    specs = {name: reference_band.LEGS[name] for name in PARITY_LEGS + ("config5",)}
+    specs.update({("c4", b): ("corridor", C4_T, C4_W, C4_H, b) for b in range(C4_B)})
+    t0 = time.perf_counter()
+    futures = {k: pool.submit(synthetic.render, *spec) for k, spec in specs.items()}
+    for f in futures.values():
+        f.add_done_callback(lambda f: setattr(f, "done_s", time.perf_counter() - t0))
+    return futures
+
+
+def _parity_phase(renders, kernels, card):
+    """5 seeds of VOConfig.reference_parity() on each card leg against the
+    committed reference's band; returns the B1 and B2 launches."""
+    legs = reference_band.load()
+    launches = {"select_maps": 0, "extract_patches": 0}
+    for name in PARITY_LEGS:
+        rec = legs[name]
+        t0 = time.perf_counter()
+        frames_np = renders[name].result()[0]
+        wait_s = time.perf_counter() - t0
+        sha = synthetic.frames_sha256(frames_np)
+        if sha != rec["frames_sha256"]:
+            raise AssertionError(f"{name}: the frames rendered here hash to {sha}, the committed "
+                                 f"reference's to {rec['frames_sha256']}")
+        W_, H_ = rec["W"], rec["H"]
+        frames = torch.from_numpy(np.stack(frames_np)).cuda()
+        cfg = VOConfig.reference_parity(image_width=W_, image_height=H_)
+        traj_ref, _ = reference_band.leg_arrays(rec)
+        tol = reference_band.parity_tolerance(rec["band"])
+        _reset(kernels)
+        rels, oks = [], []
+        for s in range(PARITY_SEEDS):
+            poses, diags = runner.run_sequence_batched(frames, cfg, seed=s)
+            if not bool(torch.isfinite(poses.t).all()):
+                raise AssertionError(f"{name}: non-finite poses at seed {s}")
+            rels.append(ate_rmse_aligned(poses.t.double().cpu().numpy(), traj_ref)
+                        / rec["extent"])
+            oks.append(float(diags["pose_ok"].float().mean()))
+        got = {n: kernels[n].launches for n in launches}
+        for n in launches:
+            launches[n] += got[n]
+        print(f"parity {name} ({rec['T']} frames, hash equal to the file's; waited "
+              f"{wait_s:.1f} s for the render): aligned ATE / extent per seed "
+              f"{[round(r, 5) for r in rels]}, band {rec['band']:.5f}, bar {tol:.5f}, pose_ok "
+              f"{[round(o, 3) for o in oks]}, launches {got} [{card}]", flush=True)
+        if max(rels) > tol:
+            raise AssertionError(f"{name}: {sum(r > tol for r in rels)}/{PARITY_SEEDS} seeds "
+                                 f"outside the reference's band")
+        if got["select_maps"] != PARITY_SEEDS or got["extract_patches"] != PARITY_SEEDS:
+            raise AssertionError(f"{name}: B1 and B2 did not launch once a run: {got}")
+        _hold_b1_b2(f"parity {name}, {rec['T']} frames", frames, cfg.orb, card)
+    return launches
+
+
+def _config5_phase(renders, kernels, card):
+    """Config 5 (window refinement) on the card; returns B1's and B2's
+    launches in one run."""
+    legs = reference_band.load()
+    frames_np, Rs, ts, _ = renders["config5"].result()
+    rec = legs["config5"]
+    if synthetic.frames_sha256(frames_np) != rec["frames_sha256"]:
+        raise AssertionError("config 5: the frames are not the committed reference's")
+    frames = torch.from_numpy(np.stack(frames_np)).cuda()
+    cfg = VOConfig(image_width=C5_W, image_height=C5_H, orb=ORBConfig(n_features=C5_KPS))
+    _reset(kernels)
+    poses = run_benchmarks.window_refined(frames, cfg)
+    torch.cuda.synchronize()
+    launches = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+    if any(v != C5_T // run_benchmarks.FRAME_CHUNK for v in launches.values()):
+        raise AssertionError(f"config 5 did not launch B1 and B2 once a frame chunk: {launches}")
+    for a in range(0, C5_T, run_benchmarks.FRAME_CHUNK):
+        _hold_b1_b2(f"config 5, frames {a}-{a + run_benchmarks.FRAME_CHUNK - 1}",
+                    frames[a:a + run_benchmarks.FRAME_CHUNK], cfg.orb, card)
+    plain = run_benchmarks.window_refined(frames, cfg, iters=0)
+    ms = _cuda_ms(lambda: run_benchmarks.window_refined(frames, cfg))
+    _, _, args = run_benchmarks.window_refined(frames, cfg, with_parts=True)
+    refine_ms = _cuda_ms(lambda: refine_window(*args, iters=run_benchmarks.LM_ITERS))
+    ref_t, ref_R = reference_band.leg_arrays(rec)
+    reports = {}
+    for label, p in (("refined", poses), ("unrefined", plain)):
+        if not bool(torch.isfinite(p.t).all() and torch.isfinite(p.R).all()):
+            raise AssertionError(f"config 5: non-finite {label} poses")
+        traj = p.t.double().cpu().numpy()
+        reports[label] = trajectory_report(traj, ref_t, np.stack(ts),
+                                           our_R=p.R.double().cpu().numpy(), ref_R=ref_R,
+                                           gt_R=np.stack(Rs))
+        reports[label]["rel"] = ate_rmse_aligned(traj, ref_t) / rec["extent"]
+    diffs = {}
+    for dtype in (torch.float32, torch.float64):
+        a = [x.to(dtype) if x.is_floating_point() else x for x in args]
+        gpu = refine_window(*a, iters=run_benchmarks.LM_ITERS)
+        cpu = refine_window(*(x.cpu() for x in a), iters=run_benchmarks.LM_ITERS)
+        diffs[dtype] = (float((gpu.R_rel.cpu() - cpu.R_rel).abs().max()),
+                        float((gpu.t_rel.cpu() - cpu.t_rel).abs().max()),
+                        float(((gpu.cost.cpu() - cpu.cost).abs()
+                               / cpu.cost.clamp(min=1e-30)).max()),
+                        float((gpu.improved.cpu() == cpu.improved).float().mean()))
+    print(f"config 5 ({C5_T} frames {C5_W}x{C5_H}, {C5_KPS} keypoints, refine_window "
+          f"{run_benchmarks.LM_ITERS} LM iterations): {ms:.3f} ms = {C5_T * 1000.0 / ms:.2f} "
+          f"frames/s, refine_window {refine_ms:.3f} ms = {100.0 * refine_ms / ms:.1f}% of it "
+          f"(median of {REPS}), launches {launches} [{card}]", flush=True)
+    for label, rep in reports.items():
+        print(f"config 5 {label}: aligned ATE / extent vs reference {rep['rel']:.6f} (band "
+              f"{rec['band']:.5f}), ATE vs scale-matched ground truth {rep['ate_vs_gt']} "
+              f"({rep['ate_vs_gt_rel']} of extent; the reference's {rep['ref_ate_vs_gt_rel']}), "
+              f"RPE rotation vs ground truth {rep['rpe_rot_mean_deg_vs_gt']} deg mean", flush=True)
+    for dtype, bar in ((torch.float32, MAX_REFINE_DIFF), (torch.float64, MAX_REFINE_DIFF_F64)):
+        d_R, d_t, d_c, same = diffs[dtype]
+        print(f"config 5 refine_window card vs CPU on the same inputs in {dtype}: R max "
+              f"{d_R:.3e}, t max {d_t:.3e}, cost max relative {d_c:.3e}, improved equal on "
+              f"{same:.3f} of pairs (bar {bar})", flush=True)
+        if not (d_R <= bar and d_t <= bar and d_c <= bar):
+            raise AssertionError(f"config 5: refine_window differs between the card and the "
+                                 f"CPU in {dtype}")
+    return launches
+
+
+def _config4_phase(renders, kernels, card):
+    """Config 4 cut to C4_B x C4_T: the batch against each sequence alone
+    on the card; returns B1's and B2's launches in one run."""
+    seqs = [renders[("c4", b)].result() for b in range(C4_B)]
+    frames = torch.from_numpy(np.stack([np.stack(s[0]) for s in seqs])).cuda()
+    cfg = VOConfig(image_width=C4_W, image_height=C4_H, orb=ORBConfig(n_features=C4_KPS))
+    fc, pc = C4_FRAME_CHUNK, C4_T - 1
+    _reset(kernels)
+    poses, diags = run_batch_of_sequences(frames, cfg, frame_chunk=fc, pair_chunk=pc)
+    torch.cuda.synchronize()
+    launches = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+    if any(v != C4_B * C4_T // fc for v in launches.values()):
+        raise AssertionError(f"config 4 did not launch B1 and B2 once a frame chunk: {launches}")
+    flat = frames.reshape(C4_B * C4_T, C4_H, C4_W)
+    for a in range(0, C4_B * C4_T, fc):
+        _hold_b1_b2(f"config 4, frames {a}-{a + fc - 1} of the flattened batch",
+                    flat[a:a + fc], cfg.orb, card)
+    ms = _cuda_ms(lambda: run_batch_of_sequences(frames, cfg, frame_chunk=fc, pair_chunk=pc))
+    diffs, oks = [], []
+    for b in range(C4_B):
+        p, d = runner.run_sequence_batched(frames[b], cfg, seed=b, frame_chunk=fc,
+                                           pair_chunk=pc)
+        if not torch.equal(d["pose_ok"], diags["pose_ok"][b]):
+            raise AssertionError(f"config 4: sequence {b}'s pose_ok differs from its own run")
+        diffs.append(float((p.t - poses.t[b]).abs().max()))
+        oks.append(float(d["pose_ok"].float().mean()))
+    print(f"config 4 (cut to {C4_B} sequences x {C4_T} frames at {C4_W}x{C4_H}, {C4_KPS} "
+          f"keypoints, frame_chunk {fc}, pair_chunk {pc}): {ms:.3f} ms = "
+          f"{C4_B * C4_T * 1000.0 / ms:.2f} frames/s (median of {REPS}), launches {launches}; "
+          f"each sequence against run_sequence_batched: pose_ok equal, positions differ by at "
+          f"most {max(diffs):.3e} (bar {MAX_STREAM_POS_DIFF}), pose_ok {oks} [{card}]", flush=True)
+    if max(diffs) > MAX_STREAM_POS_DIFF:
+        raise AssertionError("config 4: a sequence's positions differ from its own run")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -500,6 +755,15 @@ def main() -> int:
     card = _card()
     print(f"card: {card}", flush=True)
     dev = torch.device("cuda")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return _run(card, dev, pool)
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+
+def _run(card, dev, pool) -> int:
 
     # 2. build
     t0 = time.perf_counter()
@@ -511,6 +775,9 @@ def main() -> int:
     print(f"phase_mxu_kernel (P2): {n_hmma} HMMA instructions in its SASS", flush=True)
     if n_hmma == 0:
         raise AssertionError("P2's products do not run on the tensor cores")
+    # the accuracy path's scenes, rendered on the host beside phases 3-4,
+    # which time nothing
+    renders = _start_renders(pool)
 
     cfg = VOConfig(image_width=W, image_height=H, orb=ORBConfig(n_features=1200),
                    ransac=RansacConfig(max_iters=256))
@@ -612,8 +879,7 @@ def main() -> int:
     # 4. the main path, counted
     kernels = {"select_maps": select_maps, "extract_patches": extract_patches,
                "fast_margin": fast_margin}
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     poses, diags = runner.run_sequence_batched(frames, cfg, seed=0)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
@@ -636,8 +902,16 @@ def main() -> int:
     _card_vs_cpu("small sequence", small, small_gt,
                  VOConfig(image_width=SMALL_W, image_height=SMALL_H))
 
+    # the renders end before the first timed phase
+    t0 = time.perf_counter()
+    concurrent.futures.wait(list(renders.values()))
+    done = sorted(f.done_s for f in renders.values())
+    print(f"host renders: {len(done)} scenes in {RENDER_WORKERS} processes, started after the "
+          f"build, done {done[0]:.1f}-{done[-1]:.1f} s after their start; waited "
+          f"{time.perf_counter() - t0:.1f} s for them before phase 4b", flush=True)
+
     # 4b. the streaming path, counted: VisualOdometry frame by frame
-    _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
+    stream_counts = _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
 
     # 4c. every VOConfig option on the small sequence, card against CPU
     for name, option in OPTIONS.items():
@@ -645,13 +919,12 @@ def main() -> int:
                      VOConfig(image_width=SMALL_W, image_height=SMALL_H, **option))
 
     # 4d. the CLI over a KITTI tree of PNG frames, counted
-    _cli_phase(frames_np[:CLI_T], Rs_gt[:CLI_T], ts_gt[:CLI_T], K_gt, kernels, card)
+    cli_counts = _cli_phase(frames_np[:CLI_T], Rs_gt[:CLI_T], ts_gt[:CLI_T], K_gt, kernels, card)
 
     # 5. the FAST-detect path at full width, counted: the stage
     # benchmark's ablation on 8 frames (B3 in +fast ... +orientation, B1
     # and B2 in full), then dense against patch descriptors
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels)
     stage_bench.main(["ablate"])
     torch.cuda.synchronize()
     b3_launches = {name: k.launches for name, k in kernels.items()}
@@ -686,8 +959,7 @@ def main() -> int:
     probe_kernels = {"band_windows": patch_probe.band_windows,
                      "phase_windows_mxu": patch_probe.phase_windows_mxu,
                      "phase_windows_roll": patch_probe.phase_windows_roll}
-    for k in (*kernels.values(), *probe_kernels.values()):
-        k.launches = 0
+    _reset({**kernels, **probe_kernels})
     probe_rows = patch_slots_probe.main()
     torch.cuda.synchronize()
     p_launches = {name: k.launches for name, k in probe_kernels.items()}
@@ -736,6 +1008,16 @@ def main() -> int:
     print(f"probe kernels == plain on {pys.numel()}, {eys.numel()} right-edge and "
           f"{bys.numel()} bottom-edge keypoints, P2 and P3 also on levels across 41 binades: "
           f"{checked}", flush=True)
+
+    # 5c-5e. the accuracy path, counted: parity with the reference, config
+    # 5's window refinement, config 4's batch of sequences
+    path_launches = {"main": launches, "streaming (32 frames)": stream_counts,
+                     "CLI (24 frames)": cli_counts}
+    for name, phase in (("parity (2 legs x 5 seeds)", _parity_phase),
+                        ("config 5", _config5_phase), ("config 4", _config4_phase)):
+        t0 = time.perf_counter()
+        path_launches[name] = phase(renders, kernels, card)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 6. times
     def main_path():
@@ -920,11 +1202,13 @@ def main() -> int:
     report = {"kernels": [
         {"name": "select_maps", "route": "cuda", "source": "tpu_vo_torch/csrc/select.cu",
          "replaces": "tpu_vo/ops/select_pallas.py:359", "launches": launches["select_maps"],
+         "launches_by_path": {p: c["select_maps"] for p, c in path_launches.items()},
          "max_abs_err": sel_err, "ms": sel_ms, "plain_ms": sel_plain,
          "bound_ms": sel_bound[0], "bound_by": sel_bound[1], "library_ms": None},
         {"name": "extract_patches", "route": "cuda", "source": "tpu_vo_torch/csrc/patch.cu",
          "replaces": "tpu_vo/ops/patch_pallas.py:181",
          "launches": launches["extract_patches"], "max_abs_err": patch_err,
+         "launches_by_path": {p: c["extract_patches"] for p, c in path_launches.items()},
          "ms": pat_ms, "plain_ms": pat_plain,
          "bound_ms": pat_bound[0], "bound_by": pat_bound[1], "library_ms": pat_lib},
         {"name": "fast_margin", "route": "cuda", "source": "tpu_vo_torch/csrc/fast.cu",

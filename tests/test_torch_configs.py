@@ -1,5 +1,5 @@
 """The port's configs equal tpu_vo's, and tpu_vo_torch imports neither
-jax, tpu_vo nor the repo's tools/."""
+jax, tpu_vo, the repo's tools/ nor (at import) cv2."""
 
 import dataclasses
 import subprocess
@@ -57,14 +57,14 @@ _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "tpu_vo", "tools"):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpu_vo", "tools", "cv2"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import tpu_vo_torch
 mods = [m.name for m in pkgutil.walk_packages(tpu_vo_torch.__path__, "tpu_vo_torch.")]
 for m in mods:
     importlib.import_module(m)
-assert not any(k.split(".")[0] in ("jax", "tpu_vo", "tools") for k in sys.modules)
+assert not any(k.split(".")[0] in ("jax", "tpu_vo", "tools", "cv2") for k in sys.modules)
 print(" ".join(mods))
 """
 
@@ -78,6 +78,13 @@ STREAM_MODULES = ["tpu_vo_torch.api", "tpu_vo_torch.cli", "tpu_vo_torch.io.datas
                   "tpu_vo_torch.image.color", "tpu_vo_torch.utils.records",
                   "tpu_vo_torch.utils.metrics"]
 
+# The accuracy path's modules; cv_reference and reference_band reach cv2
+# only inside their functions
+ACCURACY_MODULES = ["tpu_vo_torch.utils.synthetic", "tpu_vo_torch.utils.cv_reference",
+                    "tpu_vo_torch.tools.reference_band", "tpu_vo_torch.tools.run_benchmarks",
+                    "tpu_vo_torch.models.refinement", "tpu_vo_torch.parallel.sharding",
+                    "tpu_vo_torch.geometry.triangulation", "tpu_vo_torch.estimation.five_point"]
+
 
 def test_port_imports_without_jax_or_tpu_vo():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
@@ -87,3 +94,4 @@ def test_port_imports_without_jax_or_tpu_vo():
     assert len(mods) >= 20
     assert set(PROBE_MODULES) <= set(mods)
     assert set(STREAM_MODULES) <= set(mods)
+    assert set(ACCURACY_MODULES) <= set(mods)

@@ -1,6 +1,7 @@
 """Nister 5-point minimal essential-matrix solver in structure-of-arrays
 form (port of tpu_vo/estimation/five_point.py,
-`five_point_candidates_batched` and its `_soa_*` helpers).
+`five_point_candidates_batched` and its `_soa_*` helpers, and the
+per-sample `five_point_candidates`).
 
 Every intermediate carries the sample axis last, (..., small, n):
 
@@ -10,9 +11,10 @@ Every intermediate carries the sample axis last, (..., small, n):
      with static monomial multiplication tables;
   3. Gauss-Jordan elimination with partial pivoting, then the degree-10
      hidden-variable determinant in z;
-  4. its roots by Aberth-Ehrlich simultaneous iteration in complex64 (a
-     Python loop over the whole (pairs x samples) batch) plus Newton
-     polish on the real axis;
+  4. its roots by simultaneous iteration in complex64 (a Python loop over
+     the whole (pairs x samples) batch): Aberth-Ehrlich (the default) or
+     Durand-Kerner (root_method="dk", the reference iteration), plus
+     Newton polish on the real axis;
   5. back-substitution of (x, y) from the null vector of B(z): up to 10
      Frobenius-normalized candidates per sample with a validity mask.
 """
@@ -219,10 +221,18 @@ def _floor_abs(x: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.where(torch.abs(x) > eps, x, torch.full_like(x, eps))
 
 
-def _soa_poly_roots(coeffs: torch.Tensor, iters: int = 24):
-    """Aberth-Ehrlich roots of (..., 11, n) descending coefficients ->
-    (roots (..., 10, n) complex64, lead_ok (..., n)); the polynomial is
-    balanced by z = s*u so its constant term has unit magnitude."""
+def _soa_poly_roots(coeffs: torch.Tensor, iters: int = 24, method: str = "aberth"):
+    """Simultaneous roots of (..., 11, n) descending coefficients ->
+    (roots (..., 10, n) complex, lead_ok (..., n)); the polynomial is
+    balanced by z = s*u so its constant term has unit magnitude.
+
+    method="aberth": Aberth-Ehrlich, Newton steps coupled by the pairwise
+    repulsion term (cubic for simple roots; 24 iterations reach the
+    Durand-Kerner fixed point of 100). method="dk": Durand-Kerner
+    (Weierstrass), p(u_i) / prod_{j != i} (u_i - u_j), the reference
+    iteration. Both cap a step's magnitude at 10."""
+    if method not in ("aberth", "dk"):
+        raise ValueError(f"unknown root method {method!r}")
     deg = coeffs.shape[-2] - 1
     dev = coeffs.device
     lead = coeffs[..., 0, :]
@@ -250,11 +260,13 @@ def _soa_poly_roots(coeffs: torch.Tensor, iters: int = 24):
         return acc
 
     for _ in range(iters):
-        newton = horner(cc, u) / _floor_abs(horner(dcc, u), 1e-30)
         diff = (u[..., :, None, :] - u[..., None, :, :]) * off + eye
-        inv = torch.where(torch.abs(diff) > 1e-30, 1.0 / diff, torch.zeros_like(diff)) * off
-        denom = _floor_abs(1.0 - newton * inv.sum(-2), 1e-30)
-        step = newton / denom
+        if method == "dk":
+            step = horner(cc, u) / _floor_abs(torch.prod(diff, dim=-2), 1e-30)
+        else:
+            newton = horner(cc, u) / _floor_abs(horner(dcc, u), 1e-30)
+            inv = torch.where(torch.abs(diff) > 1e-30, 1.0 / diff, torch.zeros_like(diff)) * off
+            step = newton / _floor_abs(1.0 - newton * inv.sum(-2), 1e-30)
         mag = torch.abs(step)
         step = torch.where(mag > 10.0, step * (10.0 / mag), step)
         u = u - step
@@ -270,10 +282,13 @@ def _soa_polyval(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def five_point_candidates_batched(x1: torch.Tensor, x2: torch.Tensor,
-                                  dk_iters: int = 24):
+                                  dk_iters: int = 24, root_method: str = "aberth"):
     """Batched essential-matrix candidates.
 
     x1, x2: (..., n, 5, 2) normalized camera coordinates, n samples.
+    dk_iters: the root iteration's budget; roots that have not converged
+    fail the backward-error filter and come out invalid (use >= 100 with
+    root_method="dk"). root_method: "aberth" or "dk" (_soa_poly_roots).
     Returns Es (..., n, 10, 3, 3) Frobenius-normalized candidates and
     valid (..., n, 10): slots holding a genuine real-root solution.
     """
@@ -284,7 +299,7 @@ def five_point_candidates_batched(x1: torch.Tensor, x2: torch.Tensor,
     Ared = _soa_gauss_jordan(A)
     Bx, By, B1, p = _soa_action_det(Ared[..., :, 10:, :])
 
-    roots_c, lead_ok = _soa_poly_roots(p, iters=dk_iters)
+    roots_c, lead_ok = _soa_poly_roots(p, iters=dk_iters, method=root_method)
     z_real = roots_c.real.to(dtype)
 
     dcoeffs = p[..., :-1, :] * torch.arange(10, 0, -1, dtype=dtype, device=p.device)[:, None]
@@ -336,3 +351,11 @@ def five_point_candidates_batched(x1: torch.Tensor, x2: torch.Tensor,
 
     Es = Es.movedim(-1, -3).movedim(-1, -2)     # (..., n, 10, 9)
     return Es.reshape(*Es.shape[:-1], 3, 3), valid.movedim(-1, -2)
+
+
+def five_point_candidates(x1: torch.Tensor, x2: torch.Tensor):
+    """Essential-matrix candidates of one sample of 5 normalized
+    correspondences x1, x2 (5, 2): Es (10, 3, 3) Frobenius-normalized and
+    valid (10,), the slots holding a genuine real-root solution."""
+    Es, valid = five_point_candidates_batched(x1[None], x2[None])
+    return Es[0], valid[0]

@@ -10,6 +10,13 @@ from __future__ import annotations
 import torch
 
 
+def intrinsics_from_image_size(width: int, height: int, dtype=torch.float32,
+                               device=None) -> torch.Tensor:
+    """K = [[W, 0, W/2], [0, W, H/2], [0, 0, 1]], the reference's rule."""
+    w, h = float(width), float(height)
+    return intrinsics(w, w, w / 2.0, h / 2.0, dtype=dtype, device=device)
+
+
 def intrinsics(fx, fy, cx, cy, dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.tensor(
         [[fx, 0.0, cx], [0.0, fy, cy], [0.0, 0.0, 1.0]], dtype=dtype,
@@ -39,6 +46,18 @@ def normalize_points(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     return torch.stack([u, v], dim=-1)
 
 
+def denormalize_points(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Normalized camera coords (..., 2) -> pixels."""
+    u = pts[..., 0] * K[..., 0, 0] + K[..., 0, 2]
+    v = pts[..., 1] * K[..., 1, 1] + K[..., 1, 2]
+    return torch.stack([u, v], dim=-1)
+
+
 def homogenize(pts: torch.Tensor) -> torch.Tensor:
     """(..., 2) -> (..., 3) homogeneous with trailing 1."""
     return torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1)
+
+
+def project(pts_c: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Camera-frame 3D points (..., 3) -> pixel coordinates (..., 2)."""
+    return denormalize_points(pts_c[..., :2] / pts_c[..., 2:3], K)

@@ -25,6 +25,23 @@ class Pose(NamedTuple):
         return Pose(R, t)
 
 
+def homogeneous(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Stack (R, t) into a homogeneous (..., 4, 4) transform."""
+    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    R = R.expand(*batch, 3, 3)
+    t = t.expand(*batch, 3)
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(*batch, 1, 4)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def inverse(pose: Pose) -> Pose:
+    """Invert: (R, t) -> (R^T, -R^T t)."""
+    RT = pose.R.transpose(-1, -2)
+    return Pose(RT, -_matvec(RT, pose.t))
+
+
 def _matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (M @ v.unsqueeze(-1)).squeeze(-1)
 
@@ -52,6 +69,11 @@ def cumulative_compose(rel: Pose) -> Pose:
     return Pose(R, t)
 
 
+def transform_points(pose: Pose, pts: torch.Tensor) -> torch.Tensor:
+    """Apply x_w = R x + t to points of shape (..., 3)."""
+    return _matvec(pose.R, pts) + pose.t
+
+
 def invert_relative(R_c2_c1: torch.Tensor, t_c2_c1: torch.Tensor):
     """Invert x_c2 = R x_c1 + t into x_c1 = R^T x_c2 - R^T t."""
     RT = R_c2_c1.transpose(-1, -2)
@@ -75,6 +97,17 @@ def skew(v: torch.Tensor) -> torch.Tensor:
         torch.stack([z, zero, -x], dim=-1),
         torch.stack([-y, x, zero], dim=-1),
     ], dim=-2)
+
+
+def rotation_from_axis_angle(axis: torch.Tensor, angle) -> torch.Tensor:
+    """Rodrigues rotation from unit axis (..., 3) and angle (...,)."""
+    angle = torch.as_tensor(angle, dtype=axis.dtype, device=axis.device)
+    axis = axis / torch.linalg.norm(axis, dim=-1, keepdim=True)
+    K = skew(axis)
+    s = torch.sin(angle)[..., None, None]
+    c = torch.cos(angle)[..., None, None]
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device).expand_as(K)
+    return eye + s * K + (1.0 - c) * (K @ K)
 
 
 def rotation_to_quaternion(R: torch.Tensor) -> torch.Tensor:
@@ -113,3 +146,9 @@ def quaternion_to_rotation(q: torch.Tensor) -> torch.Tensor:
         torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
         torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
     ], -2)
+
+
+def geodesic_rotation_distance(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
+    """Angle (radians) between two rotations."""
+    tr = torch.diagonal(Ra.transpose(-1, -2) @ Rb, dim1=-2, dim2=-1).sum(-1)
+    return torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))

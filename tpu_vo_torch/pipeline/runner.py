@@ -113,6 +113,37 @@ def run_sequence_scan(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
     return _cat(outs, torch.stack)
 
 
+def detect_frames(frames: torch.Tensor, cfg: VOConfig,
+                  frame_chunk: Optional[int] = None) -> ORBFeatures:
+    """Stage 1: ORB features of (n, H, W) frames, `frame_chunk` frames
+    per launch of each kernel (all at once when None)."""
+    return _cat([detect_and_compute(frames[a:e], cfg.orb)
+                 for a, e in _spans(frames.shape[0], frame_chunk)])
+
+
+def estimate_pairs(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig, generators,
+                   pair_chunk: Optional[int] = None) -> dict:
+    """Stage 2: `estimate_pair` over P pairs (leading dim P), `pair_chunk`
+    pairs at a time, pair i drawing from generators[i]."""
+    return _cat([estimate_pair(ORBFeatures(*(f[a:e] for f in prev)),
+                               ORBFeatures(*(f[a:e] for f in cur)), cfg,
+                               generators=generators[a:e])
+                 for a, e in _spans(prev.xy.shape[0], pair_chunk)])
+
+
+def diagnostics(est: dict) -> dict:
+    """The runners' per-pair diagnostics from estimate_pair's output."""
+    return {
+        "num_keypoints": est["n_keypoints"],
+        "num_matches": est["n_good"],
+        "num_inliers": est["n_inliers"],
+        "num_valid_points": est["n_valid_points"],
+        "pose_ok": est["pose_ok"],
+        "epipolar_residual": est["mean_residual"],
+        "F": est["F"],
+    }
+
+
 def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
                          device=None, frame_chunk: Optional[int] = None,
                          pair_chunk: Optional[int] = None):
@@ -126,24 +157,10 @@ def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
     _check_chunks(frame_chunk, pair_chunk)
     frames = frames.to(entry_device(device))
     T = frames.shape[0]
-    feats = _cat([detect_and_compute(frames[a:e], cfg.orb)
-                  for a, e in _spans(T, frame_chunk)])
-    prev = ORBFeatures(*(f[:-1] for f in feats))
-    cur = ORBFeatures(*(f[1:] for f in feats))
-    gens = pair_generators(seed, range(1, T))
-    est = _cat([estimate_pair(ORBFeatures(*(f[a:e] for f in prev)),
-                              ORBFeatures(*(f[a:e] for f in cur)), cfg,
-                              generators=gens[a:e])
-                for a, e in _spans(T - 1, pair_chunk)])
+    feats = detect_frames(frames, cfg, frame_chunk)
+    est = estimate_pairs(ORBFeatures(*(f[:-1] for f in feats)),
+                         ORBFeatures(*(f[1:] for f in feats)), cfg,
+                         pair_generators(seed, range(1, T)), pair_chunk)
     poses = chain_relative_poses(est["R"], est["t"], est["have_rt"],
                                  est["pose_ok"], cfg)
-    diags = {
-        "num_keypoints": est["n_keypoints"],
-        "num_matches": est["n_good"],
-        "num_inliers": est["n_inliers"],
-        "num_valid_points": est["n_valid_points"],
-        "pose_ok": est["pose_ok"],
-        "epipolar_residual": est["mean_residual"],
-        "F": est["F"],
-    }
-    return poses, diags
+    return poses, diagnostics(est)
