@@ -5,9 +5,13 @@
 Phases, in order; any failure raises and the exit code is non-zero:
 
   1. require a CUDA device; print the card's name and power limit;
-  2. build the CUDA kernels from tpu_vo_torch/csrc (nvcc, sm_90a), and
-     count the tensor-core instructions (HMMA) of P2's phase_mxu_kernel
-     in the library's SASS (cuobjdump); none fails the run;
+  2. build the CUDA kernels from tpu_vo_torch/csrc (nvcc, sm_90a) and,
+     beside them, the native image loader (g++, io/native_loader) after
+     asking the host compiler for png.h and jpeglib.h: where both are
+     there it must build, where not one line names what is missing and
+     the Python decoder runs in its place; count the tensor-core
+     instructions (HMMA) of P2's phase_mxu_kernel in the library's SASS
+     (cuobjdump); none fails the run;
   3. compare each kernel with its plain PyTorch version on the card:
      select_maps_levels (B1, one launch for all levels) on the 8 pyramid
      levels of the main path's 32 1241x376 frames, of 8 frames of
@@ -46,6 +50,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and poses/00.txt, run by tpu_vo_torch.cli.main on the card, counters
      reset just before; check that B1 and B2 launched once per frame, the
      three trajectory files hold 24 poses and an ATE figure was printed;
+     it prints which decoder the CLI ran;
+  4e. the ingest path: make_sequence(64, 1241, 376, seed=0) written as
+     Paeth PNG files; NativeDataset's frames equal them bit for bit and
+     in order, and a packed .vobin reads them back; PrefetchLoader(device=
+     "cuda") yields them on the card, equal and in order, through the
+     native decoder; run_sequence_streamed over the native loader's
+     64-frame chunks and over 16-frame host chunks, counters reset just
+     before each, launches
+     B1 and B2 8 times per 64 frames and matches run_sequence_batched
+     (frame_chunk 8, pair_chunk 9) on the card: pose_ok equal, world
+     positions within 1e-4; B1 and B2 against their plain versions bit
+     for bit on each 8-frame chunk's (8, 376, 1241) pyramid and 1200
+     keypoints; then tools/io_bench's rows. Where phase 2 found no png.h
+     or jpeglib.h, the native checks are left out and the Python decoder
+     takes the native loader's place;
   5. drive the FAST-detect path at full width: the stage benchmark's
      ablation (tpu_vo_torch.tools.stage_bench) on 8 frames of 1241x376,
      counters reset just before; check that B3 launched exactly 4 times
@@ -146,7 +165,9 @@ from tpu_vo_torch.features import brief, fast, orb, orientation, patches  # noqa
 from tpu_vo_torch.features.fast import _border_mask as fast_border  # noqa: E402
 from tpu_vo_torch.image.filters import gaussian_blur  # noqa: E402
 from tpu_vo_torch.image.pyramid import build_pyramid  # noqa: E402
-from tpu_vo_torch.io.dataset import load_frame, write_png  # noqa: E402
+from tpu_vo_torch.io import native_loader  # noqa: E402
+from tpu_vo_torch.io.dataset import list_image_paths, load_frame, write_png  # noqa: E402
+from tpu_vo_torch.io.loader import PrefetchLoader  # noqa: E402
 from tpu_vo_torch.io.kitti import load_kitti_poses  # noqa: E402
 from tpu_vo_torch.io.trajectory_io import load_trajectory_tum  # noqa: E402
 from tpu_vo_torch.ops import _build  # noqa: E402
@@ -161,8 +182,8 @@ from tpu_vo_torch.ops.select import (compass_candidates, select_maps,  # noqa: E
 from tpu_vo_torch.models.refinement import refine_window  # noqa: E402
 from tpu_vo_torch.parallel.sharding import run_batch_of_sequences  # noqa: E402
 from tpu_vo_torch.pipeline import runner, step  # noqa: E402
-from tpu_vo_torch.tools import (patch_slots_probe, reference_band, run_benchmarks,  # noqa: E402
-                                stage_bench)
+from tpu_vo_torch.tools import (io_bench, patch_slots_probe, reference_band,  # noqa: E402
+                                run_benchmarks, stage_bench)
 from tpu_vo_torch.tools.device_time import device_time_ms  # noqa: E402
 from tpu_vo_torch.utils.profiling import card as _card, cuda_times  # noqa: E402
 from tpu_vo_torch.utils import synthetic  # noqa: E402
@@ -198,6 +219,13 @@ OPTIONS = {"ratio test": {"match": MatchConfig(use_ratio_test=True)},
            "8-point samples": {"ransac": RansacConfig(use_five_point=False)},
            "min_valid_fraction 0.5": {"ransac": RansacConfig(min_valid_fraction=0.5)}}
 CLI_T = 24            # frames of the CLI phase
+# The ingest phase (4e): bench.py's 64 frames, written as Paeth PNG files;
+# the streamed runner over the native loader's chunks of 64 (bench.py's
+# e2e leg) and over io_bench's host chunks of 16, against the batched
+# runner at bench.py's frame_chunk 8 and pair_chunk 9
+INGEST_T, INGEST_HOST_CHUNK = 64, 16
+INGEST_FRAME_CHUNK, INGEST_PAIR_CHUNK = 8, 9
+PAETH = 4
 STREAM_PROFILE_T = 8  # streamed frames per profiled run
 # The streaming path against the batched one on the same 32 frames: each
 # pair draws the same samples; the world positions differ by the order of
@@ -525,7 +553,8 @@ def _cli_phase(frames_np, Rs, ts, K, kernels, card):
         kitti_R, _ = load_kitti_poses(os.path.join(out_dir, "trajectory_kitti.txt"))
         with np.load(os.path.join(out_dir, "trajectory.npz")) as z:
             n_npz = len(z["t"])
-    lines = [ln.strip() for ln in text.splitlines() if "ate_rmse=" in ln or "Throughput" in ln]
+    lines = [ln.strip() for ln in text.splitlines()
+             if "ate_rmse=" in ln or "Throughput" in ln or ln.startswith("Decoder:")]
     print(f"CLI over a KITTI tree of {n} PNG frames: exit {rc}, {cli_s:.3f} s in all, "
           f"launches {cli_launches}, poses in the TUM/KITTI/npz files {len(stamps)}/"
           f"{len(kitti_R)}/{n_npz}; {' | '.join(lines)}; PNG decode of one {K[0, 2] * 2:.0f}x{K[1, 2] * 2:.0f} "
@@ -533,9 +562,113 @@ def _cli_phase(frames_np, Rs, ts, K, kernels, card):
           f"Paeth [{card}]", flush=True)
     if (rc != 0 or (len(stamps), len(kitti_R), n_npz) != (n,) * 3
             or not any("ate_rmse=" in ln for ln in lines)
+            or not any(ln.startswith("Decoder:") for ln in lines)
             or cli_launches["select_maps"] != n or cli_launches["extract_patches"] != n):
         raise AssertionError("the CLI run failed its checks")
     return cli_launches
+
+
+def _native_build():
+    """Phase 2's half for the native loader: where the host compiler finds
+    png.h and jpeglib.h, build it (a failed build raises with g++'s
+    output) and return None; else print one line with the compiler's
+    message and return it."""
+    missing = native_loader.missing_headers()
+    if missing:
+        print(f"native loader: png.h or jpeglib.h missing on this host, so it is not built "
+              f"and the Python decoder runs: {' '.join(missing.split())}", flush=True)
+        return missing
+    t0 = time.perf_counter()
+    native_loader.get_lib()
+    print(f"native loader: built in {time.perf_counter() - t0:.2f} s (g++, beside nvcc) -> "
+          f"{native_loader.library_path()}", flush=True)
+    return None
+
+
+def _ingest_phase(cfg, missing, kernels, card):
+    """The ingest path on bench.py's 64 frames as Paeth PNG files: the
+    native loader's decode and pack (unless `missing` headers), PrefetchLoader
+    onto the card, the streamed runner (counted) against the batched one,
+    B1 and B2 at the streamed chunks' shapes, then io_bench. Returns
+    {path: launches}."""
+    arr = np.stack(make_sequence(n_frames=INGEST_T, width=W, height=H, seed=0)[0])
+    frames = torch.from_numpy(arr).cuda()
+    runs = {}
+    with tempfile.TemporaryDirectory() as d:
+        for i, f in enumerate(arr):
+            write_png(os.path.join(d, f"{i:06d}.png"), f, filter_type=PAETH)
+        paths = list_image_paths(d)
+        if not missing:
+            with native_loader.NativeDataset(d, n_threads=4, depth=8) as ds:
+                got = list(ds)
+            if [i for i, _ in got] != list(range(INGEST_T)) or not np.array_equal(
+                    np.stack([f for _, f in got]), arr):
+                raise AssertionError("NativeDataset's frames differ from the written ones")
+            pack = os.path.join(d, "seq.vobin")
+            n = native_loader.pack_dataset(d, pack)
+            with native_loader.PackedSequence(pack) as ps:
+                if n != INGEST_T or not np.array_equal(ps.read(), arr):
+                    raise AssertionError("the packed sequence does not read back its frames")
+            print(f"ingest: NativeDataset == the {INGEST_T} written Paeth frames, in order; "
+                  f"the .vobin pack reads them back", flush=True)
+        loader = PrefetchLoader(paths, device="cuda")
+        want = "python" if missing else "native"
+        got = [(i, t) for i, _, t in loader]
+        if (loader.decoder != want or [i for i, _ in got] != list(range(INGEST_T))
+                or any(t.device != frames.device for _, t in got)
+                or not torch.equal(torch.stack([t for _, t in got]), frames)):
+            raise AssertionError(f"PrefetchLoader ({loader.decoder} decoder) did not yield the "
+                                 f"frames on the card, equal and in order")
+        print(f"ingest: PrefetchLoader(device='cuda') yields the {INGEST_T} frames on the card, "
+              f"equal and in order; decoder {loader.decoder}", flush=True)
+        del got
+        poses, diags = runner.run_sequence_batched(frames, cfg, seed=0,
+                                                   frame_chunk=INGEST_FRAME_CHUNK,
+                                                   pair_chunk=INGEST_PAIR_CHUNK)
+
+        def native_chunks():
+            with native_loader.NativeDataset(d, n_threads=io_bench.E2E_THREADS,
+                                             depth=io_bench.DECODE_DEPTH) as ds:
+                yield from io_bench.chunks_of(ds, INGEST_T)
+
+        def python_chunks():
+            yield from io_bench.chunks_of(((i, load_frame(p)) for i, p in enumerate(paths)),
+                                           INGEST_T)
+
+        chunked = {f"{want} decoder's {INGEST_T}-frame chunks": (
+                       python_chunks if missing else native_chunks),
+                   f"{INGEST_HOST_CHUNK}-frame host chunks": lambda: (
+                       arr[i:i + INGEST_HOST_CHUNK] for i in range(0, INGEST_T, INGEST_HOST_CHUNK))}
+        for name, chunks in chunked.items():
+            _reset(kernels)
+            t0 = time.perf_counter()
+            sp, sd = runner.run_sequence_streamed(chunks(), cfg, seed=0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[name] = {n: k.launches for n, k in kernels.items()}
+            same_ok = bool(torch.equal(sd["pose_ok"], diags["pose_ok"]))
+            pos_diff = float((sp.t - poses.t).abs().max())
+            print(f"ingest: run_sequence_streamed over the {name}: {wall:.3f} s host wall for "
+                  f"{INGEST_T} frames (first run of this path), launches {runs[name]}; against "
+                  f"run_sequence_batched (frame_chunk {INGEST_FRAME_CHUNK}, pair_chunk "
+                  f"{INGEST_PAIR_CHUNK}): pose_ok equal {same_ok} (mean "
+                  f"{float(sd['pose_ok'].float().mean()):.3f}), positions differ by at most "
+                  f"{pos_diff:.3e} (bar {MAX_STREAM_POS_DIFF}) [{card}]", flush=True)
+            want_n = INGEST_T // runner.STREAM_FRAME_CHUNK
+            if runs[name]["select_maps"] != want_n or runs[name]["extract_patches"] != want_n:
+                raise AssertionError(f"the streamed path over the {name} did not launch B1 and "
+                                     f"B2 {want_n} times: {runs[name]}")
+            if not same_ok or not pos_diff <= MAX_STREAM_POS_DIFF:
+                raise AssertionError(f"the streamed path over the {name} disagrees with the "
+                                     f"batched runner")
+    for a in range(0, INGEST_T, runner.STREAM_FRAME_CHUNK):
+        _hold_b1_b2(f"streamed path, frames {a}-{a + runner.STREAM_FRAME_CHUNK - 1}",
+                    frames[a:a + runner.STREAM_FRAME_CHUNK], cfg.orb, card)
+    del frames
+    t0 = time.perf_counter()
+    io_bench.main([])  # prints its rows, tagged with the card
+    print(f"io_bench: {time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
 
 
 def _busy_ms(intervals) -> float:
@@ -765,9 +898,12 @@ def main() -> int:
 
 def _run(card, dev, pool) -> int:
 
-    # 2. build
+    # 2. build: the kernels (nvcc) and, beside them, the native loader (g++)
     t0 = time.perf_counter()
-    _build.library()
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        native = ex.submit(_native_build)
+        _build.library()
+        native_missing = native.result()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BuildInfo.seconds:.2f} s) "
           f"-> {_build.BuildInfo.path}", flush=True)
     print(_build.BuildInfo.log.strip(), flush=True)
@@ -921,6 +1057,12 @@ def _run(card, dev, pool) -> int:
     # 4d. the CLI over a KITTI tree of PNG frames, counted
     cli_counts = _cli_phase(frames_np[:CLI_T], Rs_gt[:CLI_T], ts_gt[:CLI_T], K_gt, kernels, card)
 
+    # 4e. the ingest path: native decode, PrefetchLoader, the streamed
+    # runner (counted), io_bench
+    t0 = time.perf_counter()
+    ingest_counts = _ingest_phase(cfg, native_missing, kernels, card)
+    print(f"phase ingest: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 5. the FAST-detect path at full width, counted: the stage
     # benchmark's ablation on 8 frames (B3 in +fast ... +orientation, B1
     # and B2 in full), then dense against patch descriptors
@@ -1012,7 +1154,9 @@ def _run(card, dev, pool) -> int:
     # 5c-5e. the accuracy path, counted: parity with the reference, config
     # 5's window refinement, config 4's batch of sequences
     path_launches = {"main": launches, "streaming (32 frames)": stream_counts,
-                     "CLI (24 frames)": cli_counts}
+                     "CLI (24 frames)": cli_counts,
+                     **{f"streamed, {k} ({INGEST_T} frames)": c
+                        for k, c in ingest_counts.items()}}
     for name, phase in (("parity (2 legs x 5 seeds)", _parity_phase),
                         ("config 5", _config5_phase), ("config 4", _config4_phase)):
         t0 = time.perf_counter()

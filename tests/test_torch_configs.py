@@ -85,6 +85,12 @@ ACCURACY_MODULES = ["tpu_vo_torch.utils.synthetic", "tpu_vo_torch.utils.cv_refer
                     "tpu_vo_torch.models.refinement", "tpu_vo_torch.parallel.sharding",
                     "tpu_vo_torch.geometry.triangulation", "tpu_vo_torch.estimation.five_point"]
 
+# The ingest path's modules, which replace tpu_vo modules that import jax
+# (io/loader, pipeline/runner) or sit in a package that does (io/)
+INGEST_MODULES = ["tpu_vo_torch.io", "tpu_vo_torch.io.native_loader", "tpu_vo_torch.io.loader",
+                  "tpu_vo_torch.pipeline.upload", "tpu_vo_torch.pipeline.runner",
+                  "tpu_vo_torch.tools.io_bench"]
+
 
 def test_port_imports_without_jax_or_tpu_vo():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
@@ -95,3 +101,4 @@ def test_port_imports_without_jax_or_tpu_vo():
     assert set(PROBE_MODULES) <= set(mods)
     assert set(STREAM_MODULES) <= set(mods)
     assert set(ACCURACY_MODULES) <= set(mods)
+    assert set(INGEST_MODULES) <= set(mods)

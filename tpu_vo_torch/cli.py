@@ -14,8 +14,12 @@ Usage: python -m tpu_vo_torch.cli [dataset_dir] --no-viewer [options]
   - after the loop, TUM, KITTI and npz trajectories, and the ATE report
     against ground truth (--gt, or the KITTI tree's).
 
-It runs on the card unless given --device cpu. Frames decode with the
-port's PNG reader (io/dataset.load_frame). The 3D trajectory viewer,
+It runs on the card unless given --device cpu. Frames come through
+io/loader.PrefetchLoader, decoded and uploaded ahead of use: on the native
+loader's threads (libpng, libjpeg; PNG and JPEG) when the paths are a
+whole directory, else (--max-frames, --resume, or a native build that
+failed) by the port's PNG reader (io/dataset.load_frame); it prints which,
+and the compiler's error where the native build failed. The 3D trajectory viewer,
 --show and the trajectory screenshots need viz/, which is not ported
 yet: the CLI refuses to run without --no-viewer, or with --show.
 """
@@ -23,6 +27,7 @@ yet: the CLI refuses to run without --no-viewer, or with --show.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import sys
 import time
@@ -32,13 +37,10 @@ import torch
 
 from tpu_vo_torch.configs import MatchConfig, ORBConfig, RansacConfig, VOConfig
 from tpu_vo_torch.geometry.se3 import Pose
-from tpu_vo_torch.io.dataset import (
-    autodetect_dataset,
-    list_image_paths,
-    load_frame,
-    parse_timestamp,
-)
+from tpu_vo_torch.io import native_loader
+from tpu_vo_torch.io.dataset import autodetect_dataset, list_image_paths, parse_timestamp
 from tpu_vo_torch.io.kitti import is_kitti_sequence, open_kitti_sequence
+from tpu_vo_torch.io.loader import PrefetchLoader
 from tpu_vo_torch.io.trajectory_io import (
     load_checkpoint,
     save_checkpoint,
@@ -159,17 +161,8 @@ def main(argv=None) -> int:
     if args.max_frames:
         paths = paths[: args.max_frames]
 
-    first = load_frame(paths[0])
-    height, width = first.shape
-    print(f"Image dimensions: {width} x {height}")
-
-    cfg = build_config(args, width, height, intrinsics=calib)
-    print("Camera matrix initialized"
-          + (" (calibrated):" if calib else " (fx=fy=W guess):"))
-    fx, fy, cx, cy = cfg.intrinsics
-    print(np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]]))
-
     start = 0
+    state = None
     if args.resume:
         state = load_checkpoint(args.resume, device)
         # Frames [0, frame_idx) were already consumed by the checkpointed
@@ -177,7 +170,28 @@ def main(argv=None) -> int:
         start = min(state.frame_idx, len(paths))
         print(f"Resumed from {args.resume} at frame {start} "
               f"(skipping {start} processed frames)")
+
+    loader = PrefetchLoader(paths[start:], device=device)
+    failed = native_loader.unavailable_reason()
+    if failed:
+        error = next((ln for ln in failed.splitlines() if "error" in ln), failed.strip())
+        print(f"Decoder: {loader.decoder} (native loader unavailable: {error.strip()})")
     else:
+        print(f"Decoder: {loader.decoder}")
+    frames = iter(loader)
+    first = next(frames, None)
+    if first is None:
+        print("No frames processed; nothing to save.")
+        return 0
+    height, width = first[2].shape
+    print(f"Image dimensions: {width} x {height}")
+
+    cfg = build_config(args, width, height, intrinsics=calib)
+    print("Camera matrix initialized"
+          + (" (calibrated):" if calib else " (fx=fy=W guess):"))
+    fx, fy, cx, cy = cfg.intrinsics
+    print(np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]]))
+    if state is None:
         state = initial_state(cfg, device=device)
 
     out_dir = args.out_dir or dataset
@@ -187,9 +201,8 @@ def main(argv=None) -> int:
     print(f"\nProcessing {n_total - start} frames...")
     print("=" * 40)
     t_start = time.time()
-    for i in range(start, n_total):
-        path = paths[i]
-        frame = torch.from_numpy(first if i == 0 else load_frame(path)).to(device)
+    for j, path, frame in itertools.chain([first], frames):
+        i = start + j
         ts = (float(kitti_times[i]) if kitti_times is not None
               and i < len(kitti_times) else parse_timestamp(path, i))
         print(f"\n--- Frame {i + 1}/{n_total} ---")

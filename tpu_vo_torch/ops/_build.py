@@ -5,18 +5,23 @@ processes, and links the objects into a library with a plain C
 interface, loaded with ctypes. The build runs on first use (never at
 import) into tpu_vo_torch/_build/, named by a hash of the sources and
 flags so that an edited source is rebuilt.
+
+`build_once` makes such a file race-free; the native image loader
+(io/native_loader) builds through it too.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+from typing import Callable
 
 import torch
 
@@ -68,32 +73,56 @@ class BuildInfo:
     log = ""
 
 
+def build_once(path: str, build: Callable[[str], None]) -> bool:
+    """Make `path` with build(tmp) unless it exists; True if this call
+    built it. Under an exclusive flock on `path + ".lock"`, build(tmp)
+    writes a file of this process's own (`<path>.<pid>.tmp`), which
+    os.replace then moves into place: processes that need `path` at the
+    same moment build it once, and none loads a half-written file. An
+    exception of build(tmp) propagates, and the next caller tries again."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(path):
+            return False
+        tmp = f"{path}.{os.getpid()}.tmp"
+        try:
+            build(tmp)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return True
+
+
+def _nvcc_build(tmp: str) -> None:
+    """Compile each of SOURCES in parallel and link them into tmp."""
+    nvcc = _nvcc()
+    objs = [f"{tmp}.{s}.o" for s in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    BuildInfo.log = "".join(logs)
+    try:
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{BuildInfo.log}")
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its sources changed."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
     path = os.path.join(BUILD_DIR, f"libtpu_vo_kernels_{_digest()}.so")
     t0 = time.perf_counter()
-    if not os.path.exists(path):
-        nvcc, tmp = _nvcc(), f"{path}.{os.getpid()}.tmp"
-        objs = [f"{tmp}.{s}.o" for s in SOURCES]
-        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o,
-                                   os.path.join(CSRC, s)],
-                                  stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(SOURCES, objs)]
-        logs = [p.communicate()[0] for p in procs]
-        BuildInfo.log = "".join(logs)
-        if any(p.returncode != 0 for p in procs):
-            raise RuntimeError(f"nvcc failed:\n{BuildInfo.log}")
-        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp,
-                               *objs], capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}"
-                               f"{link.stderr}")
-        for o in objs:
-            os.remove(o)
-        os.replace(tmp, path)
+    if build_once(path, _nvcc_build):
         BuildInfo.seconds = time.perf_counter() - t0
     BuildInfo.path = path
     lib = ctypes.CDLL(path)

@@ -14,11 +14,18 @@ per frame.
 
 The chunks bound peak memory, as the JAX runner's `_chunked_map` does:
 stage 1 holds every frame's windows and their blur temporaries at once.
+
+`run_sequence_streamed`, the IO-overlapped runner: chunks of frames from
+an iterator (the native loader's ring, a packed file), uploaded ahead by
+a background thread (pipeline/upload: pinned ring, side stream), each
+chunk's features and pairs run as the batched runner's stages, the last
+frame's features carried to the next chunk.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Iterable, Optional
 
 import torch
 
@@ -33,6 +40,13 @@ from tpu_vo_torch.pipeline.step import (
     pair_generators,
     vo_step,
 )
+from tpu_vo_torch.pipeline.upload import upload_ahead
+
+# Frames per stage-1 launch and pairs per stage-2 call of a streamed
+# chunk whose length they divide (else the whole chunk at once), as
+# tpu_vo's `_streamed_step_fn` defaults
+STREAM_FRAME_CHUNK = 8
+STREAM_PAIR_CHUNK = 8
 
 
 def chain_relative_poses(R: torch.Tensor, t: torch.Tensor, have_rt: torch.Tensor,
@@ -163,4 +177,54 @@ def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
                          pair_generators(seed, range(1, T)), pair_chunk)
     poses = chain_relative_poses(est["R"], est["t"], est["have_rt"],
                                  est["pose_ok"], cfg)
+    return poses, diagnostics(est)
+
+
+@functools.lru_cache(maxsize=None)
+def _empty_features(cfg: VOConfig, device: torch.device) -> ORBFeatures:
+    """The all-invalid features of initial_state, as a batch of one on
+    `device`: the carry before the first frame. Cached per device."""
+    return ORBFeatures(*(f[None] for f in initial_state(cfg, device=device).prev))
+
+
+def _streamed_step(carry: ORBFeatures, chunk: torch.Tensor, cfg: VOConfig, seed: int,
+                   offset: int):
+    """One chunk of n frames, the first at global index `offset`: its
+    features, then its n pairs (the carried features against the first
+    frame, then frame to frame), pair j drawing from the generator of
+    global pair offset + j. Returns (the last frame's features, the pairs'
+    estimates)."""
+    n = chunk.shape[0]
+    fc = STREAM_FRAME_CHUNK if n % STREAM_FRAME_CHUNK == 0 else None
+    pc = STREAM_PAIR_CHUNK if n % STREAM_PAIR_CHUNK == 0 else None
+    feats = detect_frames(chunk, cfg, fc)
+    prev = ORBFeatures(*(torch.cat([c, f[:-1]], 0) for c, f in zip(carry, feats)))
+    est = estimate_pairs(prev, feats, cfg, pair_generators(seed, range(offset, offset + n)), pc)
+    return ORBFeatures(*(f[-1:] for f in feats)), est
+
+
+def run_sequence_streamed(chunks: Iterable, cfg: VOConfig, chunk_size: int = 0, seed: int = 0,
+                          prefetch_depth: int = 2, device=None):
+    """VO over an iterator of (n, H, W) uint8 frame chunks (numpy arrays
+    or CPU tensors; n may vary), on `device` (the card when None; see
+    entry_device). A background thread uploads up to `prefetch_depth`
+    chunks ahead while the caller's stream computes. Each chunk runs
+    `_streamed_step`; the first chunk's first pair is frame 0 against the
+    all-invalid empty features, and is dropped. An error raised by the
+    iterator reaches the caller; an empty iterator raises ValueError.
+    `chunk_size` is unused: each chunk's length is its own. Returns
+    (poses, diagnostics) as run_sequence_batched does on the
+    concatenated frames, each pair drawing the same samples."""
+    del chunk_size
+    dev = entry_device(device)
+    carry = _empty_features(cfg, dev)
+    ests, offset = [], 0
+    for _, chunk in upload_ahead(((None, c) for c in chunks), dev, prefetch_depth):
+        carry, est = _streamed_step(carry, chunk, cfg, seed, offset)
+        ests.append(est)
+        offset += chunk.shape[0]
+    if not ests:
+        raise ValueError("run_sequence_streamed: empty chunk iterator")
+    est = {k: v[1:] for k, v in _cat(ests).items() if k != "stats"}  # drop the first pair
+    poses = chain_relative_poses(est["R"], est["t"], est["have_rt"], est["pose_ok"], cfg)
     return poses, diagnostics(est)
