@@ -86,8 +86,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
   5c. parity with the OpenCV reference (the accuracy path): render the
      card's two legs of tpu_vo_torch/data/reference_trajectories.json
      (the corridor at 640x480 and 1241x376, T 24, seed 3; rendered on
-     the host in worker processes started after the build, and waited
-     for before phase 4b, so that no timed phase runs beside them),
+     the host in worker processes started after the build, with the
+     scenes of 5d-5g, and waited for before phase 4b, so that no timed
+     phase runs beside them; it prints each scene's render seconds),
      require their sha256 to equal the file's, then run_sequence_batched
      with VOConfig.reference_parity() on 5 RANSAC seeds each, counters
      reset just before; every seed's aligned ATE over the extent must
@@ -112,6 +113,29 @@ Phases, in order; any failure raises and the exit code is non-zero:
      within 1e-4 of, run_sequence_batched on the card with the same
      chunks; B1 and B2 against their plain versions bit for bit on each
      8-frame chunk's pyramid and keypoints;
+  5f. config 3: the corridor at 3840x2160, 8000 keypoints, the ratio
+     test, 8 frames (rendered by frame ranges in the workers), its sha256
+     equal to the committed `config3` leg's; run_sequence_batched with
+     frame_chunk 2 and pair_chunk 7, counters reset just before (4
+     launches each of B1 and B2); finite poses, pose_ok >= 0.7, the
+     aligned ATE over the extent within max(band, 0.01) of the leg; B1
+     and B2 against their plain versions bit for bit on the first
+     chunk's 8 levels from (2, 2160, 3840) (23-bit keys) with the 8000
+     keypoints ranked from B1's maps; then tools/run_benchmarks' config
+     3 line (ms a run, frames/s, peak device memory), stage 1, stage 2
+     and its ratio-test Hamming step's share by CUDA events, and B1's
+     and B2's times and bounds at these shapes;
+  5g. config 7: the five dynamic corridors of utils/synthetic
+     (640x480, T 48, 1200 keypoints), each sha256 equal to its leg's;
+     run_sequence_batched with frame_chunk 8 and pair_chunk 47 on each,
+     counters reset just before (6 launches each of B1 and B2 a run); B1
+     and B2 bit for bit on the first scene's first chunk; then
+     tools/run_benchmarks' config 7 lines: each scene's ATE and RPE
+     against ground truth beside the reference's (from the committed
+     leg); the median on-object inlier share must be at most 0.15 on
+     obj_light and obj_mid, the occluders' ATE over the extent below
+     0.05 with every pair pose_ok, and every scene's poses finite
+     (obj_heavy and low_texture are reported, not gated);
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
@@ -134,7 +158,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
 The line before the last is a JSON object with the kernels' names,
 sources, launch counts, errors, times and bounds (B1's and B2's also
-with their launches on each path, `launches_by_path`); the last line is
+with their launches on each path, `launches_by_path`, and their times
+and bounds at config 3's shapes, `at_config3`); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -170,6 +195,7 @@ from tpu_vo_torch.io.dataset import list_image_paths, load_frame, write_png  # n
 from tpu_vo_torch.io.loader import PrefetchLoader  # noqa: E402
 from tpu_vo_torch.io.kitti import load_kitti_poses  # noqa: E402
 from tpu_vo_torch.io.trajectory_io import load_trajectory_tum  # noqa: E402
+from tpu_vo_torch.matching.hamming import ratio_test_match  # noqa: E402
 from tpu_vo_torch.ops import _build  # noqa: E402
 from tpu_vo_torch.ops import fast as fast_ops, patch_probe  # noqa: E402
 from tpu_vo_torch.ops.fast import (fast_margin, fast_margin_levels,  # noqa: E402
@@ -251,7 +277,11 @@ C4_B, C4_T = 4, 16    # the cut: the benchmark has 8 sequences of 64 frames
 # each frame chunk and each pair chunk within one sequence, so that a
 # sequence's own run makes the same launches on the same inputs
 C4_FRAME_CHUNK = run_benchmarks.FRAME_CHUNK
-RENDER_WORKERS = 3
+RENDER_WORKERS = 6
+# config 7's object scenes whose median on-object inlier share must be at
+# most 0.15 (tests/test_dynamic_scenes.py's bar); obj_heavy crosses the
+# consensus majority by design and is reported, not gated
+C7_EXCLUDED = ("obj_light", "obj_mid")
 # refine_window on the card against the CPU on the same inputs, in float32
 # (the pipeline's) and in float64 (where the LM's accept decisions do not
 # turn on the last bits)
@@ -328,6 +358,32 @@ def _window_pixels(levels, kps) -> int:
     return total
 
 
+def _select_bound(levels, thr: int, border: int):
+    """B1's bound on these levels: ((ms, what bounds it), bytes,
+    lane-instructions, pixels inside the border, compass candidates among
+    them). Bytes: each level read once, its Harris map and packed keys
+    written once; lane-instructions: SELECT_OPS per pixel inside the
+    border and SELECT_ARC_OPS per compass candidate, from these levels."""
+    dev = levels[0].device
+    inner = [fast_border(lv.shape[-2], lv.shape[-1], border, dev) for lv in levels]
+    n_inner = sum(lv.shape[0] * int(m.sum()) for lv, m in zip(levels, inner))
+    n_cand = sum(int((compass_candidates(lv, thr) & m).sum()) for lv, m in zip(levels, inner))
+    nbytes = sum(b * (8 * h * w + 4 * ((h + 1) // 2) * (w + w % 2))
+                 for b, h, w in (lv.shape for lv in levels))
+    instr = SELECT_OPS * n_inner + SELECT_ARC_OPS * n_cand
+    bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+                (instr / LANE_INSTR_PER_S * 1e3, "operations"))
+    return bound, nbytes, instr, n_inner, n_cand
+
+
+def _patch_bound(levels, kp):
+    """B2's bound: the pixels its windows cover, read once, and per slot
+    its keypoint in and its 43x43 f32 window out, over the HBM rate."""
+    return _bound(4 * _window_pixels(levels, kp)
+                  + sum(ys.shape[0] * ys.shape[1] * (8 + 4 * RAW_SIZE * RAW_SIZE)
+                        for ys, _ in kp), 0)
+
+
 def _library_gather(levels, windows):
     """(flat, idx) such that flat[idx], one aten::index call, is the
     windows: the levels' pixels flattened, with a 0 after them; windows,
@@ -400,7 +456,8 @@ def _hold_b1_b2(label, frames, ocfg, card):
     """B1 and B2 against their plain versions bit for bit at a path's own
     shapes: the pyramid of `frames` (one stage-1 launch's) and the
     keypoints that detect_and_compute ranks from B1's maps under `ocfg`.
-    Counted launches go to the counters: call it outside a counted run."""
+    Counted launches go to the counters: call it outside a counted run.
+    Returns (levels, ys, xs, slot offsets with the total last)."""
     budgets = orb.features_per_level(ocfg.n_features, ocfg.n_levels, ocfg.scale_factor)
     used = [(lv.contiguous(), n) for lv, n in zip(
         build_pyramid(frames, ocfg.n_levels, ocfg.scale_factor), budgets) if n > 0]
@@ -431,6 +488,7 @@ def _hold_b1_b2(label, frames, ocfg, card):
     print(f"{label}: select_maps_levels == plain at {[tuple(lv.shape) for lv in levels]}, "
           f"border {brd}; extract_patches_levels == plain on {ys.numel()} slots "
           f"({starts[-1]} a frame) [{card}]", flush=True)
+    return levels, ys, xs, starts
 
 
 def _card_vs_cpu(label, frames, Rs_gt, cfg):
@@ -725,17 +783,25 @@ def _profile(name, fn, card, rows=0):
 
 
 def _start_renders(pool):
-    """Submit the accuracy path's scenes to `pool`: {key: future of
-    (frames, Rs, ts, K)}, the parity legs and "config5" by their names in
-    the reference file, ("c4", b) config 4's sequences. Each future's
+    """Submit the accuracy path's scenes to `pool`: {key: futures of
+    render_range by frame ranges}, the parity legs, "config5", "config3"
+    and config 7's "config7_<scene>" by their names in the reference file,
+    ("c4", b) config 4's sequences; the largest first. Each future's
     `done_s` is set to the seconds from the submission to its end."""
-    specs = {name: reference_band.LEGS[name] for name in PARITY_LEGS + ("config5",)}
+    names = ("config3",) + tuple(f"config7_{k}" for k in synthetic.DYNAMIC_SCENES)
+    specs = {name: reference_band.LEGS[name] for name in names + PARITY_LEGS + ("config5",)}
     specs.update({("c4", b): ("corridor", C4_T, C4_W, C4_H, b) for b in range(C4_B)})
     t0 = time.perf_counter()
-    futures = {k: pool.submit(synthetic.render, *spec) for k, spec in specs.items()}
-    for f in futures.values():
-        f.add_done_callback(lambda f: setattr(f, "done_s", time.perf_counter() - t0))
+    futures = {k: synthetic.submit_render(pool, *spec) for k, spec in specs.items()}
+    for fs in futures.values():
+        for f in fs:
+            f.add_done_callback(lambda f: setattr(f, "done_s", time.perf_counter() - t0))
     return futures
+
+
+def _rendered(renders, key):
+    """The sequence of `key` from its rendered frame ranges."""
+    return synthetic.join_ranges([f.result() for f in renders[key]])
 
 
 def _parity_phase(renders, kernels, card):
@@ -746,7 +812,7 @@ def _parity_phase(renders, kernels, card):
     for name in PARITY_LEGS:
         rec = legs[name]
         t0 = time.perf_counter()
-        frames_np = renders[name].result()[0]
+        frames_np = _rendered(renders, name)[0]
         wait_s = time.perf_counter() - t0
         sha = synthetic.frames_sha256(frames_np)
         if sha != rec["frames_sha256"]:
@@ -786,7 +852,7 @@ def _config5_phase(renders, kernels, card):
     """Config 5 (window refinement) on the card; returns B1's and B2's
     launches in one run."""
     legs = reference_band.load()
-    frames_np, Rs, ts, _ = renders["config5"].result()
+    frames_np, Rs, ts, _ = _rendered(renders, "config5")
     rec = legs["config5"]
     if synthetic.frames_sha256(frames_np) != rec["frames_sha256"]:
         raise AssertionError("config 5: the frames are not the committed reference's")
@@ -848,7 +914,7 @@ def _config5_phase(renders, kernels, card):
 def _config4_phase(renders, kernels, card):
     """Config 4 cut to C4_B x C4_T: the batch against each sequence alone
     on the card; returns B1's and B2's launches in one run."""
-    seqs = [renders[("c4", b)].result() for b in range(C4_B)]
+    seqs = [_rendered(renders, ("c4", b)) for b in range(C4_B)]
     frames = torch.from_numpy(np.stack([np.stack(s[0]) for s in seqs])).cuda()
     cfg = VOConfig(image_width=C4_W, image_height=C4_H, orb=ORBConfig(n_features=C4_KPS))
     fc, pc = C4_FRAME_CHUNK, C4_T - 1
@@ -881,6 +947,133 @@ def _config4_phase(renders, kernels, card):
     return launches
 
 
+def _config3_phase(renders, kernels, card):
+    """Config 3 (3840x2160, 8000 keypoints, the ratio test, T 8) on the
+    card; returns (B1's and B2's launches in one run, B1's and B2's times
+    and bounds at its shapes)."""
+    rec = reference_band.load()["config3"]
+    frames_np, Rs, ts, K = _rendered(renders, "config3")
+    if synthetic.frames_sha256(frames_np) != rec["frames_sha256"]:
+        raise AssertionError("config 3: the frames are not the committed reference's")
+    T = len(frames_np)
+    frames = torch.from_numpy(np.stack(frames_np)).cuda()
+    cfg = run_benchmarks.config_cfg(3)
+    fc, pc = run_benchmarks.config_chunks(3, T)
+    _reset(kernels)
+    poses, diags = runner.run_sequence_batched(frames, cfg, frame_chunk=fc, pair_chunk=pc)
+    torch.cuda.synchronize()
+    launches = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+    if any(v != T // fc for v in launches.values()):
+        raise AssertionError(f"config 3 did not launch B1 and B2 once a frame chunk: {launches}")
+    if not bool(torch.isfinite(poses.t).all() and torch.isfinite(poses.R).all()):
+        raise AssertionError("config 3: non-finite poses")
+    pose_ok = float(diags["pose_ok"].float().mean())
+    ref_t, _ = reference_band.leg_arrays(rec)
+    rel = ate_rmse_aligned(poses.t.double().cpu().numpy(), ref_t) / rec["extent"]
+    bar = max(rec["band"], 0.01)
+    print(f"config 3 ({T} frames {frames.shape[2]}x{frames.shape[1]}, {cfg.orb.n_features} "
+          f"keypoints, ratio test, frame_chunk {fc}, pair_chunk {pc}; hash equal to the file's): "
+          f"launches {launches}, pose_ok {pose_ok:.3f} (bar {MIN_POSE_OK}), aligned ATE / extent "
+          f"vs reference {rel:.6f} (band {rec['band']:.6f}, bar {bar:.4f}), keypoints/frame "
+          f"{diags['num_keypoints'].float().mean().item():.1f}, matches/pair "
+          f"{diags['num_matches'].float().mean().item():.1f}, inliers/pair "
+          f"{diags['num_inliers'].float().mean().item():.1f} [{card}]", flush=True)
+    if pose_ok < MIN_POSE_OK or not rel <= bar:
+        raise AssertionError("config 3: accuracy below its bar")
+    levels, ys, xs, starts = _hold_b1_b2(f"config 3, frames 0-{fc - 1}", frames[:fc], cfg.orb, card)
+    del poses, diags
+
+    # times: the run (run_benchmarks.run_config, CUDA events), stage 1,
+    # stage 2 and its Hamming step, and the two kernels at these shapes
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    res = run_benchmarks.run_config(3, [(frames_np, Rs, ts, K)], frames.device,
+                                    reference_band.load(), card)
+    feats = runner.detect_frames(frames, cfg, fc)
+    prev = orb.ORBFeatures(*(f[:-1] for f in feats))
+    cur = orb.ORBFeatures(*(f[1:] for f in feats))
+    gens = runner.pair_generators(0, range(1, T))
+    s1 = _cuda_ms(lambda: runner.detect_frames(frames, cfg, fc), warmup=1, reps=3)
+    s2 = _cuda_ms(lambda: runner.estimate_pairs(prev, cur, cfg, gens, pc), warmup=1, reps=3)
+    ham = _cuda_ms(lambda: ratio_test_match(prev.desc32, cur.desc32, prev.valid, cur.valid,
+                                            cfg.match.ratio), warmup=1, reps=3)
+    thr, brd = cfg.orb.fast_threshold, cfg.orb.edge_threshold
+    kp = [(ys[:, o:e], xs[:, o:e]) for o, e in zip(starts, starts[1:])]
+    sel_bound, sel_bytes, sel_instr, n_inner, n_cand = _select_bound(levels, thr, brd)
+    sel = (_cuda_ms(lambda: select_maps_levels(levels, thr, brd)),
+           sum(_cuda_ms(lambda lv=lv: select_maps_reference(lv, thr, brd), warmup=1, reps=3)
+               for lv in levels), sel_bound)
+    pat = (_cuda_ms(lambda: extract_patches_levels(levels, ys, xs, starts[:-1])),
+           _cuda_ms(lambda: [extract_patches_reference(lv, y, x) for lv, (y, x) in zip(levels, kp)],
+                    warmup=1, reps=3), _patch_bound(levels, kp))
+    tag = f"[{card}]"
+    print(f"config 3: {res['ms']:.3f} ms a run (median of {run_benchmarks.REPS}, CUDA events) = "
+          f"{res['frames_per_sec']:.2f} frames/s, one warm call by the host clock "
+          f"{res['one_shot_wall_fps']:.2f} frames/s; peak device memory {res['peak_mem_gib']:.3f} "
+          f"GiB ({base_gib:.3f} GiB held by the script before the run); stage 1 {s1:.3f} ms "
+          f"({fc} frames a launch), stage 2 {s2:.3f} ms, its ratio-test Hamming step {ham:.3f} "
+          f"ms = {100.0 * ham / s2:.1f}% of stage 2; aligned ATE / extent vs reference "
+          f"{res.get('ate_vs_reference_aligned_rel')}, vs ground truth {res.get('ate_vs_gt_rel')} "
+          f"(the reference's {res.get('ref_ate_vs_gt_rel')}), parity "
+          f"{res.get('parity_within_ref_band')} {tag}", flush=True)
+    for name, (k_ms, p_ms, (b_ms, by)) in (("select_maps_levels", sel),
+                                            ("extract_patches_levels", pat)):
+        print(f"{name} at config 3's shapes ({[tuple(lv.shape) for lv in levels]}, "
+              f"{ys.shape[1]} slots a frame), 1 launch: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms ({by}) {tag}", flush=True)
+    print(f"select_maps bound at config 3's shapes: {sel_bytes} B, {sel_instr} lane-instructions "
+          f"({n_inner} pixels inside the border, {n_cand} compass candidates) {tag}", flush=True)
+    times = {name: {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by}
+             for name, (k_ms, p_ms, (b_ms, by)) in (("select_maps", sel), ("extract_patches", pat))}
+    return launches, times
+
+
+def _config7_phase(renders, kernels, card):
+    """Config 7's five dynamic scenes (640x480, 1200 keypoints, T 48) on
+    the card; returns B1's and B2's launches in one run of a scene."""
+    legs = reference_band.load()
+    seqs = []
+    for name in synthetic.DYNAMIC_SCENES:
+        seq = _rendered(renders, f"config7_{name}")
+        if synthetic.frames_sha256(seq[0]) != legs[f"config7_{name}"]["frames_sha256"]:
+            raise AssertionError(f"config 7 {name}: the frames are not the committed reference's")
+        seqs.append(seq)
+    T = len(seqs[0][0])
+    cfg = run_benchmarks.config_cfg(7)
+    fc, pc = run_benchmarks.config_chunks(7, T)
+    launches = None
+    for name, seq in zip(synthetic.DYNAMIC_SCENES, seqs):
+        frames = torch.from_numpy(np.stack(seq[0])).cuda()
+        if launches is None:
+            _hold_b1_b2(f"config 7 {name}, frames 0-{fc - 1}", frames[:fc], cfg.orb, card)
+        _reset(kernels)
+        runner.run_sequence_batched(frames, cfg, frame_chunk=fc, pair_chunk=pc)
+        torch.cuda.synchronize()
+        got = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+        if any(v != T // fc for v in got.values()):
+            raise AssertionError(f"config 7 {name} did not launch B1 and B2 once a frame chunk: "
+                                 f"{got}")
+        launches = launches or got
+    res = run_benchmarks.run_config(7, seqs, torch.device("cuda"), legs, card)
+    for name, e in res["scenes"].items():
+        obj = (f", object keypoint share {e['obj_kp_share_median']:.4f}, object inlier share "
+               f"{e['obj_inlier_frac_median']:.4f} (medians over pairs)" if "obj_kp_share_median" in e
+               else "")
+        print(f"config 7 {name} (hash equal to the file's; frame_chunk {fc}, pair_chunk {pc}): "
+              f"{e['ms']:.3f} ms = {e['frames_per_sec']:.2f} frames/s; ATE / extent vs ground truth "
+              f"port {e['tpu_vo_ate_vs_gt_rel']:.5f}, reference {e['ref_ate_vs_gt_rel']:.5f}; RPE "
+              f"rotation mean port {e['tpu_vo_rpe_rot_mean_deg']} deg, reference "
+              f"{e['ref_rpe_rot_mean_deg']} deg; pose_ok {e['pose_ok_frac']:.3f}{obj} [{card}]",
+              flush=True)
+    bad = [n for n, e in res["scenes"].items() if not e["poses_finite"]]
+    bad += [n for n in C7_EXCLUDED if not res["scenes"][n]["obj_inlier_frac_median"] <= 0.15]
+    occ = res["scenes"]["occluders"]
+    if not (occ["tpu_vo_ate_vs_gt_rel"] < 0.05 and occ["pose_ok_frac"] == 1.0):
+        bad.append("occluders")
+    if bad:
+        raise AssertionError(f"config 7: {bad} fail their bars")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -897,6 +1090,7 @@ def main() -> int:
 
 
 def _run(card, dev, pool) -> int:
+    t_start = time.perf_counter()
 
     # 2. build: the kernels (nvcc) and, beside them, the native loader (g++)
     t0 = time.perf_counter()
@@ -1040,11 +1234,14 @@ def _run(card, dev, pool) -> int:
 
     # the renders end before the first timed phase
     t0 = time.perf_counter()
-    concurrent.futures.wait(list(renders.values()))
-    done = sorted(f.done_s for f in renders.values())
-    print(f"host renders: {len(done)} scenes in {RENDER_WORKERS} processes, started after the "
-          f"build, done {done[0]:.1f}-{done[-1]:.1f} s after their start; waited "
-          f"{time.perf_counter() - t0:.1f} s for them before phase 4b", flush=True)
+    concurrent.futures.wait([f for fs in renders.values() for f in fs])
+    done = sorted(f.done_s for fs in renders.values() for f in fs)
+    print(f"host renders: {len(renders)} scenes in {len(done)} frame ranges on {RENDER_WORKERS} "
+          f"processes, started after the build, done {done[0]:.1f}-{done[-1]:.1f} s after their "
+          f"start; waited {time.perf_counter() - t0:.1f} s for them before phase 4b; per scene, "
+          f"the seconds to its last range: "
+          f"{ {str(k): round(max(f.done_s for f in fs), 1) for k, fs in renders.items()} }",
+          flush=True)
 
     # 4b. the streaming path, counted: VisualOdometry frame by frame
     stream_counts = _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
@@ -1163,6 +1360,15 @@ def _run(card, dev, pool) -> int:
         path_launches[name] = phase(renders, kernels, card)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # 5f-5g. config 3 (4K, 8000 keypoints, ratio test) and config 7's
+    # dynamic scenes, counted
+    t0 = time.perf_counter()
+    path_launches["config 3"], c3_times = _config3_phase(renders, kernels, card)
+    print(f"phase config 3: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    path_launches["config 7 (one scene)"] = _config7_phase(renders, kernels, card)
+    print(f"phase config 7: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # 6. times
     def main_path():
         return runner.run_sequence_batched(frames, cfg, seed=0)
@@ -1214,16 +1420,8 @@ def _run(card, dev, pool) -> int:
     fast_instr = FAST_COMPASS_OPS * n_inner3 + FAST_ARC_OPS * n_cand3
     fast_bound = max((fast_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                      (fast_instr / LANE_INSTR_PER_S * 1e3, "operations"))
-    inner = [fast_border(lv.shape[-2], lv.shape[-1], border, dev) for lv in levels]
-    n_inner = sum(lv.shape[0] * int(m.sum()) for lv, m in zip(levels, inner))
-    n_cand = sum(int((compass_candidates(lv, thr) & m).sum()) for lv, m in zip(levels, inner))
-    sel_bytes = sum(b * (8 * h * w + 4 * ((h + 1) // 2) * (w + w % 2)) for b, h, w in shapes)
-    sel_instr = SELECT_OPS * n_inner + SELECT_ARC_OPS * n_cand
-    sel_bound = max((sel_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-                    (sel_instr / LANE_INSTR_PER_S * 1e3, "operations"))
-    pat_bound = _bound(4 * _window_pixels(levels, kp)
-                       + sum(ys.shape[0] * ys.shape[1] * (8 + 4 * RAW_SIZE * RAW_SIZE)
-                             for ys, _ in kp), 0)
+    sel_bound, sel_bytes, sel_instr, n_inner, n_cand = _select_bound(levels, thr, border)
+    pat_bound = _patch_bound(levels, kp)
     probe_n = pys.numel()
     probe_out = probe_n * (8 + 4 * patch_probe.ROWS * RAW_SIZE)  # keypoints in, windows out
     p1_rows, p1_cols = patch_probe.band_index(h_p, W, pys, pxs, True, 256)
@@ -1348,13 +1546,15 @@ def _run(card, dev, pool) -> int:
          "replaces": "tpu_vo/ops/select_pallas.py:359", "launches": launches["select_maps"],
          "launches_by_path": {p: c["select_maps"] for p, c in path_launches.items()},
          "max_abs_err": sel_err, "ms": sel_ms, "plain_ms": sel_plain,
-         "bound_ms": sel_bound[0], "bound_by": sel_bound[1], "library_ms": None},
+         "bound_ms": sel_bound[0], "bound_by": sel_bound[1], "library_ms": None,
+         "at_config3": c3_times["select_maps"]},
         {"name": "extract_patches", "route": "cuda", "source": "tpu_vo_torch/csrc/patch.cu",
          "replaces": "tpu_vo/ops/patch_pallas.py:181",
          "launches": launches["extract_patches"], "max_abs_err": patch_err,
          "launches_by_path": {p: c["extract_patches"] for p, c in path_launches.items()},
          "ms": pat_ms, "plain_ms": pat_plain,
-         "bound_ms": pat_bound[0], "bound_by": pat_bound[1], "library_ms": pat_lib},
+         "bound_ms": pat_bound[0], "bound_by": pat_bound[1], "library_ms": pat_lib,
+         "at_config3": c3_times["extract_patches"]},
         {"name": "fast_margin", "route": "cuda", "source": "tpu_vo_torch/csrc/fast.cu",
          "replaces": "tpu_vo/ops/fast_pallas.py:153",
          "launches": b3_launches["fast_margin"], "max_abs_err": fast_err,
@@ -1369,6 +1569,7 @@ def _run(card, dev, pool) -> int:
         for name, p, line in (("band_windows", "P1", 90), ("phase_windows_mxu", "P2", 226),
                               ("phase_windows_roll", "P3", 322))
     ]}
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to here", flush=True)
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,12 @@ own sampling scatter. With --legs only those legs are recomputed and
 the others kept.
 
 The legs: the CPU tests' corridor and pan at 320x240 (T 16, seed 3);
-the card's corridor at 640x480 and 1241x376 (T 24, seed 3); and the
-benchmark's configs 1, 2, 4 (sequence 0) and 5 at their own T, W and H,
-seed 0 (tools/run_benchmarks).
+the card's corridor at 640x480 and 1241x376 (T 24, seed 3); the
+benchmark's configs 1, 2, 3, 4 (sequence 0) and 5 at their own T, W and
+H, seed 0; and config 7's five dynamic scenes (640x480, T 48, seed 0;
+tools/run_benchmarks). The scenes are rendered in the pool by frame
+ranges (utils/synthetic.submit_render), so config 3's 4K frames spread
+over the workers.
 """
 
 from __future__ import annotations
@@ -49,6 +52,8 @@ LEGS = {
     "config2": ("corridor", 64, 1241, 376, 0),
     "config4_seq0": ("corridor", 64, 640, 480, 0),
     "config5": ("corridor", 32, 640, 480, 0),
+    "config3": ("corridor", 8, 3840, 2160, 0),
+    **{f"config7_{k}": (f"dynamic_{k}", 48, 640, 480, 0) for k in synthetic.DYNAMIC_SCENES},
 }
 CPU_LEGS = ("cpu_corridor_320x240", "cpu_pan_320x240")
 
@@ -104,7 +109,7 @@ def parity_tolerance(band: float) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--legs", default=",".join(LEGS), help="comma-separated leg names")
-    ap.add_argument("--workers", type=int, default=2, help="processes, one leg each")
+    ap.add_argument("--workers", type=int, default=2, help="processes")
     ap.add_argument("--out", default=PATH)
     args = ap.parse_args(argv)
     names = [n for n in args.legs.split(",") if n]
@@ -114,8 +119,11 @@ def main(argv=None) -> int:
     legs = load(args.out) if os.path.exists(args.out) else {}
     with concurrent.futures.ProcessPoolExecutor(
             args.workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        for name, rec in zip(names, pool.map(make_leg, names)):
-            legs[name] = rec
+        renders = {n: synthetic.submit_render(pool, *LEGS[n]) for n in names}
+        made = [pool.submit(make_leg, n, synthetic.join_ranges([f.result() for f in renders[n]])[0])
+                for n in names]
+        for name, fut in zip(names, made):
+            rec = legs[name] = fut.result()
             print(f"{name}: band {rec['band']:.6f}, extent {rec['extent']:.4f}, "
                   f"sha256 {rec['frames_sha256'][:16]}", flush=True)
     legs = {n: legs[n] for n in LEGS if n in legs}
