@@ -65,6 +65,18 @@ Phases, in order; any failure raises and the exit code is non-zero:
      keypoints; then tools/io_bench's rows. Where phase 2 found no png.h
      or jpeglib.h, the native checks are left out and the Python decoder
      takes the native loader's place;
+  4f. frames from files of other formats: the main path's first 24 frames
+     written as baseline JPEG at quality 90 (io/jpeg.encode_gray, the card
+     host having no other encoder) into one directory, and as 8-bit PNGs
+     alternating palette (a PLTE of the 256 grays) and Adam7-interlaced
+     gray (a small writer here) into another; over each, load_frame (ms
+     per decoded frame, host clock), PrefetchLoader(use_native=False)
+     onto the card and the CLI (counters reset just before); all 24
+     frames decode and none is skipped, the JPEG frames equal
+     roundtrip_gray(frame, 90) of the originals and the PNG frames the
+     originals, the CLI launches B1 and B2 once a frame, and its
+     positions lie within 1e-4 of run_sequence_scan's on those frames in
+     memory with the CLI's configuration;
   5. drive the FAST-detect path at full width: the stage benchmark's
      ablation (tpu_vo_torch.tools.stage_bench) on 8 frames of 1241x376,
      counters reset just before; check that B3 launched exactly 4 times
@@ -136,6 +148,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      obj_light and obj_mid, the occluders' ATE over the extent below
      0.05 with every pair pose_ok, and every scene's poses finite
      (obj_heavy and low_texture are reported, not gated);
+  5h. config 6: the corridor (640x480, T 48, rendered in ranges of 12
+     frames) and the pan (320x240, T 32), seed 0, each degraded in the
+     worker pool to utils/synthetic's four nuisance levels (seed 17)
+     before phase 4b; each of the 8 scenes' sha256 equal to its
+     config6_<scene>_<level> leg's; B1 and B2 bit for bit on the harsh
+     level's first chunk of each scene (320x240 and 640x480); one pass
+     over the 8 runs (frame_chunk 8, pair_chunk T - 1), counters reset
+     just before (6 launches each of B1 and B2 a corridor run, 4 a pan
+     run); then tools/run_benchmarks' line per scene and level (frames/s
+     by CUDA events, ATE and RPE against ground truth beside the
+     reference's from the leg, pose_ok, parity with the leg's band,
+     reported); gates: finite poses, pose_ok >= 0.7 on the corridor at
+     every level and on the pan's clean level, the corridor's ATE over
+     the extent below 0.01 at every level; a level where the port is
+     worse than the reference against ground truth by more than the
+     leg's band is named in its line; io/jpeg.decode's ms a frame at
+     640x480 (8 clean corridor frames at quality 90, equal to
+     roundtrip_gray);
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
@@ -165,6 +195,7 @@ and bounds at config 3's shapes, `at_config3`); the last line is
 
 from __future__ import annotations
 
+import argparse
 import concurrent.futures
 import contextlib
 import functools
@@ -173,10 +204,12 @@ import json
 import multiprocessing
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -192,6 +225,7 @@ from tpu_vo_torch.image.filters import gaussian_blur  # noqa: E402
 from tpu_vo_torch.image.pyramid import build_pyramid  # noqa: E402
 from tpu_vo_torch.io import native_loader  # noqa: E402
 from tpu_vo_torch.io.dataset import list_image_paths, load_frame, write_png  # noqa: E402
+from tpu_vo_torch.io.jpeg import decode as jpeg_decode, encode_gray, roundtrip_gray  # noqa: E402
 from tpu_vo_torch.io.loader import PrefetchLoader  # noqa: E402
 from tpu_vo_torch.io.kitti import load_kitti_poses  # noqa: E402
 from tpu_vo_torch.io.trajectory_io import load_trajectory_tum  # noqa: E402
@@ -282,6 +316,18 @@ RENDER_WORKERS = 6
 # most 0.15 (tests/test_dynamic_scenes.py's bar); obj_heavy crosses the
 # consensus majority by design and is reported, not gated
 C7_EXCLUDED = ("obj_light", "obj_mid")
+# Config 6 (phase 5h): the corridor rendered in ranges of C6_RANGE frames,
+# then every level degraded in the pool; its bars: pose_ok on the corridor
+# at every level and on the pan's clean level, the corridor's ATE over the
+# extent against ground truth (the JAX record: 0.0017-0.0036 for tpu_vo,
+# 0.0032-0.0361 for the reference); the pan's degraded levels are reported
+C6_RANGE = 12
+C6_DECODE_T = 8  # corridor frames encoded and decoded to time the JPEG reader at 640x480
+C6_MAX_CORRIDOR_ATE = 0.01
+# The file-format phase (4f): the main path's first VARIANT_T frames as
+# baseline JPEG at VARIANT_QUALITY and as PNGs alternating 8-bit palette
+# and Adam7-interlaced gray
+VARIANT_T, VARIANT_QUALITY = 24, 90
 # refine_window on the card against the CPU on the same inputs, in float32
 # (the pipeline's) and in float64 (where the LM's accept decisions do not
 # turn on the last bits)
@@ -626,6 +672,98 @@ def _cli_phase(frames_np, Rs, ts, K, kernels, card):
     return cli_launches
 
 
+def _png_variant(path, img, palette: bool) -> None:
+    """An 8-bit PNG of a 2-D uint8 image (no row filter): palette (the
+    pixels as indices into a PLTE of the 256 grays) or Adam7-interlaced
+    gray. io/dataset has no writer of these kinds, as tpu_vo has none."""
+    h, w = img.shape
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    def rows(a):
+        if a.size == 0:
+            return b""
+        return np.concatenate([np.zeros((a.shape[0], 1), np.uint8), a], 1).tobytes()
+
+    if palette:
+        head = struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0)
+        extra = chunk(b"PLTE", np.repeat(np.arange(256, dtype=np.uint8), 3).tobytes())
+        data = rows(img)
+    else:
+        head = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 1)
+        extra = b""
+        data = b"".join(rows(img[y0::dy, x0::dx]) for x0, y0, dx, dy in (
+            (0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+            (0, 1, 1, 2)))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", head) + extra
+                + chunk(b"IDAT", zlib.compress(data)) + chunk(b"IEND", b""))
+
+
+def _variants_phase(frames_np, kernels, card):
+    """Phase 4f: the frames as baseline JPEG (encode_gray) and as palette
+    and Adam7 PNGs; each directory through load_frame (timed),
+    PrefetchLoader(use_native=False) onto the card and the CLI (counted),
+    against the frames they hold and the CLI's runner on those frames in
+    memory. Returns {path: launches}."""
+    n = len(frames_np)
+    want = {"JPEG": [roundtrip_gray(f, VARIANT_QUALITY) for f in frames_np],
+            "palette/Adam7 PNG": list(frames_np)}
+    H_, W_ = frames_np[0].shape
+    cli_cfg = cli.build_config(argparse.Namespace(features=1200, levels=8, ratio_test=False,
+                                                  ransac_iters=256, scale=0.3), W_, H_)
+    counts = {}
+    with tempfile.TemporaryDirectory() as root:
+        for fmt, frames in want.items():
+            d = os.path.join(root, fmt.split("/")[0].split()[0].lower())
+            os.makedirs(d)
+            for i, f in enumerate(frames_np):
+                if fmt == "JPEG":
+                    with open(os.path.join(d, f"{i:06d}.jpg"), "wb") as fh:
+                        fh.write(encode_gray(f, VARIANT_QUALITY))
+                else:
+                    _png_variant(os.path.join(d, f"{i:06d}.png"), f, palette=i % 2 == 0)
+            paths = list_image_paths(d)
+            t0 = time.perf_counter()
+            decoded = [load_frame(p) for p in paths]
+            ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+            if len(decoded) != n or any(not np.array_equal(a, b) for a, b in zip(decoded, frames)):
+                raise AssertionError(f"{fmt}: load_frame does not give the frames written")
+            loader = PrefetchLoader(paths, device="cuda", use_native=False)
+            got = [(i, t) for i, _, t in loader]
+            if ([i for i, _ in got] != list(range(n)) or any(
+                    t.device.type != "cuda" or not np.array_equal(t.cpu().numpy(), f)
+                    for (_, t), f in zip(got, frames))):
+                raise AssertionError(f"{fmt}: PrefetchLoader(use_native=False) skipped or "
+                                     f"changed frames: {[i for i, _ in got]}")
+            out_dir = os.path.join(root, "out_" + os.path.basename(d))
+            _reset(kernels)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli.main([d, "--no-viewer", "--quiet", "--out-dir", out_dir])
+            counts[f"CLI over {fmt} ({n} frames)"] = c = {k: v.launches for k, v in kernels.items()}
+            decoder = next((ln.strip() for ln in text.getvalue().splitlines()
+                            if ln.startswith("Decoder:")), "")
+            with np.load(os.path.join(out_dir, "trajectory.npz")) as z:
+                cli_t = z["t"]
+            scan = runner.run_sequence_scan(torch.from_numpy(np.stack(frames)), cli_cfg, seed=0)
+            diff = float(np.abs(cli_t - scan.pose.t.double().cpu().numpy()).max())
+            print(f"{fmt} frames from files ({n} of {W_}x{H_}"
+                  f"{f', quality {VARIANT_QUALITY}' if fmt == 'JPEG' else ''}): load_frame "
+                  f"{ms:.1f} ms per decoded frame (host); all {n} equal to "
+                  f"{'roundtrip_gray of the originals' if fmt == 'JPEG' else 'the originals'}; "
+                  f"PrefetchLoader(use_native=False) yields all {n} on the card; the CLI exit "
+                  f"{rc} ({decoder}), launches {c}, its {len(cli_t)} positions against "
+                  f"run_sequence_scan on the frames in memory: max diff {diff:.3e} (bar "
+                  f"{MAX_STREAM_POS_DIFF}) [{card}]", flush=True)
+            if (rc != 0 or len(cli_t) != n or not diff <= MAX_STREAM_POS_DIFF
+                    or c["select_maps"] != n or c["extract_patches"] != n):
+                raise AssertionError(f"{fmt}: the CLI run failed its checks")
+    return counts
+
+
 def _native_build():
     """Phase 2's half for the native loader: where the host compiler finds
     png.h and jpeglib.h, build it (a failed build raises with g++'s
@@ -786,13 +924,21 @@ def _start_renders(pool):
     """Submit the accuracy path's scenes to `pool`: {key: futures of
     render_range by frame ranges}, the parity legs, "config5", "config3"
     and config 7's "config7_<scene>" by their names in the reference file,
-    ("c4", b) config 4's sequences; the largest first. Each future's
+    ("c4", b) config 4's sequences, ("c6", scene) config 6's clean
+    scenes; the largest first. Each future's
     `done_s` is set to the seconds from the submission to its end."""
     names = ("config3",) + tuple(f"config7_{k}" for k in synthetic.DYNAMIC_SCENES)
     specs = {name: reference_band.LEGS[name] for name in names + PARITY_LEGS + ("config5",)}
     specs.update({("c4", b): ("corridor", C4_T, C4_W, C4_H, b) for b in range(C4_B)})
     t0 = time.perf_counter()
     futures = {k: synthetic.submit_render(pool, *spec) for k, spec in specs.items()}
+    # config 6's clean scenes (the corridor by ranges of C6_RANGE frames);
+    # _degrade makes their levels
+    for scene in run_benchmarks.C6_SCENES:
+        spec = reference_band.LEGS[f"config6_{scene}_clean"]
+        futures[("c6", scene)] = [pool.submit(synthetic.render_range, *spec, a,
+                                              min(a + C6_RANGE, spec[1]))
+                                  for a in range(0, spec[1], C6_RANGE)]
     for fs in futures.values():
         for f in fs:
             f.add_done_callback(lambda f: setattr(f, "done_s", time.perf_counter() - t0))
@@ -1074,6 +1220,89 @@ def _config7_phase(renders, kernels, card):
     return launches
 
 
+def _degrade(pool, renders):
+    """Config 6's scenes at every nuisance level, degraded in `pool` from
+    the rendered clean scenes: {(scene, level): frames}."""
+    clean = {scene: _rendered(renders, ("c6", scene))[0] for scene in run_benchmarks.C6_SCENES}
+    futures = {(scene, level): pool.submit(synthetic.nuisance_level, frames, level)
+               for scene, frames in clean.items() for level in synthetic.NUISANCE_LEVELS
+               if level != "clean"}
+    return {(scene, level): clean[scene] if level == "clean" else futures[(scene, level)].result()
+            for scene in clean for level in synthetic.NUISANCE_LEVELS}
+
+
+def _config6_phase(renders, degraded, kernels, card):
+    """Config 6 (the corridor and the pan at four nuisance levels) on the
+    card; returns B1's and B2's launches in one pass over its 8 runs."""
+    legs = reference_band.load()
+    runs = {}
+    for (scene, level), frames_np in degraded.items():
+        name = f"config6_{scene}_{level}"
+        if synthetic.frames_sha256(frames_np) != legs[name]["frames_sha256"]:
+            raise AssertionError(f"config 6 {scene} {level}: the degraded frames are not the "
+                                 f"committed leg's")
+        runs[(scene, level)] = torch.from_numpy(np.stack(frames_np)).cuda()
+    print(f"config 6: the {len(runs)} degraded scenes hash to their legs' sha256", flush=True)
+    for scene in run_benchmarks.C6_SCENES:
+        frames = runs[(scene, "harsh")]
+        cfg = run_benchmarks.config_cfg(6, frames.shape[2], frames.shape[1])
+        _hold_b1_b2(f"config 6 {scene} harsh, frames 0-{run_benchmarks.FRAME_CHUNK - 1}",
+                    frames[:run_benchmarks.FRAME_CHUNK], cfg.orb, card)
+    _reset(kernels)
+    want = 0
+    for frames in runs.values():
+        T = frames.shape[0]
+        cfg = run_benchmarks.config_cfg(6, frames.shape[2], frames.shape[1])
+        fc, pc = run_benchmarks.config_chunks(6, T)
+        runner.run_sequence_batched(frames, cfg, frame_chunk=fc, pair_chunk=pc)
+        want += T // fc
+    torch.cuda.synchronize()
+    launches = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+    print(f"config 6: one pass over its {len(runs)} runs launched {launches} (want {want} "
+          f"each: one a frame chunk)", flush=True)
+    if any(v != want for v in launches.values()):
+        raise AssertionError(f"config 6 did not launch B1 and B2 once a frame chunk: {launches}")
+    del runs
+    clean = degraded[("corridor", "clean")][:C6_DECODE_T]
+    files = [encode_gray(f, VARIANT_QUALITY) for f in clean]
+    t0 = time.perf_counter()
+    decoded = [jpeg_decode(b) for b in files]
+    ms = (time.perf_counter() - t0) * 1e3 / len(files)
+    if any(not np.array_equal(d, roundtrip_gray(f, VARIANT_QUALITY))
+           for d, f in zip(decoded, clean)):
+        raise AssertionError("io/jpeg.decode differs from roundtrip_gray on the corridor's frames")
+    print(f"JPEG decode (io/jpeg.decode, host clock) of the corridor's first {len(files)} frames "
+          f"at {clean[0].shape[1]}x{clean[0].shape[0]}, quality {VARIANT_QUALITY}: {ms:.1f} ms a "
+          f"frame, {sum(map(len, files)) / len(files) / 1024:.1f} KiB a file; equal to "
+          f"roundtrip_gray [{card}]", flush=True)
+    bad = []
+    for (scene, level), frames_np in degraded.items():
+        seq = _rendered(renders, ("c6", scene))
+        e = run_benchmarks.run_scene_6(scene, level, frames_np, seq[1], seq[2],
+                                       torch.device("cuda"), legs)
+        print(json.dumps({**e, "device": card}), flush=True)
+        band = legs[f"config6_{scene}_{level}"]["band"]
+        worse = e["tpu_vo_ate_vs_gt_rel"] - e["ref_ate_vs_gt_rel"] > band
+        note = "; the port is worse than the reference by more than the band" if worse else ""
+        print(f"config 6 {scene} {level} ({len(frames_np)} frames {frames_np[0].shape[1]}x"
+              f"{frames_np[0].shape[0]}, frame_chunk {e['frame_chunk']}, pair_chunk "
+              f"{e['pair_chunk']}): {e['ms']:.3f} ms = {e['frames_per_sec']:.2f} frames/s; ATE / "
+              f"extent vs ground truth port {e['tpu_vo_ate_vs_gt_rel']:.5f}, reference "
+              f"{e['ref_ate_vs_gt_rel']:.5f}; RPE rotation mean port "
+              f"{e['tpu_vo_rpe_rot_mean_deg']} deg, reference {e['ref_rpe_rot_mean_deg']} deg; "
+              f"pose_ok {e['pose_ok_frac']:.3f}; aligned ATE / extent vs the reference "
+              f"{e['ate_vs_reference_aligned_rel']:.5f} (band {band:.5f}, within "
+              f"{e['parity_within_ref_band']})"
+              f"{note} [{card}]", flush=True)
+        gated = scene == "corridor" or level == "clean"
+        if not e["poses_finite"] or (gated and e["pose_ok_frac"] < MIN_POSE_OK) or (
+                scene == "corridor" and not e["tpu_vo_ate_vs_gt_rel"] < C6_MAX_CORRIDOR_ATE):
+            bad.append(f"{scene} {level}")
+    if bad:
+        raise AssertionError(f"config 6: {bad} fail their bars")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1242,6 +1471,10 @@ def _run(card, dev, pool) -> int:
           f"the seconds to its last range: "
           f"{ {str(k): round(max(f.done_s for f in fs), 1) for k, fs in renders.items()} }",
           flush=True)
+    t0 = time.perf_counter()
+    degraded = _degrade(pool, renders)
+    print(f"config 6: {len(degraded) - len(run_benchmarks.C6_SCENES)} degraded scenes made in "
+          f"the pool in {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4b. the streaming path, counted: VisualOdometry frame by frame
     stream_counts = _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
@@ -1259,6 +1492,12 @@ def _run(card, dev, pool) -> int:
     t0 = time.perf_counter()
     ingest_counts = _ingest_phase(cfg, native_missing, kernels, card)
     print(f"phase ingest: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 4f. JPEG and PNG variants from files: the Python reader, PrefetchLoader
+    # and the CLI (counted)
+    t0 = time.perf_counter()
+    variant_counts = _variants_phase(frames_np[:VARIANT_T], kernels, card)
+    print(f"phase file formats: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 5. the FAST-detect path at full width, counted: the stage
     # benchmark's ablation on 8 frames (B3 in +fast ... +orientation, B1
@@ -1353,7 +1592,7 @@ def _run(card, dev, pool) -> int:
     path_launches = {"main": launches, "streaming (32 frames)": stream_counts,
                      "CLI (24 frames)": cli_counts,
                      **{f"streamed, {k} ({INGEST_T} frames)": c
-                        for k, c in ingest_counts.items()}}
+                        for k, c in ingest_counts.items()}, **variant_counts}
     for name, phase in (("parity (2 legs x 5 seeds)", _parity_phase),
                         ("config 5", _config5_phase), ("config 4", _config4_phase)):
         t0 = time.perf_counter()
@@ -1368,6 +1607,10 @@ def _run(card, dev, pool) -> int:
     t0 = time.perf_counter()
     path_launches["config 7 (one scene)"] = _config7_phase(renders, kernels, card)
     print(f"phase config 7: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    path_launches["config 6"] = _config6_phase(renders, degraded, kernels, card)
+    del degraded
+    print(f"phase config 6: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 6. times
     def main_path():

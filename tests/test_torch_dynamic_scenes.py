@@ -237,7 +237,8 @@ def test_occluders_do_not_break_pose():
 
 
 # sha256 of each earlier leg's record (json, sorted keys, compact), as
-# committed before config 3's and config 7's legs were added
+# committed before config 6's legs were added (config 3's and config 7's
+# since they were made)
 EARLIER_LEGS = {
     "cpu_corridor_320x240": "6f8ed672ca18db3dc1e989a53e5366cd165c7b12de072debb85c678520aadf36",
     "cpu_pan_320x240": "51c7bb05f1617014ca313d86393891007af1b6912ce86b57fe556af9d114ca66",
@@ -247,9 +248,16 @@ EARLIER_LEGS = {
     "config2": "63cc7d6dfa3384b07d083d7208ee8831e46531bc056ceaf9a5ebbbbadd6870f9",
     "config4_seq0": "77b10c38d289267fa4858d4b208c65c15f9134d4121f946069248ff1c9e082ed",
     "config5": "446a6308fd58f1e803e68cc3198a8b8f50efeb31f7e7d6f223acb9b6374b1162",
+    "config3": "55c653ee6410eac648bc768032fa83d56a1eb81846070a841e85f8f1afa17f6e",
+    "config7_obj_light": "87ef3487e53d2d157ec801dd8475a7548e181271ae3b5db1ae77b844c7368509",
+    "config7_obj_mid": "0c417e3ef89409876741bdc80e9804f75e8d517824837d9dfa5847a527d19d2a",
+    "config7_obj_heavy": "bd4aa4a0f2d5726d81f625078db14dfc239e87e6e7b8256df786292ffbe05a60",
+    "config7_occluders": "f6154d1fa1200ab172ab8548b88080a1473d8d0b078e9c709df0fd1aefaac457",
+    "config7_low_texture": "718e2780aefe90358166b4f9c29f97cfc0fbe90f92ede6cad4b972598aaf5cd2",
 }
-NEW_LEGS = {"config3": ("corridor", 8, 3840, 2160, 0),
-            **{f"config7_{k}": (f"dynamic_{k}", 48, 640, 480, 0) for k in ts.DYNAMIC_SCENES}}
+NEW_LEGS = {f"config6_{scene}_{level}": spec for scene, spec in (
+    ("corridor", ("corridor", 48, 640, 480, 0)), ("pan", ("pan", 32, 320, 240, 0)))
+    for level in ts.NUISANCE_LEVELS}
 
 
 def test_earlier_legs_unchanged_and_new_legs_present():

@@ -3,8 +3,10 @@ inputs the tests make themselves:
 
   - io/dataset: the PNG decoder against PIL and tpu_vo's PIL-based
     load_frame, bit for bit: gray, RGB and RGBA, each row filter forced,
-    and a file PIL writes with its own filters; JPEG, 16-bit, palette and
-    corrupt files raise naming the file; listing and timestamps;
+    and a file PIL writes with its own filters; what the reader refuses
+    (progressive, arithmetic-coded, 12-bit, lossless and CMYK JPEG, a
+    corrupt PNG) raises naming the file and the reason; listing and
+    timestamps;
   - io/trajectory_io: the TUM and KITTI files equal tpu_vo's text, and
     read back;
   - image/color, utils/records, utils/metrics: equal to tpu_vo's.
@@ -69,11 +71,21 @@ def test_png_written_by_pil(tmp_path):
         np.testing.assert_array_equal(dataset.load_frame(path), jdataset.load_frame(path))
 
 
+def _with_sof(data: bytes, marker: int, precision: int = 8) -> bytes:
+    """A JPEG's bytes with its frame header's marker and precision replaced."""
+    i = data.index(b"\xff\xc0")
+    return data[:i + 1] + bytes([marker]) + data[i + 2:i + 4] + bytes([precision]) + data[i + 5:]
+
+
 def test_unsupported_images_raise_naming_the_file(tmp_path):
-    cases = {"a.jpg": ("JPEG", lambda p: Image.fromarray(_image(3)).save(p)),
-             "b.png": ("16-bit", lambda p: Image.fromarray(
-                 _image(1).astype(np.uint16) * 257).save(p)),
-             "c.png": ("palette", lambda p: Image.fromarray(_image(3)).convert("P").save(p))}
+    rgb = _image(3, h=21, w=19)
+    Image.fromarray(rgb).save(tmp_path / "base.jpg")
+    base = open(tmp_path / "base.jpg", "rb").read()
+    cases = {"a.jpg": ("progressive", lambda p: Image.fromarray(rgb).save(p, progressive=True)),
+             "b.jpg": ("arithmetic", lambda p: open(p, "wb").write(_with_sof(base, 0xC9))),
+             "c.jpg": ("12-bit", lambda p: open(p, "wb").write(_with_sof(base, 0xC1, 12))),
+             "e.jpg": ("lossless", lambda p: open(p, "wb").write(_with_sof(base, 0xC3))),
+             "f.jpg": ("CMYK", lambda p: Image.fromarray(_image(4), "CMYK").save(p))}
     for name, (why, write) in cases.items():
         path = str(tmp_path / name)
         write(path)

@@ -5,7 +5,7 @@ loader:
 
   - native decode equals tpu_vo's load_frame (PIL) and the port's own
     load_frame bit for bit: gray, RGB and RGBA PNGs with each row filter,
-    gray and RGB JPEGs (PIL only: the port's reader takes PNG alone);
+    gray and RGB JPEGs;
   - prefetch order, an unreadable frame skipped, the pack round trip, a
     missing directory;
   - six processes' first uses build the library once into one fresh
@@ -102,6 +102,7 @@ def test_native_jpeg_decode_matches_pil(native, tmp_path, kind):
         (i, got), = list(ds)
     assert i == 0 and got.shape == (240, 320)
     np.testing.assert_array_equal(got, jdataset.load_frame(path))
+    np.testing.assert_array_equal(got, dataset.load_frame(path))
 
 
 def test_prefetch_streams_in_order(native, frames_dir):

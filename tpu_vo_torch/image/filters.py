@@ -7,6 +7,9 @@ multiplied and added left to right in float32 (each eager op rounds on
 its own), horizontally then vertically, over a reflect-101 border, then
 rounded and clipped to the integer grid. features/patches.py blurs one
 window per keypoint with the same arithmetic.
+
+`filter2d` is cv2.filter2D's direct path on the host (numpy), bit for bit
+(cv2 5's arithmetic, measured against it: tests/test_torch_nuisances.py).
 """
 
 from __future__ import annotations
@@ -57,3 +60,66 @@ def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0,
     if quantize:
         x = torch.clamp(torch.round(x), 0.0, 255.0)
     return x
+
+
+# cv2.filter2D's direct path: a float32 image's columns below a multiple
+# of FILTER2D_LANES are summed by vector FMAs, the rest by a scalar
+# multiply and add; a kernel of DFT_TAPS cells or more goes to cv2's DFT
+# path, which filter2d does not model
+FILTER2D_LANES = 16
+DFT_TAPS = {np.dtype(np.float32): 130, np.dtype(np.float64): 50}
+
+
+def _fma_f32(acc: np.ndarray, k: np.float32, x: np.ndarray) -> np.ndarray:
+    """float32 fma(k, x, acc), correctly rounded: the exact product and
+    the sum rounded to odd in float64 (TwoSum, then one step toward the
+    error), then to float32 (53 >= 24 + 2 bits, so the second rounding is
+    the only one that counts)."""
+    a = acc.astype(np.float64)
+    p = np.float64(k) * x.astype(np.float64)  # exact: 24 + 24 bits
+    s = a + p
+    bb = s - a
+    err = (a - (s - bb)) + (p - bb)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((err != 0) & even, np.nextafter(s, np.copysign(np.inf, err)), s)
+    return s.astype(np.float32)
+
+
+def filter2d(img: np.ndarray, kernel: np.ndarray) -> np.ndarray:
+    """cv2.filter2D(img, -1, kernel) for a 2-D float32 or float64 image
+    and a float32 kernel: the centred anchor, delta 0, BORDER_REFLECT_101,
+    the direct path. The kernel's nonzero taps are summed in row-major
+    order, the first one's product rounded. In float64 each tap is a
+    multiply and an add; in float32 the columns below
+    FILTER2D_LANES * (W // FILTER2D_LANES) take one FMA a tap and the tail
+    columns a float32 multiply and add, as cv2's vector and scalar loops
+    do. A kernel of DFT_TAPS cells or more raises (cv2 switches to its DFT
+    there)."""
+    img = np.asarray(img)
+    kern = np.asarray(kernel, np.float32)
+    if img.ndim != 2 or img.dtype not in DFT_TAPS or kern.ndim != 2:
+        raise ValueError(f"filter2d takes a 2-D float32 or float64 image and a 2-D kernel, got "
+                         f"{img.dtype} {img.shape} and {kern.shape}")
+    kh, kw = kern.shape
+    if kh * kw >= DFT_TAPS[img.dtype]:
+        raise ValueError(f"a {kh}x{kw} kernel takes cv2.filter2D's DFT path for "
+                         f"{img.dtype} images, which filter2d does not model")
+    h, w = img.shape
+    ay, ax = kh // 2, kw // 2
+    src = np.pad(img, ((ay, kh - 1 - ay), (ax, kw - 1 - ax)), mode="reflect")
+    taps = [(y, x, kern[y, x]) for y in range(kh) for x in range(kw) if kern[y, x] != 0]
+    out = np.zeros_like(img)
+    vec = FILTER2D_LANES * (w // FILTER2D_LANES)
+    for i, (y, x, k) in enumerate(taps):
+        win = src[y:y + h, x:x + w]
+        if img.dtype == np.float64:
+            prod = np.float64(k) * win
+            out = prod if i == 0 else out + prod
+            continue
+        prod = k * win  # float32 product, rounded
+        if i == 0:
+            out = prod
+            continue
+        tail = out[:, vec:] + prod[:, vec:]
+        out = np.concatenate([_fma_f32(out[:, :vec], k, win[:, :vec]), tail], 1)
+    return out

@@ -5,14 +5,18 @@ of tpu_vo/io/dataset.py).
   (case-insensitive), lexicographically sorted (main.cpp:26-49).
 - parse_timestamp: std::stod on the filename stem, falling back to the
   frame index (main.cpp:146-151). stod parses a leading numeric prefix.
-- load_frame: decode to grayscale uint8. The port decodes PNG itself
-  with zlib and numpy (8-bit gray, RGB and RGBA, not interlaced, all five
-  row filters), so it needs no imaging library; color goes to gray with
-  tpu_vo's integer BT.601 weights. A JPEG, or a PNG outside that set
-  (16-bit, palette, interlaced, gray with alpha), raises a ValueError that
-  names the file and the reason.
-- write_png: the matching 8-bit gray/RGB/RGBA encoder, one filter for all
-  rows.
+- load_frame: decode to grayscale uint8 as tpu_vo's does through PIL
+  (Image.open(...).convert("RGB"), then the integer BT.601 weights, or
+  mode L as it is), with no imaging library: decode_png reads every PNG
+  (color types 0, 2, 3, 4 and 6 at every legal bit depth, PLTE with tRNS
+  read and dropped, Adam7 interlace, all five row filters; zlib + numpy)
+  and hands a JPEG to io/jpeg.decode (baseline). It gives PIL's values:
+  1-, 2- and 4-bit gray scaled to 0..255, 16-bit gray clipped to 255,
+  16-bit color and gray with alpha cut to their high byte, the alpha
+  dropped. A file it does not decode (progressive, arithmetic, 12-bit,
+  lossless or CMYK JPEG, a corrupt file) raises a ValueError that names
+  the file and the reason.
+- write_png: an 8-bit gray/RGB/RGBA encoder, one filter for all rows.
 """
 
 from __future__ import annotations
@@ -25,12 +29,17 @@ from typing import List, Optional
 
 import numpy as np
 
+from tpu_vo_torch.io import jpeg
+
 _EXTS = {".png", ".jpg", ".jpeg"}
 _STOD = re.compile(r"^[+-]?(\d+\.?\d*([eE][+-]?\d+)?|\.\d+([eE][+-]?\d+)?)")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# PNG color type -> channels, for the 8-bit types the decoder reads
-_CHANNELS = {0: 1, 2: 3, 6: 4}
-_UNSUPPORTED = {3: "palette", 4: "gray with alpha"}
+# PNG color type -> (samples a pixel, legal bit depths)
+_COLOR_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+                4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's passes: (first column, first row, column step, row step)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
 
 
 def list_image_paths(dataset_path: str) -> List[str]:
@@ -114,50 +123,90 @@ def _unfilter_row(ftype: int, line: np.ndarray, prior: np.ndarray, bpp: int,
     return np.asarray(cur, np.uint8)
 
 
+def _unfilter(raw: memoryview, h: int, w: int, channels: int, depth: int, path: str):
+    """(h, w, channels) samples of one image (or Adam7 pass) whose filtered
+    rows start `raw`; returns (samples as uint8 or uint16, bytes used)."""
+    stride = -(-w * channels * depth // 8)
+    if h == 0 or w == 0:
+        return np.zeros((h, w, channels), np.uint16 if depth == 16 else np.uint8), 0
+    size = h * (stride + 1)
+    if len(raw) < size:
+        raise ValueError(f"{path}: PNG image data holds {len(raw)} bytes, expected {size}")
+    rows = np.frombuffer(raw[:size], np.uint8).reshape(h, stride + 1)
+    bpp = max(1, channels * depth // 8)
+    out = np.empty((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        prior = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prior, bpp, path)
+    if depth == 16:
+        samples = out.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        samples = out
+    else:  # samples packed from the high bits of each byte
+        per = 8 // depth
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        samples = ((out[..., None] >> shifts) & ((1 << depth) - 1)).reshape(h, stride * per)
+    return samples[:, :w * channels].reshape(h, w, channels), size
+
+
+def _pil_values(samples: np.ndarray, ctype: int, depth: int, palette: np.ndarray):
+    """What PIL's decode followed by convert("RGB") (or mode L) makes of
+    the samples: (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA uint8."""
+    if ctype == 3:
+        return palette[samples[..., 0]]
+    if ctype in (0, 4):
+        g = samples[..., 0]
+        if depth == 16:  # I;16 clips to 255; LA;16 reads the high byte
+            return (np.minimum(g, 255) if ctype == 0 else g >> 8).astype(np.uint8)
+        return (g * (255 // ((1 << depth) - 1))).astype(np.uint8)  # 1, 2, 4 bits scaled
+    return (samples >> 8).astype(np.uint8) if depth == 16 else samples
+
+
 def decode_png(path: str) -> np.ndarray:
-    """(H, W) gray or (H, W, 3|4) RGB(A) uint8 pixels of an 8-bit,
-    non-interlaced gray, RGB or RGBA PNG file."""
+    """(H, W) gray or (H, W, 3|4) RGB(A) uint8 pixels of a PNG or JPEG
+    file, with the values PIL gives them: PNG gray types (gray, gray with
+    alpha, any depth) come out 2-D, palette and RGB as RGB, RGBA as RGBA;
+    a JPEG is decoded by io/jpeg.decode."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
-        raise ValueError(f"{path}: JPEG is not decoded by the port (it reads PNG only)")
+        return jpeg.decode(data, path)
     if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path}: not a PNG file")
-    header, idat = None, []
+        raise ValueError(f"{path}: not a PNG or JPEG file")
+    header, idat, palette = None, [], None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.zeros((256, 3), np.uint8)  # indices past the entries read black
+            entries = np.frombuffer(body[:len(body) // 3 * 3], np.uint8).reshape(-1, 3)
+            palette[:min(len(entries), 256)] = entries[:256]
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError(f"{path}: PNG without an IHDR chunk")
     w, h, depth, ctype, compression, filtering, interlace = header
-    if ctype in _UNSUPPORTED:
-        raise ValueError(f"{path}: {_UNSUPPORTED[ctype]} PNG is not supported "
-                         "(8-bit gray, RGB and RGBA only)")
-    if ctype not in _CHANNELS:
-        raise ValueError(f"{path}: invalid PNG color type {ctype}")
-    if depth != 8:
-        raise ValueError(f"{path}: {depth}-bit PNG is not supported (8-bit only)")
-    if interlace:
-        raise ValueError(f"{path}: interlaced PNG is not supported")
-    if compression or filtering:
-        raise ValueError(f"{path}: invalid PNG compression or filter method")
-    bpp = _CHANNELS[ctype]
-    stride = w * bpp
+    if ctype not in _COLOR_TYPES or depth not in _COLOR_TYPES[ctype][1]:
+        raise ValueError(f"{path}: invalid PNG color type {ctype} at bit depth {depth}")
+    if compression or filtering or interlace > 1:
+        raise ValueError(f"{path}: invalid PNG compression, filter or interlace method")
+    if ctype == 3 and palette is None:
+        raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+    channels = _COLOR_TYPES[ctype][0]
     try:
-        raw = zlib.decompress(b"".join(idat))
+        raw = memoryview(zlib.decompress(b"".join(idat)))
     except zlib.error as exc:
         raise ValueError(f"{path}: corrupt PNG image data ({exc})") from None
-    if len(raw) != h * (stride + 1):
-        raise ValueError(f"{path}: PNG image data holds {len(raw)} bytes, "
-                         f"expected {h * (stride + 1)}")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, stride + 1)
-    out = np.empty((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        prior = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prior, bpp, path)
-    return out.reshape(h, w) if bpp == 1 else out.reshape(h, w, bpp)
+    if interlace:
+        samples = np.empty((h, w, channels), np.uint16 if depth == 16 else np.uint8)
+        for x0, y0, dx, dy in ADAM7:
+            ph, pw = max(0, -(-(h - y0) // dy)), max(0, -(-(w - x0) // dx))
+            part, used = _unfilter(raw, ph, pw, channels, depth, path)
+            samples[y0::dy, x0::dx] = part
+            raw = raw[used:]
+    else:
+        samples, _ = _unfilter(raw, h, w, channels, depth, path)
+    return np.ascontiguousarray(_pil_values(samples, ctype, depth, palette))
 
 
 def load_frame(path: str, gray: bool = True) -> np.ndarray:

@@ -18,10 +18,14 @@ the others kept.
 The legs: the CPU tests' corridor and pan at 320x240 (T 16, seed 3);
 the card's corridor at 640x480 and 1241x376 (T 24, seed 3); the
 benchmark's configs 1, 2, 3, 4 (sequence 0) and 5 at their own T, W and
-H, seed 0; and config 7's five dynamic scenes (640x480, T 48, seed 0;
-tools/run_benchmarks). The scenes are rendered in the pool by frame
-ranges (utils/synthetic.submit_render), so config 3's 4K frames spread
-over the workers.
+H, seed 0; config 6's corridor (640x480, T 48) and pan (320x240, T 32),
+seed 0, each at the four nuisance levels (utils/synthetic.nuisance_level,
+seed 17; the record's `nuisance` names the level, and its frames and
+sha256 are the degraded ones); and config 7's five dynamic scenes
+(640x480, T 48, seed 0; tools/run_benchmarks). The scenes are rendered
+in the pool by frame ranges (utils/synthetic.submit_render), each scene
+once for all the legs that share it, so config 3's 4K frames spread over
+the workers.
 """
 
 from __future__ import annotations
@@ -54,8 +58,17 @@ LEGS = {
     "config5": ("corridor", 32, 640, 480, 0),
     "config3": ("corridor", 8, 3840, 2160, 0),
     **{f"config7_{k}": (f"dynamic_{k}", 48, 640, 480, 0) for k in synthetic.DYNAMIC_SCENES},
+    **{f"config6_{scene}_{level}": spec for scene, spec in (
+        ("corridor", ("corridor", 48, 640, 480, 0)), ("pan", ("pan", 32, 320, 240, 0)))
+       for level in synthetic.NUISANCE_LEVELS},
 }
+
 CPU_LEGS = ("cpu_corridor_320x240", "cpu_pan_320x240")
+
+
+def nuisance(name: str):
+    """The nuisance level of a config 6 leg (its name's last part), else None."""
+    return name.rsplit("_", 1)[1] if name.startswith("config6_") else None
 
 
 def ref_with_band(W: int, H: int, frames, k: int = SEEDS):
@@ -80,8 +93,13 @@ def make_leg(name: str, frames=None) -> dict:
     scene, T, W, H, seed = LEGS[name]
     if frames is None:
         frames = synthetic.render(scene, T, W, H, seed)[0]
+    level = nuisance(name)
+    if level is not None:
+        frames = synthetic.nuisance_level(frames, level)
     traj, rots, band, rels, ext = ref_with_band(W, H, frames)
     return {"scene": scene, "W": W, "H": H, "T": T, "seed": seed,
+            **({"nuisance": level, "nuisance_seed": synthetic.NUISANCE_SEED}
+               if level is not None else {}),
             "frames_sha256": synthetic.frames_sha256(frames),
             "t": np.asarray(traj, np.float64).tolist(),
             "R": np.asarray(rots, np.float64).tolist(),
@@ -119,8 +137,9 @@ def main(argv=None) -> int:
     legs = load(args.out) if os.path.exists(args.out) else {}
     with concurrent.futures.ProcessPoolExecutor(
             args.workers, mp_context=multiprocessing.get_context("spawn")) as pool:
-        renders = {n: synthetic.submit_render(pool, *LEGS[n]) for n in names}
-        made = [pool.submit(make_leg, n, synthetic.join_ranges([f.result() for f in renders[n]])[0])
+        renders = {spec: synthetic.submit_render(pool, *spec) for spec in {LEGS[n] for n in names}}
+        made = [pool.submit(make_leg, n,
+                            synthetic.join_ranges([f.result() for f in renders[LEGS[n]]])[0])
                 for n in names]
         for name, fut in zip(names, made):
             rec = legs[name] = fut.result()

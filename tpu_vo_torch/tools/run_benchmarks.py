@@ -12,6 +12,14 @@ benchmarks/run_benchmarks.py, those configs), on the card:
   5. corridor 640x480, 1000 keypoints, 32 frames: features, pairs, then
      models/refinement.refine_window (6 LM iterations) over every pair's
      RANSAC inliers before the chain;
+  6. photometric nuisances: the corridor at 640x480 (T 48) and the pan at
+     320x240 (T max(8, 2T/3) = 32), seed 0, 1200 keypoints, each at the
+     four utils/synthetic.NUISANCE_LEVELS (clean, mild, full, harsh;
+     degraded with seed 17 by apply_photometric_nuisances), frame_chunk 8
+     and pair_chunk T - 1: per scene and level the port's frames/s, its
+     and the reference's ATE over the extent and RPE against ground
+     truth, pose_ok, and parity with the committed leg
+     config6_<scene>_<level> (reported, not a gate);
   7. the five dynamic corridors of utils/synthetic.DYNAMIC_SCENES at
      640x480, 1200 keypoints, 48 frames (frame_chunk 8, pair_chunk the
      first of (9, 7, 11, 13, T - 1) that divides T - 1): the port's and
@@ -19,7 +27,7 @@ benchmarks/run_benchmarks.py, those configs), on the card:
      scenes the median share of keypoints on the object and of RANSAC
      inliers on it (`object_attribution`).
 
-    python -m tpu_vo_torch.tools.run_benchmarks [--configs 1,2,3,4,5,7] [--frames T]
+    python -m tpu_vo_torch.tools.run_benchmarks [--configs 1,2,3,4,5,6,7] [--frames T]
         [--out PATH] [--device cpu] [--workers N]
 
 Each config prints one JSON line: frames/s (median of the timed runs by
@@ -29,9 +37,10 @@ committed in data/reference_trajectories.json (tools/reference_band) and
 ground truth, and the parity verdict: the aligned relative ATE within the
 reference's own RANSAC scatter band (or 1%). With --frames T the
 frames differ from the committed leg's, and no reference is compared.
-Config 4's accuracy is its sequence 0's. Configs 3 and 7 carry the JAX
-harness's field names beside the port's own; config 7 prints a line per
-scene, then its config line. The lines also go to --out (default
+Config 4's accuracy is its sequence 0's. Configs 3, 6 and 7 carry the
+JAX harness's field names beside the port's own; config 6 prints a line
+per scene and level, config 7 one per scene, then each its config line.
+The lines also go to --out (default
 bench_out/run_benchmarks.jsonl in the repo, which git ignores). The
 frames are rendered on the host in --workers processes first, large
 scenes by frame ranges (utils/synthetic.submit_render).
@@ -61,23 +70,31 @@ from tpu_vo_torch.pipeline import runner
 from tpu_vo_torch.pipeline.step import pair_generators
 from tpu_vo_torch.tools import reference_band
 from tpu_vo_torch.utils import profiling, synthetic
-from tpu_vo_torch.utils.metrics import ate_rmse, extent, rpe, scale_matched_gt, trajectory_report
+from tpu_vo_torch.utils.metrics import (ate_rmse, ate_rmse_aligned, extent, rpe, scale_matched_gt,
+                                       trajectory_report)
 
 OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                    "bench_out", "run_benchmarks.jsonl")
-# config -> (T, W, H, keypoints, sequences, reference leg); config 7's
-# sequences are its scenes, each with the leg config7_<scene>
+# config -> (T, W, H, keypoints, sequences, reference leg); config 6's
+# and 7's sequences are their scenes, each with the leg
+# config6_<scene>_<level> or config7_<scene>; config 6's pan has its own
+# size and T (C6_SCENES)
 CONFIGS = {
     1: (96, 640, 480, 1000, 1, "config1"),
     2: (64, 1241, 376, 2000, 1, "config2"),
     3: (8, 3840, 2160, 8000, 1, "config3"),
     4: (64, 640, 480, 1000, 8, "config4_seq0"),
     5: (32, 640, 480, 1000, 1, "config5"),
+    6: (48, 640, 480, 1200, 2, "config6"),
     7: (48, 640, 480, 1200, len(synthetic.DYNAMIC_SCENES), "config7"),
 }
 NAMES = {1: "1_short_mono_640x480_1k", 2: "2_kitti_1241x376_2k",
          3: "3_highdensity_4k_8k_ratio", 4: "4_batched_8seq_one_card",
-         5: "5_window_triangulation_lm", 7: "7_dynamic_scene_robustness"}
+         5: "5_window_triangulation_lm", 6: "6_photometric_nuisance",
+         7: "7_dynamic_scene_robustness"}
+# config 6's scenes: name -> (W, H); the pan's T is max(8, 2T/3)
+C6_SCENES = {"corridor": (640, 480), "pan": (320, 240)}
+NUISANCE_LEVELS = synthetic.NUISANCE_LEVELS
 LM_ITERS = 6      # config 5's refine_window iterations
 FRAME_CHUNK = 8   # frames per stage-1 launch in every config but 3
 C3_FRAME_CHUNK = 2  # config 3's: two 4K frames a launch
@@ -127,17 +144,19 @@ def _timed(fn, dev: torch.device):
     return statistics.median(times), out
 
 
-def config_cfg(n: int) -> VOConfig:
-    """Config n's VOConfig (config 3 with the ratio test)."""
-    _, W, H, kps, _, _ = CONFIGS[n]
+def config_cfg(n: int, W: int = None, H: int = None) -> VOConfig:
+    """Config n's VOConfig (config 3 with the ratio test), at W x H in
+    place of the config's own size where given (config 6's pan)."""
+    _, W0, H0, kps, _, _ = CONFIGS[n]
     match = MatchConfig(use_ratio_test=True) if n == 3 else MatchConfig()
-    return VOConfig(image_width=W, image_height=H, orb=ORBConfig(n_features=kps), match=match)
+    return VOConfig(image_width=W or W0, image_height=H or H0, orb=ORBConfig(n_features=kps),
+                    match=match)
 
 
 def config_chunks(n: int, T: int):
     """(frame_chunk, pair_chunk) of config n at T frames: config 3's (2,
-    T - 1); config 7's (8, the first of (9, 7, 11, 13, T - 1) that
-    divides T - 1), as the JAX harness picks them."""
+    T - 1); config 6's and 7's (8, the first of (9, 7, 11, 13, T - 1)
+    that divides T - 1), as the JAX harness picks them."""
     if n == 3:
         return C3_FRAME_CHUNK, T - 1
     return FRAME_CHUNK, next(c for c in (9, 7, 11, 13, T - 1) if (T - 1) % c == 0)
@@ -184,14 +203,15 @@ def _gt_report(traj, R, Rs, ts) -> dict:
             **rpe(traj, gt_t, R, np.stack(Rs))}
 
 
-def run_scene_7(name: str, seq, dev: torch.device, legs: dict) -> dict:
-    """Config 7 on one scene, seq = (frames, Rs, ts, K, masks): the port's
-    run timed, its and the reference's accuracy against ground truth, and
-    on an object scene the attribution of keypoints and inliers."""
-    frames_np, Rs, ts, _, masks = seq
-    T, W, H = len(frames_np), CONFIGS[7][1], CONFIGS[7][2]
-    cfg = config_cfg(7)
-    fc, pc = config_chunks(7, T)
+def _scene_entry(n: int, frames_np, Rs, ts, dev: torch.device, rec):
+    """Config n (6 or 7) on one scene's frames: the port's run timed, its
+    and the reference's accuracy against ground truth (the reference from
+    `rec`, the committed leg, where its frames are these), and with the
+    reference the aligned ATE against it beside the leg's band; returns
+    (entry, the frames on `dev`, cfg, frame_chunk, pair_chunk)."""
+    T, H, W = len(frames_np), *frames_np[0].shape
+    cfg = config_cfg(n, W, H)
+    fc, pc = config_chunks(n, T)
     frames = torch.from_numpy(np.stack(frames_np)).to(dev)
     ms, (poses, diags) = _timed(lambda: runner.run_sequence_batched(
         frames, cfg, frame_chunk=fc, pair_chunk=pc, device=dev), dev)
@@ -202,14 +222,34 @@ def run_scene_7(name: str, seq, dev: torch.device, legs: dict) -> dict:
     ours = _gt_report(traj, our_R, Rs, ts)
     entry["tpu_vo_ate_vs_gt_rel"] = ours.pop("ate_vs_gt_rel")
     entry.update({"tpu_vo_" + k: v for k, v in ours.items()})
-    rec = legs.get(f"config7_{name}")
     if rec is not None and rec["frames_sha256"] == synthetic.frames_sha256(frames_np):
         ref_t, ref_R = reference_band.leg_arrays(rec)
         ref = _gt_report(ref_t, ref_R, Rs, ts)
         entry["ref_ate_vs_gt_rel"] = ref.pop("ate_vs_gt_rel")
         entry.update({"ref_" + k: v for k, v in ref.items()})
+        entry["ate_vs_reference_aligned_rel"] = ate_rmse_aligned(traj, ref_t) / extent(ref_t)
+        parity_verdict(entry, rec["band"])
     else:
         entry["reference"] = "none: the frames are not the committed leg's"
+    return entry, frames, cfg, fc, pc
+
+
+def run_scene_6(scene: str, level: str, frames_np, Rs, ts, dev: torch.device,
+                legs: dict) -> dict:
+    """Config 6 on one scene at one nuisance level (frames_np already
+    degraded)."""
+    entry = _scene_entry(6, frames_np, Rs, ts, dev, legs.get(f"config6_{scene}_{level}"))[0]
+    return {"scene": scene, "level": level, **entry}
+
+
+def run_scene_7(name: str, seq, dev: torch.device, legs: dict) -> dict:
+    """Config 7 on one scene, seq = (frames, Rs, ts, K, masks): the port's
+    run timed, its and the reference's accuracy against ground truth, and
+    on an object scene the attribution of keypoints and inliers."""
+    frames_np, Rs, ts, _, masks = seq
+    T, W, H = len(frames_np), CONFIGS[7][1], CONFIGS[7][2]
+    entry, frames, cfg, fc, pc = _scene_entry(7, frames_np, Rs, ts, dev,
+                                              legs.get(f"config7_{name}"))
     if name.startswith("obj"):
         feats = runner.detect_frames(frames, cfg, fc)
         est = runner.estimate_pairs(ORBFeatures(*(f[:-1] for f in feats)),
@@ -222,12 +262,22 @@ def run_scene_7(name: str, seq, dev: torch.device, legs: dict) -> dict:
 
 def run_config(n: int, seqs, dev: torch.device, legs: dict, tag: str) -> dict:
     """Config n on `seqs`, a list of (frames, Rs, ts, K) per sequence
-    (config 7: of (frames, Rs, ts, K, masks) per scene, in the order of
-    synthetic.DYNAMIC_SCENES)."""
+    (config 6: the clean corridor and pan, in the order of C6_SCENES, each
+    degraded here to every level; config 7: of (frames, Rs, ts, K, masks)
+    per scene, in the order of synthetic.DYNAMIC_SCENES)."""
     T, W, H, kps, B, leg = CONFIGS[n]
     T = len(seqs[0][0])
     cfg = config_cfg(n)
     res = {"config": NAMES[n], "frames": B * T}
+    if n == 6:
+        res.update(levels={}, device=tag)
+        for scene, (frames_np, Rs, ts, _) in zip(C6_SCENES, seqs):
+            for level in NUISANCE_LEVELS:
+                e = run_scene_6(scene, level, synthetic.nuisance_level(frames_np, level), Rs, ts,
+                                dev, legs)
+                res["levels"].setdefault(scene, {})[level] = e
+                print(json.dumps({**e, "device": tag}), flush=True)
+        return res
     if n == 7:
         res.update(scenes={}, device=tag)
         for name, seq in zip(synthetic.DYNAMIC_SCENES, seqs):
@@ -290,9 +340,14 @@ def run_config(n: int, seqs, dev: torch.device, legs: dict, tag: str) -> dict:
 
 
 def scene_spec(n: int, b: int, frames: int = None):
-    """render's (scene, T, W, H, seed) of config n's sequence b (config
-    7: its scene b, seed 0); `frames` in place of the config's T."""
+    """render's (scene, T, W, H, seed) of config n's sequence b (configs
+    6 and 7: its scene b, seed 0; config 6's pan at max(8, 2T/3) frames);
+    `frames` in place of the config's T."""
     T, W, H = CONFIGS[n][:3]
+    if n == 6:
+        scene = list(C6_SCENES)[b]
+        T = frames or T
+        return (scene, T if scene == "corridor" else max(8, T * 2 // 3), *C6_SCENES[scene], 0)
     if n == 7:
         return (f"dynamic_{list(synthetic.DYNAMIC_SCENES)[b]}", frames or T, W, H, 0)
     return ("corridor", frames or T, W, H, b)
@@ -300,7 +355,7 @@ def scene_spec(n: int, b: int, frames: int = None):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--configs", default="1,2,3,4,5,7")
+    ap.add_argument("--configs", default="1,2,3,4,5,6,7")
     ap.add_argument("--frames", type=int, default=None, help="T in place of each config's own")
     ap.add_argument("--out", default=OUT)
     ap.add_argument("--device", default=None, help="cpu to run on the host")

@@ -8,7 +8,12 @@ occluding pillars or a low-texture stretch, and the object's masks), and
 edge. `render(scene, ...)` draws a scene of `SCENES` by name (config 7's
 as `dynamic_<name>`), `render_range` only a range of its frames (bit for
 bit the same), and `submit_render` spreads a large scene over a process
-pool by ranges.
+pool by ranges. `apply_photometric_nuisances` degrades frames as
+tpu_vo's does (exposure flicker, motion blur, shot and read noise, a JPEG
+round trip), equal to it bit for bit through image/filters.filter2d and
+io/jpeg.roundtrip_gray in place of cv2; `NUISANCE_LEVELS` are config 6's
+levels and `nuisance_level` applies one. `write_dataset` writes frames
+as zero-padded PNGs.
 
 The JAX package renders with cv2. Here `make_sequence` blurs with
 scipy.ndimage.gaussian_filter and warps with map_coordinates. The
@@ -588,6 +593,114 @@ def frames_sha256(frames) -> str:
     for f in frames:
         h.update(np.ascontiguousarray(f, dtype=np.uint8).tobytes())
     return h.hexdigest()
+
+
+def apply_photometric_nuisances(
+    frames: List[np.ndarray],
+    seed: int = 0,
+    full_well: float = 1500.0,
+    read_noise_std: float = 2.0,
+    exposure_amp: float = 0.25,
+    exposure_period: float = 7.0,
+    blur_len_px: float = 3.0,
+    jpeg_quality: int = 70,
+    which: Tuple[str, ...] = ("noise", "exposure", "blur", "jpeg"),
+) -> List[np.ndarray]:
+    """Degrade clean renders with real-camera photometric nuisances, as
+    tpu_vo.utils.synthetic.apply_photometric_nuisances does: the same
+    np.random.default_rng(seed) draws in the same order (the exposure
+    normal, the blur's two uniforms, the Poisson draw, the read-noise
+    normal) and the same arithmetic, written with explicit dtypes (the
+    exposure gain is a float64 scalar, so the gained frame is float64, as
+    numpy 2 promotes it).
+
+      noise:    shot noise (Poisson at `full_well` electrons full-scale)
+                plus Gaussian read noise of `read_noise_std` DN;
+      exposure: gain x(1 + exposure_amp sin(2 pi i / exposure_period))
+                with per-frame jitter;
+      blur:     a box PSF along a random direction, of random length in
+                [0.5, 1.5] x blur_len_px (image/filters.filter2d, cv2's
+                filter2D);
+      jpeg:     a baseline round trip at `jpeg_quality`
+                (io/jpeg.roundtrip_gray, cv2's imencode and imdecode).
+
+    Returns new uint8 frames; the input list is untouched.
+    """
+    # imported here, so that a render worker that degrades nothing loads no torch
+    from tpu_vo_torch.image.filters import filter2d
+    from tpu_vo_torch.io.jpeg import roundtrip_gray
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, f in enumerate(frames):
+        g = np.asarray(f, np.float32)
+        if "exposure" in which:
+            gain = 1.0 + exposure_amp * np.sin(2 * np.pi * i / exposure_period)
+            gain *= 1.0 + rng.normal(0.0, exposure_amp / 8.0)
+            g = g.astype(np.float64) * np.float64(gain)
+        if "blur" in which:
+            ln = blur_len_px * rng.uniform(0.5, 1.5)
+            k = max(1, int(round(ln)))
+            if k > 1:
+                ang = rng.uniform(0, np.pi)
+                size = k if k % 2 == 1 else k + 1
+                kern = np.zeros((size, size), np.float32)
+                c = size // 2
+                for s in np.linspace(-c, c, 4 * size):
+                    x = int(round(c + s * np.cos(ang)))
+                    y = int(round(c + s * np.sin(ang)))
+                    if abs(s) <= ln / 2 and 0 <= x < size and 0 <= y < size:
+                        kern[y, x] = 1.0
+                kern /= max(kern.sum(), 1e-9)
+                g = filter2d(g, kern)
+        if "noise" in which:
+            electrons = np.clip(g, 0, 255) / 255.0 * full_well
+            shot = rng.poisson(electrons).astype(np.float32)
+            g = shot / full_well * 255.0
+            g = g + rng.normal(0.0, read_noise_std, g.shape).astype(np.float32)
+        u8 = np.clip(g, 0, 255).astype(np.uint8)
+        if "jpeg" in which:
+            u8 = roundtrip_gray(u8, int(jpeg_quality))
+        out.append(u8)
+    return out
+
+
+# config 6's levels (benchmarks/run_benchmarks.py): name ->
+# apply_photometric_nuisances arguments (None: the clean frames)
+NUISANCE_LEVELS = {
+    "clean": None,
+    "mild": dict(read_noise_std=1.0, exposure_amp=0.10, blur_len_px=2.0,
+                 jpeg_quality=85),
+    "full": dict(read_noise_std=2.0, exposure_amp=0.25, blur_len_px=3.0,
+                 jpeg_quality=70),
+    "harsh": dict(read_noise_std=4.0, exposure_amp=0.40, blur_len_px=5.0,
+                  jpeg_quality=50),
+}
+NUISANCE_SEED = 17  # the JAX harness degrades every level with this seed
+
+
+def nuisance_level(frames: List[np.ndarray], level: str,
+                   seed: int = NUISANCE_SEED) -> List[np.ndarray]:
+    """The frames at one of NUISANCE_LEVELS, as config 6 degrades them."""
+    kwargs = NUISANCE_LEVELS[level]
+    return list(frames) if kwargs is None else apply_photometric_nuisances(
+        frames, seed=seed, **kwargs)
+
+
+def write_dataset(path: str, frames: List[np.ndarray]) -> None:
+    """Write frames as zero-padded PNGs (the reference's dataset layout)
+    through io/dataset.write_png; a 3- or 4-channel frame is taken as BGR
+    or BGRA, as tpu_vo's cv2.imwrite takes it."""
+    import os
+
+    from tpu_vo_torch.io.dataset import write_png  # imported here: io loads torch
+
+    os.makedirs(path, exist_ok=True)
+    for i, f in enumerate(frames):
+        f = np.asarray(f)
+        if f.ndim == 3:
+            f = np.concatenate([f[..., 2::-1], f[..., 3:]], -1)
+        write_png(os.path.join(path, f"{i:06d}.png"), np.ascontiguousarray(f))
 
 
 def compass_pattern(b: int, h: int, w: int, threshold: int, seed: int = 0) -> np.ndarray:
