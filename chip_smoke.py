@@ -50,7 +50,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and poses/00.txt, run by tpu_vo_torch.cli.main on the card, counters
      reset just before; check that B1 and B2 launched once per frame, the
      three trajectory files hold 24 poses and an ATE figure was printed;
-     it prints which decoder the CLI ran;
+     it prints which decoder the CLI ran and its ms a frame (host clock
+     between frames, median);
+  4d2. the CLI's default run (the 3D trajectory viewer rendering the
+     whole trajectory every frame, the 7 screenshots at the end) over the
+     same tree, counters reset just before: B1 and B2 launch once a
+     frame, render_step runs once a frame, the positions equal the
+     --no-viewer run's (max diff 0), the 7 files exist, each decodes
+     through io/jpeg.decode to (768, 1024, 3) and equals encode_rgb of
+     the port's own render of its view byte for byte;
+     process_frame(render_overlay=True) on the card gives the overlay that
+     draw_keypoints_overlay draws from a CPU copy of the same features;
+     where the native loader was built, Adam7 PNGs (gray, palette) decode
+     through it to the Python reader's pixels, else it says why not; it
+     prints the CLI's ms a frame with and without the viewer, render_step's
+     ms at 24 and at 1000 poses and the screenshots' seconds (host clock);
   4e. the ingest path: make_sequence(64, 1241, 376, seed=0) written as
      Paeth PNG files; NativeDataset's frames equal them bit for bit and
      in order, and a packed .vobin reads them back; PrefetchLoader(device=
@@ -217,7 +231,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tpu_vo_torch import api, cli  # noqa: E402
-from tpu_vo_torch.configs import MatchConfig, ORBConfig, RansacConfig, VOConfig  # noqa: E402
+from tpu_vo_torch.configs import (MatchConfig, ORBConfig, RansacConfig, VOConfig,  # noqa: E402
+                                  ViewerConfig)
 from tpu_vo_torch.estimation.ransac import first_argmax  # noqa: E402
 from tpu_vo_torch.features import brief, fast, orb, orientation, patches  # noqa: E402
 from tpu_vo_torch.features.fast import _border_mask as fast_border  # noqa: E402
@@ -225,7 +240,8 @@ from tpu_vo_torch.image.filters import gaussian_blur  # noqa: E402
 from tpu_vo_torch.image.pyramid import build_pyramid  # noqa: E402
 from tpu_vo_torch.io import native_loader  # noqa: E402
 from tpu_vo_torch.io.dataset import list_image_paths, load_frame, write_png  # noqa: E402
-from tpu_vo_torch.io.jpeg import decode as jpeg_decode, encode_gray, roundtrip_gray  # noqa: E402
+from tpu_vo_torch.io.jpeg import (decode as jpeg_decode, encode_gray, encode_rgb,  # noqa: E402
+                                  roundtrip_gray)
 from tpu_vo_torch.io.loader import PrefetchLoader  # noqa: E402
 from tpu_vo_torch.io.kitti import load_kitti_poses  # noqa: E402
 from tpu_vo_torch.io.trajectory_io import load_trajectory_tum  # noqa: E402
@@ -249,6 +265,9 @@ from tpu_vo_torch.utils.profiling import card as _card, cuda_times  # noqa: E402
 from tpu_vo_torch.utils import synthetic  # noqa: E402
 from tpu_vo_torch.utils.metrics import ate_rmse_aligned, trajectory_report  # noqa: E402
 from tpu_vo_torch.utils.synthetic import compass_pattern, make_sequence  # noqa: E402
+from tpu_vo_torch.geometry.se3 import Pose  # noqa: E402
+from tpu_vo_torch.viz.overlay import draw_keypoints_overlay  # noqa: E402
+from tpu_vo_torch.viz.trajectory import TrajectoryRenderer, view_eyes  # noqa: E402
 
 W, H, T = 1241, 376, 32
 # P1's 128- and 512-lane bands, which the probe's sweep runs only at 16
@@ -279,6 +298,8 @@ OPTIONS = {"ratio test": {"match": MatchConfig(use_ratio_test=True)},
            "8-point samples": {"ransac": RansacConfig(use_five_point=False)},
            "min_valid_fraction 0.5": {"ransac": RansacConfig(min_valid_fraction=0.5)}}
 CLI_T = 24            # frames of the CLI phase
+VIEWER_POSES = 1000   # synthetic poses of the larger render_step timing
+VIEWER_REPS = 5       # timed render_step calls at each size
 # The ingest phase (4e): bench.py's 64 frames, written as Paeth PNG files;
 # the streamed runner over the native loader's chunks of 64 (bench.py's
 # e2e leg) and over io_bench's host chunks of 16, against the batched
@@ -632,44 +653,191 @@ def _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
     return stream_launches
 
 
-def _cli_phase(frames_np, Rs, ts, K, kernels, card):
-    """tpu_vo_torch.cli.main over a KITTI tree of the frames as PNG
-    files, counted; its three trajectory files and its ATE line."""
-    n = len(frames_np)
-    with tempfile.TemporaryDirectory() as root:
-        seq_dir = _write_kitti_tree(root, frames_np, Rs, ts, K)
-        out_dir = os.path.join(root, "out")
-        png = os.path.join(seq_dir, "image_0")
-        decode_ms = {}
-        for i, name in ((0, "no filter"), (4, "Paeth")):
-            t0 = time.perf_counter()
-            load_frame(os.path.join(png, f"{i:06d}.png"))
-            decode_ms[name] = (time.perf_counter() - t0) * 1e3
+@contextlib.contextmanager
+def _frame_clock():
+    """cli.vo_step wrapped to note the host clock as each frame's step
+    starts; yields the list of those times."""
+    stamps, step = [], cli.vo_step
+
+    def timed(*args, **kwargs):
+        stamps.append(time.perf_counter())
+        return step(*args, **kwargs)
+
+    cli.vo_step = timed
+    try:
+        yield stamps
+    finally:
+        cli.vo_step = step
+
+
+def _ms_per_frame(stamps) -> float:
+    """Median ms between successive frames' steps, the first interval
+    (the loop's warm-up) left out."""
+    return float(np.median(np.diff(stamps)[1:])) * 1e3
+
+
+def _cli_phase(seq_dir, n, K, kernels, card):
+    """tpu_vo_torch.cli.main --no-viewer over the KITTI tree of n PNG
+    frames, counted; its three trajectory files and its ATE line. Returns
+    (launches, the npz's positions, ms a frame)."""
+    png = os.path.join(seq_dir, "image_0")
+    decode_ms = {}
+    for i, name in ((0, "no filter"), (4, "Paeth")):
+        t0 = time.perf_counter()
+        load_frame(os.path.join(png, f"{i:06d}.png"))
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as out_dir:
         _reset(kernels)
         text = io.StringIO()
         t0 = time.perf_counter()
-        with contextlib.redirect_stdout(text):
+        with _frame_clock() as stamps, contextlib.redirect_stdout(text):
             rc = cli.main([seq_dir, "--no-viewer", "--quiet", "--out-dir", out_dir])
         cli_s = time.perf_counter() - t0
         cli_launches = {name: k.launches for name, k in kernels.items()}
         text = text.getvalue()
-        stamps, _ = load_trajectory_tum(os.path.join(out_dir, "trajectory_tum.txt"))
+        stamps_tum, _ = load_trajectory_tum(os.path.join(out_dir, "trajectory_tum.txt"))
         kitti_R, _ = load_kitti_poses(os.path.join(out_dir, "trajectory_kitti.txt"))
         with np.load(os.path.join(out_dir, "trajectory.npz")) as z:
-            n_npz = len(z["t"])
+            cli_t = z["t"]
+    ms = _ms_per_frame(stamps)
     lines = [ln.strip() for ln in text.splitlines()
              if "ate_rmse=" in ln or "Throughput" in ln or ln.startswith("Decoder:")]
-    print(f"CLI over a KITTI tree of {n} PNG frames: exit {rc}, {cli_s:.3f} s in all, "
-          f"launches {cli_launches}, poses in the TUM/KITTI/npz files {len(stamps)}/"
-          f"{len(kitti_R)}/{n_npz}; {' | '.join(lines)}; PNG decode of one {K[0, 2] * 2:.0f}x{K[1, 2] * 2:.0f} "
+    print(f"CLI --no-viewer over a KITTI tree of {n} PNG frames: exit {rc}, {cli_s:.3f} s in all, "
+          f"{ms:.3f} ms a frame (host clock between frames, median), launches {cli_launches}, "
+          f"poses in the TUM/KITTI/npz files {len(stamps_tum)}/{len(kitti_R)}/{len(cli_t)}; "
+          f"{' | '.join(lines)}; PNG decode of one {K[0, 2] * 2:.0f}x{K[1, 2] * 2:.0f} "
           f"frame (host): {decode_ms['no filter']:.1f} ms unfiltered, {decode_ms['Paeth']:.1f} ms "
           f"Paeth [{card}]", flush=True)
-    if (rc != 0 or (len(stamps), len(kitti_R), n_npz) != (n,) * 3
+    if (rc != 0 or (len(stamps_tum), len(kitti_R), len(cli_t)) != (n,) * 3
             or not any("ate_rmse=" in ln for ln in lines)
             or not any(ln.startswith("Decoder:") for ln in lines)
             or cli_launches["select_maps"] != n or cli_launches["extract_patches"] != n):
         raise AssertionError("the CLI run failed its checks")
-    return cli_launches
+    return cli_launches, cli_t, ms
+
+
+def _median_ms(fn, reps=VIEWER_REPS) -> float:
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _viewer_phase(seq_dir, frames_np, cfg, cli_t, cli_ms, missing, kernels, card):
+    """Phase 4d2: the CLI's default run over the same tree, counted, with
+    render_step counted and each screenshot checked against the port's own
+    render; the overlay on the card against a CPU copy of its features;
+    the native loader on Adam7 PNGs. Returns the run's launches."""
+    n = len(frames_np)
+    renders, shot_s = [], []
+    render_step, save_shots = api.TrajectoryViewer.render_step, cli.save_trajectory_screenshots
+
+    def counted_render(self, poses):
+        renders.append(len(poses))
+        return render_step(self, poses)
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        ok = save_shots(*args, **kwargs)
+        shot_s.append(time.perf_counter() - t0)
+        return ok
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        api.TrajectoryViewer.render_step, cli.save_trajectory_screenshots = counted_render, timed_save
+        try:
+            _reset(kernels)
+            text = io.StringIO()
+            with _frame_clock() as stamps, contextlib.redirect_stdout(text):
+                rc = cli.main([seq_dir, "--quiet", "--out-dir", out_dir])
+            launches = {name: k.launches for name, k in kernels.items()}
+        finally:
+            api.TrajectoryViewer.render_step, cli.save_trajectory_screenshots = render_step, save_shots
+        ms = _ms_per_frame(stamps)
+        with np.load(os.path.join(out_dir, "trajectory.npz")) as z:
+            R, t = z["R"], z["t"]
+        pos_diff = float(np.abs(t - cli_t).max()) if t.shape == cli_t.shape else float("inf")
+        shots = os.path.join(out_dir, "trajectory_screenshots")
+        names = sorted(os.listdir(shots)) if os.path.isdir(shots) else []
+        renderer = TrajectoryRenderer(ViewerConfig())
+        renderer.build_scene(Pose(torch.from_numpy(R), torch.from_numpy(t)))
+        segments = len(renderer.segments[0])
+        bad = []
+        for tag, eye, center, up in view_eyes(t.astype(np.float64)):
+            path = os.path.join(shots, f"trajectory_view_from_{tag}.jpg")
+            data = b""
+            if os.path.exists(path):
+                with open(path, "rb") as f:
+                    data = f.read()
+            own = encode_rgb(renderer.render(eye, center, up), ViewerConfig().jpeg_quality)
+            if data != own or jpeg_decode(data, path).shape != (768, 1024, 3):
+                bad.append(tag)
+        saved = f"Saved trajectory screenshots to: {shots}" in text.getvalue()
+    print(f"CLI default run (viewer every frame, 7 screenshots) over the same {n} frames: exit "
+          f"{rc}, {ms:.3f} ms a frame against {cli_ms:.3f} with --no-viewer (host clock between "
+          f"frames, median), launches {launches}, render_step called {len(renders)} times, "
+          f"positions against the --no-viewer run: max diff {pos_diff:.3e}; screenshots "
+          f"{len(names)} files in {shot_s[0] if shot_s else float('nan'):.3f} s, each equal to "
+          f"encode_rgb of its own render and (768, 1024, 3) through io/jpeg.decode: "
+          f"{not bad and len(names) == 7} [{card}]", flush=True)
+    if (rc != 0 or renders != list(range(1, n + 1)) or pos_diff != 0.0 or bad or len(names) != 7
+            or not saved or launches["select_maps"] != n or launches["extract_patches"] != n):
+        raise AssertionError(f"the CLI's default run failed its checks (views off: {bad})")
+
+    viewer = api.TrajectoryViewer()
+    traj = [Pose(torch.from_numpy(r), torch.from_numpy(c)) for r, c in zip(R, t)]
+    ms24 = _median_ms(lambda: viewer.render_step(traj))
+    rng = np.random.default_rng(0)
+    walk = np.cumsum(rng.normal(0.0, 0.05, (VIEWER_POSES, 3)) + [0.0, 0.0, 0.3], 0)
+    big = [Pose(torch.eye(3), torch.from_numpy(c.astype(np.float32))) for c in walk]
+    ms_big = _median_ms(lambda: viewer.render_step(big))
+    renderer.build_scene(Pose(torch.eye(3).expand(VIEWER_POSES, 3, 3), torch.from_numpy(walk)))
+    print(f"render_step (build_scene + render, 1024x768): {ms24:.3f} ms at {n} poses "
+          f"({segments} segments), {ms_big:.3f} ms at {VIEWER_POSES} poses "
+          f"({len(renderer.segments[0])} segments); median of {VIEWER_REPS}, host clock [{card}]",
+          flush=True)
+
+    vo = api.VisualOdometry(cfg.image_width, cfg.image_height, config=cfg)
+    vo.process_frame(api.Frame.from_image(0, frames_np[0]))
+    frame = api.Frame.from_image(1, frames_np[1])
+    t0 = time.perf_counter()
+    overlay = vo.process_frame(frame, render_overlay=True)
+    overlay_ms = (time.perf_counter() - t0) * 1e3
+    prev = vo._state.prev
+    if prev.xy.device.type != "cuda":
+        raise AssertionError("the facade's features are not on the card")
+    cpu = type(prev)(*(x.cpu() for x in prev))
+    want = draw_keypoints_overlay(frames_np[1], cpu)
+    valid = cpu.valid.numpy()
+    same = (overlay.shape == want.shape and np.array_equal(overlay, want)
+            and np.array_equal(frame.keypoints, cpu.xy.numpy()[valid])
+            and np.array_equal(frame.descriptors, cpu.desc.numpy()[valid]))
+    print(f"process_frame(render_overlay=True) on the card: {int(valid.sum())} keypoints, "
+          f"overlay {overlay.shape} equal to draw_keypoints_overlay of a CPU copy of the "
+          f"features: {same}; {overlay_ms:.3f} ms for the frame with its overlay [{card}]",
+          flush=True)
+    if not same:
+        raise AssertionError("the overlay on the card differs from the CPU copy's")
+
+    if missing:
+        print(f"native loader on Adam7 PNGs: skipped, png.h or jpeglib.h missing on this host "
+              f"({' '.join(missing.split())[:160]}); the CLI here reads through the Python "
+              f"decoder", flush=True)
+    else:
+        with tempfile.TemporaryDirectory() as d:
+            for i, f in enumerate(frames_np[:4]):
+                _png_variant(os.path.join(d, f"{i:06d}.png"), f, palette=i % 2 == 0)
+            with native_loader.NativeDataset(d) as ds:
+                got = list(ds)
+            paths = list_image_paths(d)
+            if [i for i, _ in got] != [0, 1, 2, 3] or any(
+                    not np.array_equal(f, load_frame(p)) for (_, f), p in zip(got, paths)):
+                raise AssertionError("the native loader does not read Adam7 PNGs as the Python "
+                                     "reader does")
+        print("native loader on Adam7 PNGs: 4 frames (Adam7 gray, palette) equal the Python "
+              "reader's", flush=True)
+    return launches
 
 
 def _png_variant(path, img, palette: bool) -> None:
@@ -1484,8 +1652,15 @@ def _run(card, dev, pool) -> int:
         _card_vs_cpu(f"small sequence, {name}", small, small_gt,
                      VOConfig(image_width=SMALL_W, image_height=SMALL_H, **option))
 
-    # 4d. the CLI over a KITTI tree of PNG frames, counted
-    cli_counts = _cli_phase(frames_np[:CLI_T], Rs_gt[:CLI_T], ts_gt[:CLI_T], K_gt, kernels, card)
+    # 4d. the CLI over a KITTI tree of PNG frames, counted; 4d2. its
+    # default run, viewer and screenshots, over the same tree, counted
+    with tempfile.TemporaryDirectory() as root:
+        seq_dir = _write_kitti_tree(root, frames_np[:CLI_T], Rs_gt[:CLI_T], ts_gt[:CLI_T], K_gt)
+        cli_counts, cli_t, cli_ms = _cli_phase(seq_dir, CLI_T, K_gt, kernels, card)
+        t0 = time.perf_counter()
+        viewer_counts = _viewer_phase(seq_dir, frames_np[:CLI_T], cfg, cli_t, cli_ms,
+                                      native_missing, kernels, card)
+        print(f"phase CLI default run: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4e. the ingest path: native decode, PrefetchLoader, the streamed
     # runner (counted), io_bench
@@ -1590,7 +1765,7 @@ def _run(card, dev, pool) -> int:
     # 5c-5e. the accuracy path, counted: parity with the reference, config
     # 5's window refinement, config 4's batch of sequences
     path_launches = {"main": launches, "streaming (32 frames)": stream_counts,
-                     "CLI (24 frames)": cli_counts,
+                     "CLI (24 frames)": cli_counts, "CLI default run (24 frames)": viewer_counts,
                      **{f"streamed, {k} ({INGEST_T} frames)": c
                         for k, c in ingest_counts.items()}, **variant_counts}
     for name, phase in (("parity (2 legs x 5 seeds)", _parity_phase),

@@ -2,8 +2,11 @@
 (`python -m tpu_vo_torch.cli`) end to end on the CPU, on a
 sequences/00 tree of 4 PNG frames, calib.txt, times.txt and
 poses/00.txt that the test writes: calibrated K, times.txt stamps, the
-three trajectory files, the ATE report, checkpoints and --resume; and
-what it refuses (no --no-viewer, --show, no card without --device)."""
+three trajectory files, the ATE report, checkpoints and --resume; the
+default run (the trajectory viewer rendering every frame, the 7
+screenshots, the same positions as --no-viewer); --show without a
+display; and what it refuses (a missing dataset, no card without
+--device)."""
 
 import os
 
@@ -12,7 +15,7 @@ import pytest
 import torch
 
 from tpu_vo.io import kitti as jkitti
-from tpu_vo_torch import cli
+from tpu_vo_torch import api, cli
 from tpu_vo_torch.io import kitti, trajectory_io
 from tpu_vo_torch.io.dataset import write_png
 from tpu_vo_torch.utils.synthetic import make_sequence
@@ -96,14 +99,72 @@ def test_cli_end_to_end(tree, tmp_path, capsys):
     np.testing.assert_array_equal(R2, R[2:])
 
 
-def test_cli_refuses_what_is_not_ported(tree, capsys, monkeypatch):
-    plain = [a for a in ARGS if a != "--no-viewer"]
-    assert cli.main([tree, *plain]) != 0
-    assert cli.main([tree, *ARGS, "--show"]) != 0
-    assert "not ported yet" in capsys.readouterr().err
+VIEWS = ["posX", "negX", "posY", "negY", "posZ", "negZ", "iso"]
+
+
+@pytest.fixture(scope="module")
+def default_run(tree, tmp_path_factory):
+    """The CLI without --no-viewer, render_step counted, and the same run
+    with --no-viewer: (out dir, trajectory lengths render_step saw,
+    no-viewer out dir)."""
+    out = str(tmp_path_factory.mktemp("default"))
+    plain = str(tmp_path_factory.mktemp("plain"))
+    calls = []
+    orig = api.TrajectoryViewer.render_step
+
+    def counting(self, poses):
+        calls.append(len(poses))
+        return orig(self, poses)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(api.TrajectoryViewer, "render_step", counting)
+        viewer = [a for a in ARGS if a != "--no-viewer"]
+        assert cli.main([tree, *viewer, "--quiet", "--out-dir", out]) == 0
+    assert cli.main([tree, *ARGS, "--quiet", "--out-dir", plain]) == 0
+    return out, calls, plain
+
+
+def test_cli_default_run_writes_the_7_screenshots(default_run):
+    out, _, _ = default_run
+    shots = os.path.join(out, "trajectory_screenshots")
+    assert sorted(os.listdir(shots)) == sorted(f"trajectory_view_from_{v}.jpg" for v in VIEWS)
+    from tpu_vo_torch.io import jpeg
+
+    for name in os.listdir(shots):
+        with open(os.path.join(shots, name), "rb") as f:
+            assert jpeg.decode(f.read()).shape == (768, 1024, 3)
+
+
+def test_cli_renders_the_trajectory_every_frame(default_run):
+    _, calls, _ = default_run
+    assert calls == [1, 2, 3, 4]  # each over the whole trajectory so far
+
+
+def test_cli_default_run_positions_equal_no_viewer(default_run):
+    out, _, plain = default_run
+    a, b = (kitti.load_kitti_poses(os.path.join(d, "trajectory_kitti.txt")) for d in (out, plain))
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+def test_cli_show_without_a_display_runs_headless(tree, tmp_path, capsys, monkeypatch):
+    monkeypatch.delenv("DISPLAY", raising=False)
+    monkeypatch.delenv("WAYLAND_DISPLAY", raising=False)
+    assert cli.main([tree, *ARGS, "--show", "--quiet", "--max-frames", "2",
+                     "--out-dir", str(tmp_path)]) == 0
+    captured = capsys.readouterr()
+    assert "--show disabled: " in captured.err and "Continuing headless" in captured.err
+    assert "Saved trajectory screenshots to: " in captured.out
+
+
+def test_cli_without_a_card_refuses(tree, capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     no_device = [a for a in ARGS if a not in ("--device", "cpu")]
     assert cli.main([tree, *no_device]) != 0
     assert "no CUDA device" in capsys.readouterr().err
-    assert cli.main(["/nonexistent_dir_xyz", "--no-viewer"]) != 0
+
+
+def test_cli_missing_dataset_exits_nonzero(capsys):
+    assert cli.main(["/nonexistent_dir_xyz"]) != 0
     assert "Dataset directory not found" in capsys.readouterr().err
+    assert cli.main(["/nonexistent_dir_xyz", "--no-viewer"]) != 0

@@ -1,5 +1,5 @@
 """The port's configs equal tpu_vo's, and tpu_vo_torch imports neither
-jax, tpu_vo, the repo's tools/ nor (at import) cv2."""
+jax, tpu_vo, the repo's tools/, PIL nor (at import) cv2."""
 
 import dataclasses
 import subprocess
@@ -57,14 +57,14 @@ _BLOCKED_IMPORT = r"""
 import importlib, pkgutil, sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "tpu_vo", "tools", "cv2"):
+        if name.split(".")[0] in ("jax", "jaxlib", "tpu_vo", "tools", "cv2", "PIL"):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import tpu_vo_torch
 mods = [m.name for m in pkgutil.walk_packages(tpu_vo_torch.__path__, "tpu_vo_torch.")]
 for m in mods:
     importlib.import_module(m)
-assert not any(k.split(".")[0] in ("jax", "tpu_vo", "tools", "cv2") for k in sys.modules)
+assert not any(k.split(".")[0] in ("jax", "tpu_vo", "tools", "cv2", "PIL") for k in sys.modules)
 print(" ".join(mods))
 """
 
@@ -92,6 +92,15 @@ INGEST_MODULES = ["tpu_vo_torch.io", "tpu_vo_torch.io.native_loader", "tpu_vo_to
                   "tpu_vo_torch.tools.io_bench"]
 
 
+# The viewer's modules and the user tools, which replace tpu_vo modules that
+# draw with PIL or import jax; cv2 only inside viz/gui's function
+VIZ_MODULES = ["tpu_vo_torch.viz", "tpu_vo_torch.viz.raster", "tpu_vo_torch.viz.overlay",
+               "tpu_vo_torch.viz.trajectory", "tpu_vo_torch.viz.epipolar", "tpu_vo_torch.viz.gui",
+               "tpu_vo_torch.utils.profiling", "tpu_vo_torch.geometry.conventions",
+               "tpu_vo_torch.tools.make_synthetic_dataset",
+               "tpu_vo_torch.tools.evaluate_trajectory"]
+
+
 def test_port_imports_without_jax_or_tpu_vo():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
                          capture_output=True, text=True, timeout=300)
@@ -102,3 +111,4 @@ def test_port_imports_without_jax_or_tpu_vo():
     assert set(STREAM_MODULES) <= set(mods)
     assert set(ACCURACY_MODULES) <= set(mods)
     assert set(INGEST_MODULES) <= set(mods)
+    assert set(VIZ_MODULES) <= set(mods)

@@ -5,7 +5,10 @@ loader:
 
   - native decode equals tpu_vo's load_frame (PIL) and the port's own
     load_frame bit for bit: gray, RGB and RGBA PNGs with each row filter,
-    gray and RGB JPEGs;
+    gray and RGB JPEGs; gray 8, RGB 8, palette, gray-alpha and 16-bit RGB
+    PNGs, Adam7-interlaced and not, and a PrefetchLoader over a directory
+    of interlaced files (the port's copy of the loader reads Adam7 whole;
+    the JAX package's native/vo_loader.cpp does not);
   - prefetch order, an unreadable frame skipped, the pack round trip, a
     missing directory;
   - six processes' first uses build the library once into one fresh
@@ -35,6 +38,8 @@ from tpu_vo_torch.io import dataset, loader, native_loader
 from tpu_vo_torch.io.kitti import load_kitti_poses
 from tpu_vo_torch.tools import io_bench
 from tpu_vo_torch.utils.synthetic import make_sequence
+
+from test_torch_png_variants import write_png_any
 
 CHANNELS = {"gray": 1, "rgb": 3, "rgba": 4}
 N, W, H = 6, 64, 48
@@ -103,6 +108,46 @@ def test_native_jpeg_decode_matches_pil(native, tmp_path, kind):
     assert i == 0 and got.shape == (240, 320)
     np.testing.assert_array_equal(got, jdataset.load_frame(path))
     np.testing.assert_array_equal(got, dataset.load_frame(path))
+
+
+# (color type, bit depth) of each kind; 16-bit RGB since PIL keeps its high
+# byte as libpng's strip does (16-bit gray PIL clips to 255 instead)
+ADAM7_KINDS = {"gray8": (0, 8), "rgb8": (2, 8), "palette": (3, 8), "gray_alpha": (4, 8),
+               "rgb16": (2, 16)}
+
+
+def _write_kind(path, kind, seed, interlace, h=29, w=37):
+    ctype, depth = ADAM7_KINDS[kind]
+    rng = np.random.default_rng(seed)
+    channels = {0: 1, 2: 3, 3: 1, 4: 2}[ctype]
+    samples = rng.integers(0, 1 << depth, (h, w) if channels == 1 else (h, w, channels))
+    samples[3:9, 2:20] = samples[3, 2]
+    palette = rng.integers(0, 256, (256, 3)) if ctype == 3 else None
+    write_png_any(path, samples, ctype, depth, palette, interlace=interlace, ftype=seed % 5)
+
+
+@pytest.mark.parametrize("interlace", [True, False])
+@pytest.mark.parametrize("kind", ADAM7_KINDS)
+def test_native_adam7_png_matches_pil(native, tmp_path, kind, interlace):
+    path = str(tmp_path / f"{kind}.png")
+    _write_kind(path, kind, seed=len(kind), interlace=interlace)
+    with native_loader.NativeDataset(str(tmp_path)) as ds:
+        got = ds.read(0)
+    assert got is not None, f"the native loader did not decode {kind} (interlace={interlace})"
+    np.testing.assert_array_equal(got, jdataset.load_frame(path))
+    np.testing.assert_array_equal(got, dataset.load_frame(path))
+
+
+def test_prefetch_loader_reads_an_adam7_directory_natively(native, tmp_path):
+    for i, kind in enumerate([*ADAM7_KINDS, "gray8"]):
+        _write_kind(str(tmp_path / f"{i:06d}.png"), kind, seed=i, interlace=True)
+    paths = dataset.list_image_paths(str(tmp_path))
+    pl = loader.PrefetchLoader(paths, device="cpu")
+    got = [(i, t.numpy()) for i, _, t in pl]
+    assert pl.decoder == "native"
+    assert [i for i, _ in got] == list(range(len(paths)))
+    for (_, frame), path in zip(got, paths):
+        np.testing.assert_array_equal(frame, jdataset.load_frame(path))
 
 
 def test_prefetch_streams_in_order(native, frames_dir):

@@ -14,7 +14,8 @@ api.VisualOdometry) on the CPU.
   - a checkpoint saved after frame 2 and resumed: the uninterrupted run
     bit for bit;
   - the facade: the scan's trajectory and records, the getters, a BGR
-    frame, its checkpoints, and the parts it does not port.
+    frame, its checkpoints, and the keypoint overlay with the frame's
+    keypoints and descriptors.
 """
 
 import numpy as np
@@ -31,6 +32,7 @@ from tpu_vo_torch.io.trajectory_io import load_checkpoint, save_checkpoint
 from tpu_vo_torch.pipeline import runner, step
 from tpu_vo_torch.utils.records import sequence_records
 from tpu_vo_torch.utils.synthetic import make_sequence
+from tpu_vo_torch.viz.overlay import draw_keypoints_overlay
 
 W, H, T = 160, 120, 4
 ORB = dict(n_features=150, n_levels=2)
@@ -131,8 +133,16 @@ def test_visual_odometry_facade(frames, scan, tmp_path):
     last = int(np.flatnonzero(scan.has_F.numpy())[-1])
     np.testing.assert_array_equal(vo.last_F(), scan.F[last].numpy())
     np.testing.assert_array_equal(vo.camera_matrix, [[W, 0, W / 2], [0, W, H / 2], [0, 0, 1]])
-    with pytest.raises(NotImplementedError, match="overlay"):
-        vo.process_frame(api.Frame.from_image(T, frames[0]), render_overlay=True)
+    for image in (frames[0], np.repeat(frames[0][..., None], 3, -1)):
+        frame = api.Frame.from_image(T, image)
+        overlay = vo.process_frame(frame, render_overlay=True)
+        prev = vo._state.prev
+        valid = prev.valid.numpy()
+        assert valid.any() and frame.keypoints.shape == (valid.sum(), 2)
+        np.testing.assert_array_equal(frame.keypoints, prev.xy.numpy()[valid])
+        np.testing.assert_array_equal(frame.descriptors, prev.desc.numpy()[valid])
+        np.testing.assert_array_equal(overlay, draw_keypoints_overlay(frames[0], prev))
+        assert overlay.shape == (H, W, 3) and (overlay != frames[0][..., None]).any()
     vo.restore_checkpoint(str(tmp_path / "vo.npz"))
     frame = api.Frame.from_image(2, frames[2])
     vo.process_frame(frame)

@@ -22,11 +22,14 @@ C++ (`csrc/`) and launched only for CUDA tensors:
                chain_relative_poses, run_sequence_batched
   io/          image listing and PNG decoding, KITTI sequences,
                trajectory files and checkpoints
-  utils/       numpy-only synthetic sequences, fences and CUDA-event
-               timers, per-frame records, trajectory metrics
-  tools/       stage_bench, the patch-slots probe and the kernel ablations
-  api.py       Frame, VisualOdometry
-  cli.py       python -m tpu_vo_torch.cli <dir> --no-viewer
+  utils/       numpy-only synthetic sequences, tracing, fences and
+               CUDA-event timers, per-frame records, trajectory metrics
+  viz/         host drawing on numpy: keypoint overlay, trajectory
+               renderer and screenshots, epipolar tool
+  tools/       stage_bench, the patch-slots probe, the kernel ablations and
+               the user tools make_synthetic_dataset, evaluate_trajectory
+  api.py       Frame, VisualOdometry, TrajectoryViewer
+  cli.py       python -m tpu_vo_torch.cli <dir>
 
 This package imports neither jax nor tpu_vo.
 """

@@ -2,13 +2,13 @@
 tpu_vo/api.py):
 
     Frame(id, image) with .keypoints/.descriptors/.pose/.timestamp
-    VisualOdometry(width, height).process_frame(frame)
+    VisualOdometry(width, height).process_frame(frame) -> overlay image
     .get_trajectory() / .get_trajectory_poses() / .has_last_F() / .last_F()
+    TrajectoryViewer().init()/render_step(poses)/save_trajectory_screenshots()
 
 State lives in the wrapper, compute in the functional `vo_step`, on the
-card unless the caller passes device="cpu". The keypoint overlay
-(`render_overlay=True`) and `TrajectoryViewer` need `viz/`, which is not
-ported yet: the overlay raises NotImplementedError.
+card unless the caller passes device="cpu". Drawing (the keypoint
+overlay, the trajectory viewer) is host code in viz/.
 """
 
 from __future__ import annotations
@@ -20,13 +20,15 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tpu_vo_torch.configs import VOConfig
+from tpu_vo_torch.configs import VOConfig, ViewerConfig
 from tpu_vo_torch.geometry.se3 import Pose
 from tpu_vo_torch.image.color import bgr_to_gray
 from tpu_vo_torch.io.trajectory_io import load_checkpoint, save_checkpoint
 from tpu_vo_torch.pipeline.runner import entry_device
 from tpu_vo_torch.pipeline.step import VOState, initial_state, vo_step
 from tpu_vo_torch.utils.records import step_record
+from tpu_vo_torch.viz.overlay import draw_keypoints_overlay, host_features
+from tpu_vo_torch.viz.trajectory import TrajectoryRenderer, save_trajectory_screenshots
 
 
 @dataclass
@@ -69,15 +71,15 @@ class VisualOdometry:
         fx, fy, cx, cy = self.config.intrinsics
         return np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]])
 
-    def process_frame(self, frame: Frame, render_overlay: bool = False) -> None:
+    def process_frame(self, frame: Frame,
+                      render_overlay: bool = False) -> Optional[np.ndarray]:
         """Run one frame; updates frame.pose and the trajectory, with the
-        reference's failure ladder (visual_odometry.cpp:323-378). The
-        reference also returned a keypoint overlay (and tpu_vo fills
-        frame.keypoints and .descriptors with it): render_overlay=True
-        raises NotImplementedError, the overlay (viz/overlay.py) is not
-        ported."""
-        if render_overlay:
-            raise NotImplementedError("the keypoint overlay (viz/overlay.py) is not ported yet")
+        reference's failure ladder (visual_odometry.cpp:323-378). With
+        render_overlay=True it also fills frame.keypoints and
+        .descriptors from this frame's valid features (state.prev after
+        the step, copied to the host once) and returns their keypoint
+        overlay (H, W, 3) on the gray frame (the reference always
+        rendered it)."""
         if frame.image is None:
             raise ValueError("frame has no image")
         img = torch.as_tensor(np.asarray(frame.image)).to(self.device)
@@ -94,6 +96,14 @@ class VisualOdometry:
             self._records.append(rec)
             if bool(out.has_F):
                 self._last_F = out.F.cpu().numpy()
+
+        if not render_overlay:
+            return None
+        feats = host_features(self._state.prev)
+        frame.keypoints = feats.xy[feats.valid]
+        frame.descriptors = feats.desc[feats.valid]
+        gray = np.asarray(frame.image) if np.ndim(frame.image) == 2 else img.cpu().numpy()
+        return draw_keypoints_overlay(gray, feats)
 
     # --- reference getters -------------------------------------------------
     def get_trajectory(self) -> List[np.ndarray]:
@@ -124,3 +134,62 @@ class VisualOdometry:
 
     def restore_checkpoint(self, path: str) -> None:
         self._state = load_checkpoint(path, self.device)
+
+
+class TrajectoryViewer:
+    """Facade matching trajectory_viewer.h:10-34 over the software renderer.
+
+    render_step() draws the scene; with show=True and a GUI-capable cv2 it
+    displays a live window (the reference's Pangolin window), otherwise it
+    just keeps the last rendered frame available as .last_frame.
+    """
+
+    def __init__(self, show: bool = False):
+        self.cfg = ViewerConfig()
+        self._renderer = TrajectoryRenderer(self.cfg)
+        self._initialized = False
+        self._show = show
+        self._quit = False
+        self.last_frame: Optional[np.ndarray] = None
+
+    def init(self) -> None:
+        self._initialized = True
+
+    def should_quit(self) -> bool:
+        return self._quit
+
+    @staticmethod
+    def _stack(poses: List[Pose]) -> Pose:
+        """One Pose of (n, 3, 3) and (n, 3) host arrays, in the poses' dtype."""
+        return Pose(np.stack([np.asarray(p.R) for p in poses]),
+                    np.stack([np.asarray(p.t) for p in poses]))
+
+    def render_step(self, trajectory: List[Pose]) -> Optional[np.ndarray]:
+        self.init()
+        if not trajectory:
+            return None
+        poses = self._stack(trajectory)
+        self._renderer.build_scene(poses)
+        center = poses.t.mean(axis=0)
+        k = 0.1
+        eye = center + np.array([2 * k, -5 * k, -10 * k]) * 10
+        self.last_frame = self._renderer.render(eye, center,
+                                                np.array([0.0, -1.0, 0.0]))
+        if self._show:
+            try:
+                import cv2
+
+                cv2.imshow("Visual Odometry: Trajectory",
+                           self.last_frame[..., ::-1])
+                if cv2.waitKey(1) in (27, ord("q")):
+                    self._quit = True
+            except Exception:  # the window system failed after the preflight
+                pass
+        return self.last_frame
+
+    def save_trajectory_screenshots(self, trajectory: List[Pose],
+                                    out_dir: str) -> bool:
+        if not trajectory:
+            return False
+        return save_trajectory_screenshots(self._stack(trajectory), out_dir,
+                                           self.cfg)

@@ -1,7 +1,7 @@
 """Command-line entry point mirroring the reference's main.cpp (port of
-tpu_vo/cli.py, headless).
+tpu_vo/cli.py).
 
-Usage: python -m tpu_vo_torch.cli [dataset_dir] --no-viewer [options]
+Usage: python -m tpu_vo_torch.cli [dataset_dir] [options]
 
   - dataset path from argv or autodetect data/Dataset_VO / Dataset_VO
     (:59-73), enumerate + lexicographically sort .png/.jpg/.jpeg (:26-49);
@@ -11,17 +11,22 @@ Usage: python -m tpu_vo_torch.cli [dataset_dir] --no-viewer [options]
     unless calibrated;
   - per-frame: banner + "Frame i: Detected N keypoints", [MatchDebug],
     [PoseUpdate], "Position: [...]";
-  - after the loop, TUM, KITTI and npz trajectories, and the ATE report
-    against ground truth (--gt, or the KITTI tree's).
+  - the 3D trajectory viewer is created before the loop and renders the
+    whole trajectory every frame (main.cpp:112-113, :158; --no-viewer
+    skips it);
+  - after the loop, TUM, KITTI and npz trajectories, the ATE report
+    against ground truth (--gt, or the KITTI tree's), and the 7 canonical
+    trajectory screenshots in <out>/trajectory_screenshots (:196-208).
 
 It runs on the card unless given --device cpu. Frames come through
 io/loader.PrefetchLoader, decoded and uploaded ahead of use: on the native
 loader's threads (libpng, libjpeg; PNG and JPEG) when the paths are a
 whole directory, else (--max-frames, --resume, or a native build that
 failed) by the port's PNG reader (io/dataset.load_frame); it prints which,
-and the compiler's error where the native build failed. The 3D trajectory viewer,
---show and the trajectory screenshots need viz/, which is not ported
-yet: the CLI refuses to run without --no-viewer, or with --show.
+and the compiler's error where the native build failed. --show opens the
+keypoint overlay and trajectory windows (cv2 and a display; the
+reference's keyboard map) after a preflight: where it fails, the run
+goes on headless and says why.
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ from tpu_vo_torch.io.trajectory_io import (
 from tpu_vo_torch.pipeline.runner import entry_device
 from tpu_vo_torch.pipeline.step import initial_state, vo_step
 from tpu_vo_torch.utils.metrics import evaluate_against_file
+from tpu_vo_torch.viz.gui import gui_available as _gui_available
+from tpu_vo_torch.viz.overlay import draw_keypoints_overlay
+from tpu_vo_torch.viz.trajectory import save_trajectory_screenshots
 
 
 def build_config(args, width: int, height: int,
@@ -94,10 +102,12 @@ def main(argv=None) -> int:
     p.add_argument("--resume", default=None, help="checkpoint to resume from")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--show", action="store_true",
-                   help="interactive windows (not ported yet: refused)")
+                   help="interactive keypoint overlay + trajectory windows "
+                        "(needs cv2 and a display)")
     p.add_argument("--no-viewer", action="store_true",
-                   help="skip the per-frame 3D trajectory render (required: "
-                        "the viewer is not ported yet)")
+                   help="skip the per-frame 3D trajectory render "
+                        "(the reference draws it every loop iteration, "
+                        "main.cpp:158; disable for throughput runs)")
     p.add_argument("--calib", type=_parse_calib_arg, default=None,
                    metavar="fx,fy,cx,cy",
                    help="calibrated intrinsics; overrides the reference's "
@@ -114,11 +124,6 @@ def main(argv=None) -> int:
                         "'cpu' runs on the CPU)")
     args = p.parse_args(argv)
 
-    if args.show or not args.no_viewer:
-        print("The trajectory viewer and --show (viz/) are not ported yet: "
-              "run with --no-viewer and without --show.", file=sys.stderr)
-        return 2
-
     print("=" * 40)
     print("  Visual Odometry (tpu_vo_torch)")
     print("=" * 40)
@@ -128,7 +133,7 @@ def main(argv=None) -> int:
         print("Dataset directory not found.\n"
               "Expected one of:\n  - data/Dataset_VO (recommended)\n"
               "  - Dataset_VO\n\nRun with an explicit path, e.g.:\n"
-              "  python -m tpu_vo_torch.cli data/Dataset_VO --no-viewer",
+              "  python -m tpu_vo_torch.cli data/Dataset_VO",
               file=sys.stderr)
         return -1
     print(f"Dataset path: {dataset}")
@@ -196,11 +201,33 @@ def main(argv=None) -> int:
 
     out_dir = args.out_dir or dataset
     poses_R, poses_t, stamps = [], [], []
+    pose_objs = []  # accumulated Pose list for the live trajectory render
+
+    if args.show:
+        gui_ok, why = _gui_available()
+        if not gui_ok:
+            print(f"--show disabled: {why}. Continuing headless.",
+                  file=sys.stderr)
+            args.show = False
+
+    viewer = None
+    if not args.no_viewer:
+        # The reference creates the 3D viewer before the loop and renders
+        # the full trajectory every iteration (main.cpp:112-113, :158).
+        from tpu_vo_torch.api import TrajectoryViewer
+
+        viewer = TrajectoryViewer(show=args.show)
+        viewer.init()
 
     n_total = len(paths)
     print(f"\nProcessing {n_total - start} frames...")
+    if args.show:
+        print("Press 'q' or ESC to quit, SPACE to pause/resume")
     print("=" * 40)
     t_start = time.time()
+    paused = False
+    show_warned = False
+    frame_delay = 30  # ms between frames (reference main.cpp:125)
     for j, path, frame in itertools.chain([first], frames):
         i = start + j
         ts = (float(kitti_times[i]) if kitti_times is not None
@@ -210,6 +237,16 @@ def main(argv=None) -> int:
         poses_R.append(out.pose.R.cpu().numpy())
         poses_t.append(out.pose.t.cpu().numpy())
         stamps.append(ts)
+        pose_objs.append(Pose(torch.from_numpy(poses_R[-1]), torch.from_numpy(poses_t[-1])))
+
+        if viewer is not None:
+            # per-frame 3D trajectory render (main.cpp:158 ->
+            # trajectory_viewer.cpp:94-153); with --show this is a live
+            # window, headless it keeps viewer.last_frame current
+            viewer.render_step(pose_objs)
+            if viewer.should_quit():  # window closed -> clean stop (:130)
+                print("\nViewer closed; stopping.")
+                break
 
         if not args.quiet:
             print(f"Frame {i}: Detected {int(out.num_keypoints)} keypoints")
@@ -223,6 +260,45 @@ def main(argv=None) -> int:
                   f" scale={float(out.scale):.1f}")
             pos = poses_t[-1]
             print(f"Position: [{pos[0]:.6g}, {pos[1]:.6g}, {pos[2]:.6g}]")
+
+        if args.show:
+            try:
+                import cv2
+
+                # state.prev after the step holds THIS frame's features
+                overlay = draw_keypoints_overlay(frame, state.prev)
+                cv2.imshow("Visual Odometry: Keypoints", overlay[..., ::-1])
+                # Keyboard map matching main.cpp:164-193: q/ESC quit,
+                # SPACE pause/resume, +/- frame delay clamped 10-500 ms.
+                quit_req = False
+                while True:
+                    key = cv2.waitKey(100 if paused else frame_delay)
+                    if key in (ord("q"), ord("Q"), 27):
+                        print("\nQuitting...")
+                        quit_req = True
+                        break
+                    if key == ord(" "):
+                        paused = not paused
+                        print("Paused" if paused else "Resumed")
+                    if key in (ord("+"), ord("=")):
+                        frame_delay = max(10, frame_delay - 10)
+                        print(f"Frame delay: {frame_delay} ms")
+                    if key in (ord("-"), ord("_")):
+                        frame_delay = min(500, frame_delay + 10)
+                        print(f"Frame delay: {frame_delay} ms")
+                    if not paused:
+                        break
+                if quit_req:
+                    break
+            except Exception as exc:
+                # A broken display must not kill the run, but degrading to
+                # "no window, no message" hides the problem — warn once,
+                # then stay headless.
+                if not show_warned:
+                    show_warned = True
+                    print(f"--show disabled: GUI unavailable "
+                          f"({type(exc).__name__}: {exc}). "
+                          "Continuing headless.", file=sys.stderr)
 
         if args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
             save_checkpoint(os.path.join(out_dir, "vo_checkpoint.npz"), state)
@@ -252,7 +328,10 @@ def main(argv=None) -> int:
             print("  " + " ".join(f"{k}={v}" for k, v in report.items()))
         except (OSError, ValueError) as exc:  # a bad GT file must not lose the run
             print(f"Ground-truth evaluation failed: {exc}", file=sys.stderr)
-    print("Trajectory screenshots not saved: viz/ is not ported yet")
+    shot_dir = os.path.join(out_dir, "trajectory_screenshots")
+    ok = save_trajectory_screenshots(traj, shot_dir)
+    print(("Saved trajectory screenshots to: " if ok
+           else "Failed to save trajectory screenshots to: ") + shot_dir)
     return 0
 
 

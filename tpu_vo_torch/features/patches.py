@@ -39,6 +39,30 @@ def _moment_kernels(device: torch.device):
             torch.as_tensor(orientation._KV, device=device))
 
 
+def extract_patches(lvl: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
+                    radius: int = RAW_RADIUS) -> torch.Tensor:
+    """(N, 2r+1, 2r+1) windows centered at integer keypoints, with the
+    semantics of tpu_vo's vmapped lax.dynamic_slice: a level smaller than
+    the window is zero-padded at its bottom and right first; a negative
+    start counts from the end of its axis; every start is then clamped
+    into [0, dim - size]. Plain PyTorch: tpu_vo's non-Pallas ORB route
+    and the reference that B2 (ops/patch.py) is written against."""
+    size = 2 * radius + 1
+    h, w = lvl.shape
+    if h < size or w < size:
+        lvl = torch.nn.functional.pad(lvl, (0, max(0, size - w), 0, max(0, size - h)))
+        h, w = lvl.shape
+
+    def starts(c, dim):
+        s = c.to(torch.int64) - radius
+        return torch.clamp(torch.where(s < 0, s + dim, s), 0, dim - size)
+
+    offs = torch.arange(size, device=lvl.device)
+    rows = starts(ys, h)[:, None] + offs
+    cols = starts(xs, w)[:, None] + offs
+    return lvl[rows[:, :, None], cols[:, None, :]]
+
+
 def angles_from_patches(raw: torch.Tensor) -> torch.Tensor:
     """Intensity-centroid orientation (degrees) from (..., 43, 43) windows."""
     p31 = raw[..., _MOM_LO:_MOM_HI, _MOM_LO:_MOM_HI]

@@ -32,6 +32,11 @@ def level_sizes(height: int, width: int, n_levels: int,
     return sizes
 
 
+def level_scales(n_levels: int, scale_factor: float) -> List[float]:
+    """Multiplier mapping level-L pixel coords back to level-0 coords."""
+    return [scale_factor ** level for level in range(n_levels)]
+
+
 # Copied from tpu_vo/image/pyramid.py (_resize_matrix).
 def _resize_matrix(dst: int, src: int) -> np.ndarray:
     """(src, dst) interpolation matrix for one axis (OpenCV half-pixel

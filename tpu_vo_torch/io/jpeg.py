@@ -19,6 +19,12 @@ that cv2.imencode runs.
   vectorised over (N, 8, 8) blocks in int64.
 - encode_gray(u8, quality): a baseline file with the Annex K Huffman
   tables, as cv2.imencode(".jpg") writes one.
+- encode_rgb(rgb_u8, quality): a baseline JFIF file of an RGB image,
+  YCbCr 4:2:0 (jccolor.c's fixed-point rgb_ycc_convert, jcsample.c's
+  h2v2_downsample with its alternating bias, jccoefct.c's dummy blocks
+  at the right and bottom of the 16x16 MCU grid), the luminance and
+  chrominance tables of jpeg_set_quality and Annex K, one interleaved
+  scan: PIL's Image.save(format="JPEG", quality=q) byte for byte.
 - roundtrip_gray(u8, quality): FDCT, quantise, dequantise, IDCT: the
   pixels of decode(encode_gray(u8, quality)) without the lossless
   entropy stage.
@@ -46,6 +52,9 @@ STD_LUMINANCE = np.array([
     24, 35, 55, 64, 81, 104, 113, 92,
     49, 64, 78, 87, 103, 121, 120, 101,
     72, 92, 95, 98, 112, 100, 103, 99], np.int64).reshape(8, 8)
+# jcparam.c's std_chrominance_quant_tbl, natural order
+STD_CHROMINANCE = np.full((8, 8), 99, np.int64)
+STD_CHROMINANCE[:4, :4] = [[17, 18, 24, 47], [18, 21, 26, 66], [24, 26, 56, 99], [47, 66, 99, 99]]
 # Annex K.3's luminance tables: code counts by length 1..16, then symbols
 DC_BITS = (0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0)
 DC_VALS = tuple(range(12))
@@ -62,6 +71,25 @@ AC_VALS = (
     0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3,
     0xD4, 0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA, 0xE1, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8,
     0xE9, 0xEA, 0xF1, 0xF2, 0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA)
+
+# Annex K.3's chrominance tables
+DC_BITS_C = (0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0)
+AC_BITS_C = (0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77)
+AC_VALS_C = (
+    0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07, 0x61,
+    0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1, 0xC1, 0x09, 0x23, 0x33,
+    0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25, 0xF1, 0x17, 0x18,
+    0x19, 0x1A, 0x26, 0x27, 0x28, 0x29, 0x2A, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3A, 0x43, 0x44,
+    0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59, 0x5A, 0x63,
+    0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74, 0x75, 0x76, 0x77, 0x78, 0x79, 0x7A,
+    0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97,
+    0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5, 0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4,
+    0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA,
+    0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7,
+    0xE8, 0xE9, 0xEA, 0xF2, 0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA)
+# (DC, AC) Huffman tables by table class: 0 luminance, 1 chrominance
+HUFFMAN_TABLES = (((DC_BITS, DC_VALS), (AC_BITS, AC_VALS)),
+                  ((DC_BITS_C, DC_VALS), (AC_BITS_C, AC_VALS_C)))
 
 # jfdctint.c / jidctint.c
 CONST_BITS, PASS1_BITS = 13, 2
@@ -94,12 +122,12 @@ def _descale(x, n: int):
 # the transforms and the tables
 
 
-def quant_table(quality: int) -> np.ndarray:
-    """(8, 8) int64 luminance table of jpeg_set_quality(quality,
-    force_baseline=TRUE), natural order."""
+def quant_table(quality: int, base: np.ndarray = STD_LUMINANCE) -> np.ndarray:
+    """(8, 8) int64 table of jpeg_set_quality(quality, force_baseline=TRUE)
+    scaled from `base` (the luminance table by default), natural order."""
     q = min(max(int(quality), 1), 100)
     scale = 5000 // q if q < 50 else 200 - 2 * q
-    return np.clip((STD_LUMINANCE * scale + 50) // 100, 1, 255)
+    return np.clip((base * scale + 50) // 100, 1, 255)
 
 
 def _odd_part(t0, t1, t2, t3):
@@ -268,17 +296,26 @@ def _magnitude(v: np.ndarray):
     return size, np.where(v < 0, v - 1, v) & ((np.int64(1) << size) - 1)
 
 
-def _entropy_code(zz: np.ndarray) -> bytes:
+def _entropy_code(zz: np.ndarray, comp=None) -> bytes:
     """The byte-stuffed scan data of (N, 64) zigzag-ordered coefficients
-    of one component with the Annex K luminance tables: every symbol is
-    made at once, then its bits are laid end to end and packed."""
+    in scan order. comp (N,) names each block's component (0 by
+    default): DC is predicted from the previous block of the same
+    component, and component 0 codes with the Annex K luminance tables,
+    any other with the chrominance ones. Every symbol is made at once,
+    then its bits are laid end to end and packed."""
     n = zz.shape[0]
-    dc_code, dc_len = _code_arrays(DC_BITS, DC_VALS)
-    ac_code, ac_len = _code_arrays(AC_BITS, AC_VALS)
+    comp = np.zeros(n, np.int64) if comp is None else np.asarray(comp, np.int64)
+    cls = np.minimum(comp, 1)
+    dc_code, dc_len = (np.stack(a) for a in zip(*(_code_arrays(*t[0]) for t in HUFFMAN_TABLES)))
+    ac_code, ac_len = (np.stack(a) for a in zip(*(_code_arrays(*t[1]) for t in HUFFMAN_TABLES)))
     dc = zz[:, 0]
-    diff = dc - np.concatenate([[0], dc[:-1]])
+    diff = np.empty_like(dc)
+    for c in np.unique(comp):
+        idx = np.flatnonzero(comp == c)
+        diff[idx] = dc[idx] - np.concatenate([[0], dc[idx[:-1]]])
     s, extra = _magnitude(diff)
-    items = [(np.arange(n), np.zeros(n, np.int64), (dc_code[s] << s) | extra, dc_len[s] + s)]
+    items = [(np.arange(n), np.zeros(n, np.int64), (dc_code[cls, s] << s) | extra,
+              dc_len[cls, s] + s)]
     blk, pos = np.nonzero(zz[:, 1:])
     pos = pos + 1
     if blk.size:
@@ -288,17 +325,17 @@ def _entropy_code(zz: np.ndarray) -> bytes:
         v = zz[blk, pos]
         s, extra = _magnitude(v)
         sym = ((run % 16) << 4) | s
-        items.append((blk, 2 * pos, (ac_code[sym] << s) | extra, ac_len[sym] + s))
+        bc = cls[blk]
+        items.append((blk, 2 * pos, (ac_code[bc, sym] << s) | extra, ac_len[bc, sym] + s))
         zrl = run // 16  # 16 zeros a ZRL (0xF0) symbol before the coefficient
         k = np.repeat(np.arange(blk.size), zrl)
-        items.append((blk[k], 2 * pos[k] - 1, np.full(k.size, ac_code[0xF0]),
-                      np.full(k.size, ac_len[0xF0])))
+        items.append((blk[k], 2 * pos[k] - 1, ac_code[bc[k], 0xF0], ac_len[bc[k], 0xF0]))
     last = np.zeros(n, np.int64)
     if blk.size:
         last[blk] = pos  # nonzero order is ascending: the last write is the block's last
     eob = np.flatnonzero(last < 63)
-    items.append((eob, np.full(eob.size, 200), np.full(eob.size, ac_code[0x00]),
-                  np.full(eob.size, ac_len[0x00])))
+    items.append((eob, np.full(eob.size, 200), ac_code[cls[eob], 0x00],
+                  ac_len[cls[eob], 0x00]))
     b, key, val, ln = (np.concatenate(x) for x in zip(*items))
     order = np.lexsort((key, b))
     val, ln = val[order], ln[order]
@@ -317,6 +354,14 @@ def _segment(marker: int, body: bytes) -> bytes:
     return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
 
 
+def _dht(classes: int) -> bytes:
+    """DHT segments of the first `classes` table classes, DC then AC each,
+    in the order libjpeg emits them."""
+    return b"".join(_segment(0xC4, bytes([tc | k]) + bytes(bits) + bytes(vals))
+                    for k, pair in enumerate(HUFFMAN_TABLES[:classes])
+                    for tc, (bits, vals) in zip((0x00, 0x10), pair))
+
+
 def encode_gray(u8: np.ndarray, quality: int) -> bytes:
     """A baseline JPEG file of a 2-D uint8 image, byte for byte as
     cv2.imencode(".jpg", u8, [IMWRITE_JPEG_QUALITY, quality]) writes it:
@@ -324,15 +369,94 @@ def encode_gray(u8: np.ndarray, quality: int) -> bytes:
     Annex K luminance Huffman tables, one scan."""
     q, table, _, (h, w) = _quantized_gray(u8, quality)
     zz = q.reshape(-1, 64)[:, ZIGZAG]
-    dht = b"".join(_segment(0xC4, bytes([tc]) + bytes(bits) + bytes(vals))
-                   for tc, bits, vals in ((0x00, DC_BITS, DC_VALS), (0x10, AC_BITS, AC_VALS)))
     return (b"\xff\xd8"
             + _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
             + _segment(0xDB, b"\x00" + table.reshape(-1)[ZIGZAG].astype(np.uint8).tobytes())
             + _segment(0xC0, struct.pack(">BHHBBBB", 8, h, w, 1, 1, 0x11, 0))
-            + dht
+            + _dht(1)
             + _segment(0xDA, bytes([1, 1, 0x00, 0, 63, 0]))
             + _entropy_code(zz) + b"\xff\xd9")
+
+
+# jccolor.c: rgb_ycc_convert's fixed-point coefficients (SCALEBITS 16)
+_CBCR_OFFSET = 128 << _SCALEBITS
+
+
+def _rgb_to_ycc(rgb: np.ndarray):
+    """jccolor.c's rgb_ycc_convert: (Y, Cb, Cr) int64 planes; Cb and Cr
+    round with ONE_HALF - 1 so that they never reach 256."""
+    r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
+    y = (_fix(0.29900) * r + _fix(0.58700) * g + _fix(0.11400) * b + _ONE_HALF) >> _SCALEBITS
+    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.50000) * b
+          + _CBCR_OFFSET + _ONE_HALF - 1) >> _SCALEBITS
+    cr = (_fix(0.50000) * r - _fix(0.41869) * g - _fix(0.08131) * b
+          + _CBCR_OFFSET + _ONE_HALF - 1) >> _SCALEBITS
+    return y, cb, cr
+
+
+def _h2v2_downsample(plane: np.ndarray, mcu_rows: int, mcu_cols: int) -> np.ndarray:
+    """A chroma plane (H, W) as libjpeg's prep controller and h2v2
+    downsampler make it: rows padded to an even count and columns to
+    16 * mcu_cols by replication, 2x2 sums with a bias of 1, 2, 1, 2, ...
+    across output columns, >> 2, then the last output row replicated to
+    8 * mcu_rows rows."""
+    h, w = plane.shape
+    p = np.pad(plane, ((0, h % 2), (0, 16 * mcu_cols - w)), mode="edge")
+    bias = np.tile(np.array([1, 2], np.int64), 4 * mcu_cols)
+    out = (p[0::2, 0::2] + p[0::2, 1::2] + p[1::2, 0::2] + p[1::2, 1::2] + bias) >> 2
+    return np.pad(out, ((0, 8 * mcu_rows - out.shape[0]), (0, 0)), mode="edge")
+
+
+def _blocks(plane: np.ndarray) -> np.ndarray:
+    """(by, bx, 8, 8) blocks of a plane whose sides are multiples of 8."""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).swapaxes(1, 2)
+
+
+def encode_rgb(rgb_u8: np.ndarray, quality: int) -> bytes:
+    """A baseline JFIF file of an (H, W, 3) uint8 RGB image, byte for byte
+    as PIL's Image.save(format="JPEG", quality=quality) writes it with
+    libjpeg-turbo: YCbCr with Y at 2x2 and Cb, Cr at 1x1 (4:2:0), the
+    scaled luminance and chrominance quantisation tables, the Annex K
+    Huffman tables, one interleaved scan of MCUs Y0 Y1 Y2 Y3 Cb Cr.
+    Y blocks past the image's ceil(H/8) x ceil(W/8) are jccoefct.c's
+    dummy blocks: zero AC, the DC of the block before them in the MCU."""
+    img = np.asarray(rgb_u8)
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError(f"an RGB JPEG takes an (H, W, 3) uint8 image, got {img.dtype} "
+                         f"{img.shape}")
+    h, w = img.shape[:2]
+    mr, mc = -(-h // 16), -(-w // 16)
+    yb, xb = -(-h // 8), -(-w // 8)  # Y blocks that hold image rows and columns
+    y, cb, cr = _rgb_to_ycc(img)
+    tables = (quant_table(quality), quant_table(quality, STD_CHROMINANCE))
+
+    def coded(blocks, table):
+        n = blocks.shape[:-2]
+        q = quantize(fdct_islow(blocks.reshape(-1, 8, 8) - 128), table)
+        return q.reshape(*n, 64)[..., ZIGZAG]
+
+    ypad = np.pad(y, ((0, 8 * yb - h), (0, 8 * xb - w)), mode="edge")
+    yz = np.zeros((2 * mr, 2 * mc, 64), np.int64)
+    yz[:yb, :xb] = coded(_blocks(ypad), tables[0])
+    if xb % 2:  # right-hand dummies: the DC of the block to their left
+        yz[:yb, xb, 0] = yz[:yb, xb - 1, 0]
+    if yb % 2:  # bottom dummies: the DC of the MCU's last block above them
+        yz[yb, :, 0] = np.repeat(yz[yb - 1, 1::2, 0], 2)
+    cz = [coded(_blocks(_h2v2_downsample(p, mr, mc)), tables[1]) for p in (cb, cr)]
+    mcus = np.concatenate([yz.reshape(mr, 2, mc, 2, 64).transpose(0, 2, 1, 3, 4)
+                           .reshape(mr, mc, 4, 64), cz[0][:, :, None], cz[1][:, :, None]], 2)
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 2]), mr * mc)
+    dqt = b"".join(_segment(0xDB, bytes([k]) + t.reshape(-1)[ZIGZAG].astype(np.uint8).tobytes())
+                   for k, t in enumerate(tables))
+    return (b"\xff\xd8"
+            + _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+            + dqt
+            + _segment(0xC0, struct.pack(">BHHB", 8, h, w, 3)
+                       + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1]))
+            + _dht(2)
+            + _segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+            + _entropy_code(mcus.reshape(-1, 64), comp) + b"\xff\xd9")
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,13 @@
 """ctypes binding of the native C++ image loader (port of
 tpu_vo/io/native_loader.py).
 
-native/vo_loader.cpp decodes PNG and JPEG on a pool of threads (libpng,
+csrc/vo_loader.cpp decodes PNG and JPEG on a pool of threads (libpng,
 libjpeg) into an ordered ring, converts color to gray with the exact
 BT.601 fixed-point arithmetic of image/color, and reads and writes packed
-.vobin sequences (decode once, then mmap). The library is built on first
+.vobin sequences (decode once, then mmap). It is the port's own copy of
+the JAX package's native/vo_loader.cpp, repaired to read Adam7-interlaced
+PNGs whole: they decode to PIL's pixels (tpu_vo's Python route), where
+tpu_vo's native route fails on them ("IDAT: Too much image data"). The library is built on first
 use, never at import, with g++ into tpu_vo_torch/_build/, named by a hash
 of the source and the flags, through ops/_build.build_once: concurrent
 first uses in several processes build it once and never load a
@@ -36,7 +39,7 @@ import numpy as np
 from tpu_vo_torch.ops._build import build_once
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "native", "vo_loader.cpp")
+SRC = os.path.join(_PKG, "csrc", "vo_loader.cpp")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
