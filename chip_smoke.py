@@ -180,6 +180,22 @@ Phases, in order; any failure raises and the exit code is non-zero:
      leg's band is named in its line; io/jpeg.decode's ms a frame at
      640x480 (8 clean corridor frames at quality 90, equal to
      roundtrip_gray);
+  5i. the parallel runners (parallel/sharding) over the main path's 32
+     frames and config 4's cut of 5e, as host arrays: in a world of 1 on
+     NCCL in this process (a local TCP store, destroyed after),
+     run_sequence_time_sharded on a (1,) mesh and run_batch_time_sharded
+     on a (1, 1) mesh, counters reset just before each (4 and 8 launches
+     each of B1 and B2, one per 8-frame chunk), nothing moved; then
+     worlds of 2 and 4 gloo ranks, all on cuda:0 (NCCL refuses two ranks
+     on one card), each rank a tools/parallel_run process that loads the
+     kernels built here (a rank that builds them again fails), gets the
+     frames by .npy and returns its results by .npz: SP over 2 ranks (16
+     frames a rank) and DP over 2 (2 sequences a rank), then DP x SP on
+     a (2, 2) mesh (2 sequences x 8 frames a rank); each rank asserts B1
+     and B2 launched once per frame chunk; every result's pose_ok equal
+     to, and its positions within 1e-4 of, phase 4's or 5e's; it prints
+     each rank's CUDA-event ms per runner, the halo and gathered bytes
+     from the runners' record of transfers and each world's wall time;
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
@@ -212,11 +228,13 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import functools
 import io
 import json
 import multiprocessing
 import os
+import socket
 import statistics
 import struct
 import subprocess
@@ -228,7 +246,8 @@ import zlib
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, HERE)
 
 from tpu_vo_torch import api, cli  # noqa: E402
 from tpu_vo_torch.configs import (MatchConfig, ORBConfig, RansacConfig, VOConfig,  # noqa: E402
@@ -256,7 +275,10 @@ from tpu_vo_torch.ops.patch import _starts as patch_starts  # noqa: E402
 from tpu_vo_torch.ops.select import (compass_candidates, select_maps,  # noqa: E402
                                      select_maps_levels, select_maps_reference)
 from tpu_vo_torch.models.refinement import refine_window  # noqa: E402
-from tpu_vo_torch.parallel.sharding import run_batch_of_sequences  # noqa: E402
+from tpu_vo_torch.parallel import distributed, sharding  # noqa: E402
+from tpu_vo_torch.parallel.mesh import make_mesh  # noqa: E402
+from tpu_vo_torch.parallel.sharding import (run_batch_of_sequences,  # noqa: E402
+                                            run_batch_time_sharded, run_sequence_time_sharded)
 from tpu_vo_torch.pipeline import runner, step  # noqa: E402
 from tpu_vo_torch.tools import (io_bench, patch_slots_probe, reference_band,  # noqa: E402
                                 run_benchmarks, stage_bench)
@@ -349,6 +371,14 @@ C6_MAX_CORRIDOR_ATE = 0.01
 # baseline JPEG at VARIANT_QUALITY and as PNGs alternating 8-bit palette
 # and Adam7-interlaced gray
 VARIANT_T, VARIANT_QUALITY = 24, 90
+# Phase 5i: the parallel runners. A world of 1 on NCCL in this process,
+# then worlds of 2 and 4 gloo ranks sharing the card (NCCL refuses two
+# ranks on one card), each rank a tools/parallel_run process; PAR_REPS
+# timed calls of each runner after its counted one
+PAR_REPS = 3
+PAR_TIMEOUT = 60         # seconds a rank waits for the others and for a collective
+PAR_WORLD_TIMEOUT = 240  # seconds a spawned world may take, start-up included
+PAR_DEVICE = "cuda:0"    # every rank of a gloo world on this card
 # refine_window on the card against the CPU on the same inputs, in float32
 # (the pipeline's) and in float64 (where the LM's accept decisions do not
 # turn on the last bits)
@@ -1227,9 +1257,11 @@ def _config5_phase(renders, kernels, card):
 
 def _config4_phase(renders, kernels, card):
     """Config 4 cut to C4_B x C4_T: the batch against each sequence alone
-    on the card; returns B1's and B2's launches in one run."""
+    on the card; returns B1's and B2's launches in one run and (the host
+    frames, the config, the poses, the diagnostics) for phase 5i."""
     seqs = [_rendered(renders, ("c4", b)) for b in range(C4_B)]
-    frames = torch.from_numpy(np.stack([np.stack(s[0]) for s in seqs])).cuda()
+    frames_np = np.stack([np.stack(s[0]) for s in seqs])
+    frames = torch.from_numpy(frames_np).cuda()
     cfg = VOConfig(image_width=C4_W, image_height=C4_H, orb=ORBConfig(n_features=C4_KPS))
     fc, pc = C4_FRAME_CHUNK, C4_T - 1
     _reset(kernels)
@@ -1258,6 +1290,168 @@ def _config4_phase(renders, kernels, card):
           f"most {max(diffs):.3e} (bar {MAX_STREAM_POS_DIFF}), pose_ok {oks} [{card}]", flush=True)
     if max(diffs) > MAX_STREAM_POS_DIFF:
         raise AssertionError("config 4: a sequence's positions differ from its own run")
+    return launches, (frames_np, cfg, poses, diags)
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _hold_parallel(label, t, pose_ok, ref_poses, ref_diags, rows=None):
+    """A parallel runner's positions (numpy (..., T, 3)) and pose_ok against
+    a one-process run on the card (rows of it where given) at phase 5e's
+    bar; returns the largest position difference."""
+    ref_t, ref_ok = ref_poses.t.cpu().numpy(), ref_diags["pose_ok"].cpu().numpy()
+    if rows is not None:
+        ref_t, ref_ok = ref_t[rows], ref_ok[rows]
+    if not np.array_equal(np.asarray(pose_ok), ref_ok):
+        raise AssertionError(f"{label}: pose_ok differs from the one-process run")
+    diff = float(np.abs(np.asarray(t) - ref_t).max())
+    if diff > MAX_STREAM_POS_DIFF:
+        raise AssertionError(f"{label}: positions differ from the one-process run by {diff:.3e}")
+    return diff
+
+
+def _moved(transfers) -> str:
+    """What a record of transfers [(op, axis, nbytes)] moved, by op."""
+    ops = {}
+    for op, axis, n in transfers:
+        ops.setdefault((str(op), str(axis)), []).append(int(n))
+    return ", ".join(f"{op} on {axis}: {ns} B" for (op, axis), ns in ops.items()) or "nothing"
+
+
+def _spawn_world(name, n, jobs, d):
+    """Run tools/parallel_run's `jobs` in a world of n gloo ranks, all on
+    cuda:0; returns ({job's out: [each rank's npz]}, wall seconds with
+    start-up). A rank that fails or a world that outlives
+    PAR_WORLD_TIMEOUT fails the run; no rank outlives this call."""
+    spec = os.path.join(d, f"{name}.json")
+    with open(spec, "w") as f:
+        json.dump(jobs, f)
+    env = dict(os.environ, PYTHONPATH=HERE,
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 1) // n)))
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "tpu_vo_torch.tools.parallel_run", spec,
+                               "--address", f"localhost:{port}", "--world", str(n), "--rank",
+                               str(r), "--backend", "gloo", "--device", PAR_DEVICE,
+                               "--timeout", str(PAR_TIMEOUT)],
+                              env=env, cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    try:
+        deadline = t0 + PAR_WORLD_TIMEOUT
+        outs = [p.communicate(timeout=max(1.0, deadline - time.perf_counter()))[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{name}: rank {r} exited with {p.returncode}:\n{out[-3000:]}")
+    results = {job["out"]: [dict(np.load(f"{job['out']}.rank{r}.npz")) for r in range(n)]
+               for job in jobs}
+    for out, ranks in results.items():
+        if any(float(o["build_s"]) != 0.0 for o in ranks):
+            raise AssertionError(f"{name}: a rank built the kernels again")
+    return results, wall
+
+
+def _parallel_phase(main_np, cfg, poses, diags, c4_run, kernels, card):
+    """Phase 5i: run_sequence_time_sharded and run_batch_time_sharded in a
+    world of 1 on NCCL in this process, then SP and DP in a world of 2
+    and DP x SP in a world of 4 gloo ranks on this card; each held against
+    phase 4's (the main path) or phase 5e's (config 4's cut) results at
+    phase 5e's bar, B1 and B2 launched once per frame chunk in each rank.
+    Returns {path: B1 and B2 launches}."""
+    c4_np, c4_cfg, c4_poses, c4_diags = c4_run
+    chunk = runner.STREAM_FRAME_CHUNK
+    names = ("select_maps", "extract_patches")
+    launches = {}
+    tag = f"[{card}]"
+
+    # 1. a world of 1 on NCCL, this process its rank
+    t0 = time.perf_counter()
+    distributed.initialize(f"localhost:{_free_port()}", 1, 0, backend="nccl",
+                           timeout=PAR_TIMEOUT)
+    try:
+        for label, mesh_shape, fn, ref, want in (
+                (f"SP over {T} frames", ((1,), ("seq",)),
+                 lambda m: run_sequence_time_sharded(main_np, cfg, m), (poses, diags),
+                 T // chunk),
+                (f"DP x SP over config 4's {C4_B} x {C4_T}", ((1, 1), ("data", "seq")),
+                 lambda m: run_batch_time_sharded(c4_np, c4_cfg, m), (c4_poses, c4_diags),
+                 C4_B * C4_T // chunk)):
+            mesh = make_mesh(*mesh_shape)
+            _reset(kernels)
+            del sharding.transfers[:]
+            p, d = fn(mesh)
+            torch.cuda.synchronize()
+            got = {n: kernels[n].launches for n in names}
+            if any(v != want for v in got.values()) or sharding.transfers:
+                raise AssertionError(f"NCCL world of 1, {label}: launches {got} (want {want} "
+                                     f"each), transfers {sharding.transfers} (want none)")
+            diff = _hold_parallel(f"NCCL world of 1, {label}", p.t.cpu().numpy(),
+                                  d["pose_ok"].cpu().numpy(), *ref)
+            ms = _cuda_ms(lambda: fn(mesh), warmup=0, reps=PAR_REPS)
+            launches[f"parallel {label}, NCCL world of 1"] = got
+            print(f"parallel, NCCL world of 1, {label} on a {mesh_shape[0]} mesh: {ms:.3f} ms a "
+                  f"call (CUDA events, median of {PAR_REPS}), launches {got}, moved nothing, "
+                  f"positions within {diff:.3e} of the one-process run, pose_ok equal {tag}",
+                  flush=True)
+    finally:
+        dist_wall = time.perf_counter() - t0
+        torch.distributed.destroy_process_group()
+    print(f"parallel, NCCL world of 1: {dist_wall:.1f} s with its set-up {tag}", flush=True)
+
+    # 2. and 3. worlds of gloo ranks sharing this card, each a process
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        np.save(os.path.join(d, "main.npy"), main_np)
+        np.save(os.path.join(d, "c4.npy"), c4_np)
+        main_cfg, c4_fields = dataclasses.asdict(cfg), dataclasses.asdict(c4_cfg)
+
+        def job(out, runner_, mesh_, frames, fields, want, **extra):
+            return dict(runner=runner_, mesh=list(mesh_), axes=["data", "seq"],
+                        frames=os.path.join(d, frames), cfg=fields, seed=0, reps=PAR_REPS,
+                        launches=want, out=os.path.join(d, out), **extra)
+
+        worlds = (
+            ("gloo world of 2", 2, [
+                job("sp", "sp", (1, 2), "main.npy", main_cfg, T // 2 // chunk),
+                job("dp", "dp", (2, 1), "c4.npy", c4_fields,
+                    C4_B // 2 * C4_T // C4_FRAME_CHUNK, frame_chunk=C4_FRAME_CHUNK,
+                    pair_chunk=C4_T - 1)]),
+            ("gloo world of 4", 4, [
+                job("dp_sp", "dp_sp", (2, 2), "c4.npy", c4_fields,
+                    C4_B // 2 * C4_T // 2 // chunk)]))
+        for world, n, jobs in worlds:
+            results, wall = _spawn_world(world.replace(" ", "_"), n, jobs, d)
+            for j in jobs:
+                label = {"sp": f"SP over {T} frames", "dp": f"DP over config 4's {C4_B} x {C4_T}",
+                         "dp_sp": f"DP x SP over config 4's {C4_B} x {C4_T}"}[j["runner"]]
+                ref = (poses, diags) if j["runner"] == "sp" else (c4_poses, c4_diags)
+                diffs = []
+                for r, o in enumerate(results[j["out"]]):
+                    moved = _moved(zip(o["transfers_op"], o["transfers_axis"],
+                                       o["transfers_nbytes"]))
+                    rows = None if j["runner"] == "sp" else o["rows"]
+                    diffs.append(_hold_parallel(f"{world}, {label}, rank {r}", o["t"],
+                                                o["diag_pose_ok"], *ref, rows=rows))
+                    launches[f"parallel {label}, {world}, rank {r}"] = dict(
+                        zip(names, (int(v) for v in o["launches"])))
+                    print(f"parallel, {world}, {label} on a {tuple(j['mesh'])} mesh, rank {r}: "
+                          f"{statistics.median(o['ms'].tolist()):.3f} ms a call (CUDA events, "
+                          f"median of {PAR_REPS}), launches {o['launches'].tolist()}, moved "
+                          f"{moved} {tag}", flush=True)
+                print(f"parallel, {world}, {label}: every rank within {max(diffs):.3e} of the "
+                      f"one-process run, pose_ok equal {tag}", flush=True)
+            print(f"parallel, {world}: {wall:.1f} s wall, start-up included {tag}", flush=True)
     return launches
 
 
@@ -1773,6 +1967,7 @@ def _run(card, dev, pool) -> int:
         t0 = time.perf_counter()
         path_launches[name] = phase(renders, kernels, card)
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    path_launches["config 4"], c4_run = path_launches["config 4"]
 
     # 5f-5g. config 3 (4K, 8000 keypoints, ratio test) and config 7's
     # dynamic scenes, counted
@@ -1786,6 +1981,14 @@ def _run(card, dev, pool) -> int:
     path_launches["config 6"] = _config6_phase(renders, degraded, kernels, card)
     del degraded
     print(f"phase config 6: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # 5i. the parallel runners, counted in each rank: a world of 1 on NCCL
+    # here, worlds of 2 and 4 gloo ranks on this card
+    t0 = time.perf_counter()
+    path_launches.update(_parallel_phase(np.stack(frames_np), cfg, poses, diags, c4_run,
+                                         kernels, card))
+    del c4_run
+    print(f"phase parallel runners: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
     # 6. times
     def main_path():

@@ -100,6 +100,12 @@ VIZ_MODULES = ["tpu_vo_torch.viz", "tpu_vo_torch.viz.raster", "tpu_vo_torch.viz.
                "tpu_vo_torch.tools.make_synthetic_dataset",
                "tpu_vo_torch.tools.evaluate_trajectory"]
 
+# The parallel modules, which replace tpu_vo/parallel (jax.distributed,
+# jax.sharding, shard_map), and the tool that runs one rank of a world
+PARALLEL_MODULES = ["tpu_vo_torch.parallel", "tpu_vo_torch.parallel.mesh",
+                    "tpu_vo_torch.parallel.distributed", "tpu_vo_torch.parallel.sharding",
+                    "tpu_vo_torch.tools.parallel_run"]
+
 
 def test_port_imports_without_jax_or_tpu_vo():
     out = subprocess.run([sys.executable, "-c", _BLOCKED_IMPORT],
@@ -112,3 +118,4 @@ def test_port_imports_without_jax_or_tpu_vo():
     assert set(ACCURACY_MODULES) <= set(mods)
     assert set(INGEST_MODULES) <= set(mods)
     assert set(VIZ_MODULES) <= set(mods)
+    assert set(PARALLEL_MODULES) <= set(mods)

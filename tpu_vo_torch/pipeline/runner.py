@@ -187,6 +187,27 @@ def _empty_features(cfg: VOConfig, device: torch.device) -> ORBFeatures:
     return ORBFeatures(*(f[None] for f in initial_state(cfg, device=device).prev))
 
 
+def _stream_chunk(n: int, chunk: int) -> Optional[int]:
+    """`chunk` items per call where it divides n, else all n at once."""
+    return chunk if n % chunk == 0 else None
+
+
+def _streamed_pairs(carry: ORBFeatures, feats: ORBFeatures, cfg: VOConfig, seeds,
+                    offset: int) -> dict:
+    """The n pairs of each of R rows of frames whose first is at global
+    index `offset`: features `feats` (R, n, ...), `carry` (R, ...) those
+    of the frame before each row's first. Row b's pairs are the carried
+    features against its first frame, then frame to frame, pair j
+    drawing from the generator of global pair offset + j of seeds[b].
+    Returns their estimates, leading dim R*n (row-major)."""
+    R, n = feats.xy.shape[:2]
+    prev = ORBFeatures(*(torch.cat([c[:, None], f[:, :-1]], 1).flatten(0, 1)
+                         for c, f in zip(carry, feats)))
+    cur = ORBFeatures(*(f.flatten(0, 1) for f in feats))
+    gens = [g for s in seeds for g in pair_generators(s, range(offset, offset + n))]
+    return estimate_pairs(prev, cur, cfg, gens, _stream_chunk(R * n, STREAM_PAIR_CHUNK))
+
+
 def _streamed_step(carry: ORBFeatures, chunk: torch.Tensor, cfg: VOConfig, seed: int,
                    offset: int):
     """One chunk of n frames, the first at global index `offset`: its
@@ -194,12 +215,8 @@ def _streamed_step(carry: ORBFeatures, chunk: torch.Tensor, cfg: VOConfig, seed:
     frame, then frame to frame), pair j drawing from the generator of
     global pair offset + j. Returns (the last frame's features, the pairs'
     estimates)."""
-    n = chunk.shape[0]
-    fc = STREAM_FRAME_CHUNK if n % STREAM_FRAME_CHUNK == 0 else None
-    pc = STREAM_PAIR_CHUNK if n % STREAM_PAIR_CHUNK == 0 else None
-    feats = detect_frames(chunk, cfg, fc)
-    prev = ORBFeatures(*(torch.cat([c, f[:-1]], 0) for c, f in zip(carry, feats)))
-    est = estimate_pairs(prev, feats, cfg, pair_generators(seed, range(offset, offset + n)), pc)
+    feats = detect_frames(chunk, cfg, _stream_chunk(chunk.shape[0], STREAM_FRAME_CHUNK))
+    est = _streamed_pairs(carry, ORBFeatures(*(f[None] for f in feats)), cfg, [seed], offset)
     return ORBFeatures(*(f[-1:] for f in feats)), est
 
 
