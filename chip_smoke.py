@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profiling-out PATH]
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
@@ -150,7 +150,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      keypoints ranked from B1's maps; then tools/run_benchmarks' config
      3 line (ms a run, frames/s, peak device memory), stage 1, stage 2
      and its ratio-test Hamming step's share by CUDA events, and B1's
-     and B2's times and bounds at these shapes;
+     and B2's times and bounds at these shapes, with B2's library call
+     (one aten::index gather of the same windows, checked equal);
   5g. config 7: the five dynamic corridors of utils/synthetic
      (640x480, T 48, 1200 keypoints), each sha256 equal to its leg's;
      run_sequence_batched with frame_chunk 8 and pair_chunk 47 on each,
@@ -196,6 +197,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      to, and its positions within 1e-4 of, phase 4's or 5e's; it prints
      each rank's CUDA-event ms per runner, the halo and gathered bytes
      from the runners' record of transfers and each world's wall time;
+  5j. the profiling tools (tpu_vo_torch/tools: profile_headline,
+     profile_features, select_breakdown, topk_micro, profile_4k,
+     probe_4k_gap, profile_pairs, profile_ransac, profile_5pt_micro,
+     profile_chain, streamed_probe, profile_batch8 (four of its seven
+     variants), profile_batch8_flat (three of its seven points)), each
+     through its main at its full shapes with reps and iters cut (at
+     least 3 timed calls a row),
+     counters reset just before each: every output line parses, B1's and
+     B2's launches equal what the tool's calls imply (one B1 launch and
+     no B2 a select_maps call in select_breakdown; none in topk_micro,
+     profile_5pt_micro and profile_chain), and profile_features',
+     profile_pairs' and profile_ransac's composed stages equal the
+     function they split bit for bit; it prints each tool's seconds and
+     CUDA-event ms by row, and with --profiling-out PATH writes every
+     tool's result there;
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
@@ -283,7 +299,7 @@ from tpu_vo_torch.pipeline import runner, step  # noqa: E402
 from tpu_vo_torch.tools import (io_bench, patch_slots_probe, reference_band,  # noqa: E402
                                 run_benchmarks, stage_bench)
 from tpu_vo_torch.tools.device_time import device_time_ms  # noqa: E402
-from tpu_vo_torch.utils.profiling import card as _card, cuda_times  # noqa: E402
+from tpu_vo_torch.utils.profiling import busy_profile, card as _card, cuda_times  # noqa: E402
 from tpu_vo_torch.utils import synthetic  # noqa: E402
 from tpu_vo_torch.utils.metrics import ate_rmse_aligned, trajectory_report  # noqa: E402
 from tpu_vo_torch.utils.synthetic import compass_pattern, make_sequence  # noqa: E402
@@ -379,14 +395,39 @@ PAR_REPS = 3
 PAR_TIMEOUT = 60         # seconds a rank waits for the others and for a collective
 PAR_WORLD_TIMEOUT = 240  # seconds a spawned world may take, start-up included
 PAR_DEVICE = "cuda:0"    # every rank of a gloo world on this card
+# Phase 5j: the profiling tools (tpu_vo_torch/tools), each through its main
+# at its full shapes, reps and iters cut so that every row keeps at least 3
+# timed calls. The config-4 tools run the rows that bound their answers:
+# profile_batch8 its four variants of at most 2.8 s a run (the fc1_pc1
+# variants, one frame and one pair a call, take 6.8-8.1 s a run of 8 x 16
+# frames; vmap8_T64_fc8_pc9 is the same call as profile_batch8_flat's
+# fc8_pc9 row), profile_batch8_flat pc 9 and 252 at fc 8 and fc 32 at pc
+# 84; the other rows are run by hand (python -m tpu_vo_torch.tools.<name>)
+PROFILING_TOOLS = {
+    "profile_headline": dict(reps=1, iters=3),
+    "profile_features": dict(reps=1, iters=3),
+    "select_breakdown": dict(reps=3, iters=1),
+    "topk_micro": dict(reps=16, iters=3),
+    "profile_4k": dict(reps=1, iters=3),
+    "probe_4k_gap": dict(reps=1, chain_reps=3, iters=3),
+    "profile_pairs": dict(reps=1, iters=3),
+    "profile_ransac": dict(reps=1, iters=3),
+    "profile_5pt_micro": dict(reps=1, iters=3),
+    "profile_chain": dict(reps=3, iters=1),
+    "streamed_probe": dict(reps=3, iters=3),
+    "profile_batch8": dict(reps=1, iters=3, variants=(
+        "single_T96_fc8_pc95", "single_T96_fc8_pc5", "vmap8_T16_fc8_pc15", "vmap8_T16_fc2_pc3")),
+    "profile_batch8_flat": dict(reps=1, iters=3, pcs=(9, 252), fcs=(32,)),
+}
+# the tools that launch no kernel of the port, and those whose composed
+# stages the phase holds bit for bit against the function they split
+PROFILING_NO_KERNELS = ("topk_micro", "profile_5pt_micro", "profile_chain")
+PROFILING_COMPOSED = ("profile_features", "profile_pairs", "profile_ransac")
 # refine_window on the card against the CPU on the same inputs, in float32
 # (the pipeline's) and in float64 (where the LM's accept decisions do not
 # turn on the last bits)
 MAX_REFINE_DIFF = 1e-3
 MAX_REFINE_DIFF_F64 = 1e-8
-# CUDA runtime calls that make the host wait for the card
-_SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
-               "cudaMemcpy")
 
 # The card's peaks for the bounds (H100 SXM data sheet, at 700 W): HBM
 # bytes per second and f32 operations per second outside the tensor cores.
@@ -1065,57 +1106,73 @@ def _ingest_phase(cfg, missing, kernels, card):
     return runs
 
 
-def _busy_ms(intervals) -> float:
-    """Length of the union of (start, end) intervals, in the same unit."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
-
-
 def _profile(name, fn, card, rows=0):
-    """Profile PROFILE_RUNS calls of fn() after warm-up; print per run the
-    host time, the device busy time (union of device intervals), device
-    operations, host-to-device and device-to-host copies and the runtime
-    calls that wait for the card; with rows, the top device time."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    for _ in range(WARMUP):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_RUNS):
-            with record_function(name):
-                fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.events()
-    dev_ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name != name and not getattr(e, "is_user_annotation", False)]
-    busy = _busy_ms([(k.time_range.start, k.time_range.end) for k in dev_ops]) / 1e3
-
-    def per_run(pred, evs):
-        return sum(1 for e in evs if pred(e.name)) / PROFILE_RUNS
-
-    h2d = per_run(lambda n: "HtoD" in n, dev_ops)
-    d2h = per_run(lambda n: "DtoH" in n, dev_ops)
-    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
-    waits = {c: per_run(lambda n, c=c: n == c, host) for c in _SYNC_CALLS}
-    print(f"profile {name}: {wall_ms / PROFILE_RUNS:.3f} ms per run (host clock, profiler "
-          f"on), device busy {busy / PROFILE_RUNS:.3f} ms = {100.0 * busy / wall_ms:.1f}%, "
-          f"{len(dev_ops) / PROFILE_RUNS:.0f} device ops, {h2d:.0f} HtoD and {d2h:.0f} DtoH "
-          f"copies, waits {waits} per run [{card}]", flush=True)
+    """Profile PROFILE_RUNS calls of fn() after warm-up (utils/profiling.
+    busy_profile); print per run the host time, the device busy time
+    (union of device intervals), device operations, host-to-device and
+    device-to-host copies and the runtime calls that wait for the card;
+    with rows, the top device time."""
+    p = busy_profile(fn, PROFILE_RUNS, WARMUP, rows=rows, name=name)
+    print(f"profile {name}: {p['host_ms']:.3f} ms per run (host clock, profiler "
+          f"on), device busy {p['busy_ms']:.3f} ms = {100.0 * p['busy_share']:.1f}%, "
+          f"{p['device_ops']:.0f} device ops, {p['htod']:.0f} HtoD and {p['dtoh']:.0f} DtoH "
+          f"copies, waits {p['waits']} per run [{card}]", flush=True)
     if rows:
-        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows,
-                                        max_name_column_width=60), flush=True)
+        print(p["table"], flush=True)
+
+
+def _profiling_tools_phase(kernels, card, out=None):
+    """Phase 5j: each of PROFILING_TOOLS through its main on the card,
+    counters reset just before each; its output lines parse, its B1 and
+    B2 launches equal what its calls imply (its expected_launches; one B1
+    launch and no B2 per select_maps call in select_breakdown, none in
+    PROFILING_NO_KERNELS), and the composed stages of PROFILING_COMPOSED
+    equal the function they split bit for bit. Prints one line a tool
+    (its seconds and CUDA-event ms by row); `out` gets every tool's last
+    line. Returns the B1 and B2 launches of all the tools."""
+    import importlib
+
+    total = dict.fromkeys(("select_maps", "extract_patches"), 0)
+    objs = {}
+    for name, kw in PROFILING_TOOLS.items():
+        mod = importlib.import_module(f"tpu_vo_torch.tools.{name}")
+        _reset(kernels)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            obj = mod.main(**kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lines = [json.loads(line) for line in buf.getvalue().strip().splitlines()]
+        if lines[-1] != json.loads(json.dumps(obj)) or lines[-1]["card"] != card:
+            raise AssertionError(f"{name}: its last line is not its result on {card}")
+        got = {k: kernels[k].launches for k in total}
+        want = obj["expected_launches"]
+        if name == "select_breakdown":
+            # per level one untimed select_maps call and two timed rows of it
+            # (a warm-up and reps x iters calls each), then select_maps_levels'
+            # row: one launch a call
+            row_calls = 1 + kw["reps"] * kw["iters"]
+            want = {"select_maps": 8 * (1 + 2 * row_calls) + row_calls, "extract_patches": 0}
+        if name in PROFILING_NO_KERNELS:
+            want = dict.fromkeys(total, 0)
+        if got != want or got != obj["expected_launches"]:
+            raise AssertionError(f"{name}: launches {got}, its calls imply {want}")
+        if name in PROFILING_COMPOSED and obj["rows"]["composed_equal"] is not True:
+            raise AssertionError(f"{name}: its composed stages differ from the function they "
+                                 f"split on the card")
+        for k in total:
+            total[k] += got[k]
+        objs[name] = obj
+        timed = ", ".join(f"{r} {v['ms']:.3f}" for r, v in obj["rows"].items()
+                          if isinstance(v, dict) and isinstance(v.get("ms"), float))
+        print(f"{name}: {secs:.1f} s, launches {got}, composed "
+              f"{obj['rows'].get('composed_equal', '-')}; ms a call: {timed} [{card}]",
+              flush=True)
+    if out:
+        with open(out, "w") as f:
+            json.dump(objs, f)
+    return total
 
 
 def _start_renders(pool):
@@ -1513,6 +1570,16 @@ def _config3_phase(renders, kernels, card):
     pat = (_cuda_ms(lambda: extract_patches_levels(levels, ys, xs, starts[:-1])),
            _cuda_ms(lambda: [extract_patches_reference(lv, y, x) for lv, (y, x) in zip(levels, kp)],
                     warmup=1, reps=3), _patch_bound(levels, kp))
+    # B2's library call at these shapes: one aten::index gather of the same
+    # windows on prebuilt indices, as phase 6 times it on the main path
+    r = torch.arange(RAW_SIZE, device=frames.device)
+    b2_flat, b2_idx = _library_gather(
+        levels, [(patch_starts(y, lv.shape[-2])[..., None] + r,
+                  patch_starts(x, lv.shape[-1])[..., None] + r) for lv, (y, x) in zip(levels, kp)])
+    if not torch.equal(b2_flat[b2_idx], extract_patches_levels(levels, ys, xs, starts[:-1])):
+        raise AssertionError("config 3: B2's library gather differs from the kernel")
+    pat_lib = _cuda_ms(lambda: b2_flat[b2_idx])
+    del b2_flat, b2_idx
     tag = f"[{card}]"
     print(f"config 3: {res['ms']:.3f} ms a run (median of {run_benchmarks.REPS}, CUDA events) = "
           f"{res['frames_per_sec']:.2f} frames/s, one warm call by the host clock "
@@ -1523,15 +1590,18 @@ def _config3_phase(renders, kernels, card):
           f"{res.get('ate_vs_reference_aligned_rel')}, vs ground truth {res.get('ate_vs_gt_rel')} "
           f"(the reference's {res.get('ref_ate_vs_gt_rel')}), parity "
           f"{res.get('parity_within_ref_band')} {tag}", flush=True)
-    for name, (k_ms, p_ms, (b_ms, by)) in (("select_maps_levels", sel),
-                                            ("extract_patches_levels", pat)):
+    for name, (k_ms, p_ms, (b_ms, by)), lib in (("select_maps_levels", sel, None),
+                                                 ("extract_patches_levels", pat, pat_lib)):
+        lib = "none" if lib is None else f"{lib:.4f} ms"
         print(f"{name} at config 3's shapes ({[tuple(lv.shape) for lv in levels]}, "
               f"{ys.shape[1]} slots a frame), 1 launch: kernel {k_ms:.4f} ms, plain {p_ms:.3f} ms, "
-              f"bound {b_ms:.4f} ms ({by}) {tag}", flush=True)
+              f"bound {b_ms:.4f} ms ({by}), library call {lib} {tag}", flush=True)
     print(f"select_maps bound at config 3's shapes: {sel_bytes} B, {sel_instr} lane-instructions "
           f"({n_inner} pixels inside the border, {n_cand} compass candidates) {tag}", flush=True)
-    times = {name: {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by}
-             for name, (k_ms, p_ms, (b_ms, by)) in (("select_maps", sel), ("extract_patches", pat))}
+    times = {name: {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+                    "library_ms": lib}
+             for name, (k_ms, p_ms, (b_ms, by)), lib in (("select_maps", sel, None),
+                                                          ("extract_patches", pat, pat_lib))}
     return launches, times
 
 
@@ -1665,7 +1735,11 @@ def _config6_phase(renders, degraded, kernels, card):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
+    p.add_argument("--profiling-out", default=None,
+                   help="write the profiling tools' results (phase 5j) to this JSON file")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1675,12 +1749,12 @@ def main() -> int:
     pool = concurrent.futures.ProcessPoolExecutor(
         RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
-        return _run(card, dev, pool)
+        return _run(card, dev, pool, args.profiling_out)
     finally:
         pool.shutdown(cancel_futures=True)
 
 
-def _run(card, dev, pool) -> int:
+def _run(card, dev, pool, profiling_out=None) -> int:
     t_start = time.perf_counter()
 
     # 2. build: the kernels (nvcc) and, beside them, the native loader (g++)
@@ -1990,6 +2064,11 @@ def _run(card, dev, pool) -> int:
     del c4_run
     print(f"phase parallel runners: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+    # 5j. the profiling tools at their full shapes, counted per tool
+    t0 = time.perf_counter()
+    path_launches["profiling tools"] = _profiling_tools_phase(kernels, card, profiling_out)
+    print(f"phase profiling tools: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
     # 6. times
     def main_path():
         return runner.run_sequence_batched(frames, cfg, seed=0)
@@ -2199,4 +2278,4 @@ def _run(card, dev, pool) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -17,6 +17,12 @@ Every intermediate carries the sample axis last, (..., small, n):
      Newton polish on the real axis;
   5. back-substitution of (x, y) from the null vector of B(z): up to 10
      Frobenius-normalized candidates per sample with a validity mask.
+
+The array-of-structures helpers of tpu_vo (`_mul11` ... `_newton_real`),
+which carry one sample's matrices minor-most and batch over leading
+dims, are here too under their names: the main path does not run them;
+tools/profile_5pt_micro and tools/profile_ransac time them beside the
+SoA form.
 """
 
 from __future__ import annotations
@@ -94,6 +100,202 @@ def _select(key, P: torch.Tensor) -> torch.Tensor:
     """einsum("st,...sn->...tn") with the static 0/1 table `key`."""
     return torch.matmul(_table(key, P.dtype, P.device).transpose(0, 1), P)
 
+
+# ---------------------------------------------------------------------------
+# Array-of-structures helpers (tpu_vo's per-sample form, batched over
+# leading dims): not on the main path
+# ---------------------------------------------------------------------------
+
+def _mul11(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) x (..., 4) -> (..., 10) polynomial product."""
+    P = p[..., :, None] * q[..., None, :]
+    return P.reshape(*P.shape[:-2], 16) @ _table("t11", p.dtype, p.device)
+
+
+def _mul21(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(..., 10) x (..., 4) -> (..., 20) polynomial product."""
+    P = p[..., :, None] * q[..., None, :]
+    return P.reshape(*P.shape[:-2], 40) @ _table("t21", p.dtype, p.device)
+
+
+def _nullspace_basis(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """4-dim nullspace of the 5x9 epipolar system of (..., 5, 2)
+    correspondences, as (..., 4, 3, 3) matrices: 5 unrolled Householder
+    reflections on A^T (9x5), then the last 4 identity columns pushed
+    back through the reflectors."""
+    dtype, dev = x1.dtype, x1.device
+    u1, v1 = x1[..., 0], x1[..., 1]
+    u2, v2 = x2[..., 0], x2[..., 1]
+    A = torch.stack([u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1,
+                     torch.ones_like(u1)], dim=-1)      # (..., 5, 9)
+    M = A.transpose(-1, -2)                             # (..., 9, 5)
+    rows = torch.arange(9, device=dev)
+    zero = torch.zeros((), dtype=dtype, device=dev)
+
+    vs = []
+    for k in range(5):
+        x = torch.where(rows >= k, M[..., :, k], zero)  # (..., 9)
+        nrm = torch.sqrt((x * x).sum(-1))
+        sign = torch.where(x[..., k] >= 0, 1.0, -1.0).to(dtype)
+        v = x + (sign * nrm)[..., None] * (rows == k).to(dtype)
+        vnorm2 = torch.clamp((v * v).sum(-1), min=1e-30)
+        vM = (v[..., :, None] * M).sum(-2)              # (..., 5)
+        M = M - (2.0 / vnorm2)[..., None, None] * v[..., :, None] * vM[..., None, :]
+        vs.append((v, vnorm2))
+
+    B = (rows[:, None] == torch.arange(5, 9, device=dev)[None, :]).to(dtype)  # (9, 4)
+    for v, vnorm2 in reversed(vs):
+        vB = (v[..., :, None] * B).sum(-2)              # (..., 4)
+        B = B - (2.0 / vnorm2)[..., None, None] * v[..., :, None] * vB[..., None, :]
+    return B.transpose(-1, -2).reshape(*B.shape[:-2], 4, 3, 3)
+
+
+def _constraint_matrix(basis: torch.Tensor) -> torch.Tensor:
+    """The 10 cubic constraints on E(x, y, z) of a (..., 4, 3, 3) basis as
+    a (..., 10, 20) coefficient matrix."""
+    Ep = basis.movedim(-3, -1)                          # (..., 3, 3, 4)
+    lead = Ep.shape[:-3]
+    # EE^T (degree 2): P[i, j, a, b] = sum_k Ep[i, k, a] Ep[j, k, b]
+    P = (Ep[..., :, None, :, :, None] * Ep[..., None, :, :, None, :]).sum(-3)
+    EEt = P.reshape(*lead, 3, 3, 16) @ _table("t11", Ep.dtype, Ep.device)   # (..., 3, 3, 10)
+    tr = EEt[..., 0, 0, :] + EEt[..., 1, 1, :] + EEt[..., 2, 2, :]         # (..., 10)
+
+    # 2 EE^T E - tr(EE^T) E (degree 3): Q[i, j, t, a] = sum_k EEt[i, k, t] Ep[k, j, a]
+    t21 = _table("t21", Ep.dtype, Ep.device)
+    Q = (EEt[..., :, :, None, :, None] * Ep[..., None, :, :, None, :]).sum(-4)
+    EEtE = Q.reshape(*lead, 3, 3, 40) @ t21
+    trE = (tr[..., None, None, :, None] * Ep[..., :, :, None, :]).reshape(*lead, 3, 3, 40) @ t21
+    C = 2.0 * EEtE - trE                                # (..., 3, 3, 20)
+
+    # det(E) (degree 3): cofactor expansion along row 0
+    def e(i, j):
+        return Ep[..., i, j, :]
+
+    m00 = _mul11(e(1, 1), e(2, 2)) - _mul11(e(1, 2), e(2, 1))
+    m01 = _mul11(e(1, 0), e(2, 2)) - _mul11(e(1, 2), e(2, 0))
+    m02 = _mul11(e(1, 0), e(2, 1)) - _mul11(e(1, 1), e(2, 0))
+    det = _mul21(m00, e(0, 0)) - _mul21(m01, e(0, 1)) + _mul21(m02, e(0, 2))
+    return torch.cat([det[..., None, :], C.reshape(*lead, 9, 20)], dim=-2)
+
+
+def _gauss_jordan(A: torch.Tensor) -> torch.Tensor:
+    """Reduce (..., 10, 20) to [I | M] with partial pivoting, branch-free
+    (row swap, pivot divide and elimination as masked broadcasts)."""
+    n = A.shape[-2]
+    rows = torch.arange(n, device=A.device)
+    minus1 = torch.full((), -1.0, dtype=A.dtype, device=A.device)
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    for i in range(n):
+        cand = torch.where(rows >= i, torch.abs(A[..., :, i]), minus1)
+        p = torch.argmax(cand, dim=-1)                     # (...,)
+        ei = (rows == i).to(A.dtype)[:, None]              # (n, 1)
+        ep = (rows == p[..., None]).to(A.dtype)[..., None]  # (..., n, 1)
+        Ai = A[..., i, :]
+        Ap = (ep * A).sum(-2)                              # (..., 20)
+        A = A + ei * (Ap - Ai)[..., None, :] + ep * (Ai - Ap)[..., None, :]
+        piv = Ap[..., i]
+        safe = torch.where(torch.abs(piv) > 1e-30, piv, torch.full_like(piv, 1e-30))
+        Anew_i = Ap / safe[..., None]
+        A = A * (1.0 - ei) + ei * Anew_i[..., None, :]
+        factors = torch.where(rows == i, zero, A[..., :, i])
+        A = A - factors[..., :, None] * Anew_i[..., None, :]
+    return A
+
+
+def _action_polynomials(M: torch.Tensor):
+    """B(z) from the reduced tail M = A_reduced[..., :, 10:] (..., 10, 10):
+    [(Bx, By, B1)] for the row pairs (4, 7), (5, 8), (6, 9), Bx and By
+    (..., 4) and B1 (..., 5) descending in z."""
+    def row_pair(ra, rb):
+        a, b = M[..., ra, :], M[..., rb, :]
+        Bx = torch.stack([-b[..., 0], a[..., 0] - b[..., 1], a[..., 1] - b[..., 2], a[..., 2]],
+                         dim=-1)
+        By = torch.stack([-b[..., 3], a[..., 3] - b[..., 4], a[..., 4] - b[..., 5], a[..., 5]],
+                         dim=-1)
+        B1 = torch.stack([-b[..., 6], a[..., 6] - b[..., 7], a[..., 7] - b[..., 8],
+                          a[..., 8] - b[..., 9], a[..., 9]], dim=-1)
+        return Bx, By, B1
+
+    return [row_pair(4, 7), row_pair(5, 8), row_pair(6, 9)]
+
+
+def _conv(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Full convolution of (..., lp) and (..., lq) -> (..., lp + lq - 1)."""
+    lp, lq = p.shape[-1], q.shape[-1]
+    P = p[..., :, None] * q[..., None, :]
+    return P.reshape(*P.shape[:-2], lp * lq) @ _table(("conv", lp, lq), p.dtype, p.device)
+
+
+def _det_poly(B) -> torch.Tensor:
+    """det of the 3x3 polynomial matrix -> degree-10 poly (..., 11), descending."""
+    (x0, y0, c0), (x1, y1, c1), (x2, y2, c2) = B
+    d0 = _conv(c0, _conv(x1, y2) - _conv(y1, x2))
+    d1 = _conv(c1, _conv(x0, y2) - _conv(y0, x2))
+    d2 = _conv(c2, _conv(x0, y1) - _conv(y0, x1))
+    return d0 - d1 + d2
+
+
+def _polyval(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Horner over the last axis of coeffs (..., d+1) at x (..., k)."""
+    acc = torch.zeros((), dtype=torch.promote_types(coeffs.dtype, x.dtype), device=x.device)
+    for k in range(coeffs.shape[-1]):
+        acc = acc * x + coeffs[..., k, None]
+    return acc
+
+
+def _poly_roots(coeffs: torch.Tensor, iters: int = 100):
+    """All 10 roots of degree-10 polynomials (..., 11) by Durand-Kerner,
+    balanced by z = s*u so the constant term has unit magnitude. Returns
+    (roots (..., 10) complex, lead_ok (...))."""
+    n = coeffs.shape[-1] - 1
+    dev = coeffs.device
+    lead = coeffs[..., 0]
+    lead_ok = torch.abs(lead) > 1e-25
+    c = coeffs / torch.where(lead_ok, lead, torch.ones_like(lead))[..., None]
+
+    tail = torch.abs(c[..., -1])
+    big = tail > 1e-30
+    s = torch.where(big, tail ** (1.0 / n), torch.ones_like(tail))
+    powers = s[..., None] ** torch.arange(n, -1, -1, dtype=c.dtype, device=dev)
+    cb = c * powers / torch.where(big, tail, torch.ones_like(tail))[..., None]
+
+    cdtype = torch.complex128 if c.dtype == torch.float64 else torch.complex64
+    radius = 1.0 + torch.abs(cb[..., 1:]).amax(-1) ** (1.0 / n)
+    u = radius[..., None].to(cdtype) * _start_ring(n, cdtype, dev)[:, 0]   # (..., 10)
+    cc = cb.to(cdtype)
+    eye = torch.eye(n, dtype=cdtype, device=dev)
+    for _ in range(iters):
+        pu = _polyval(cc, u)
+        diff = (u[..., :, None] - u[..., None, :]) * (1.0 - eye) + eye
+        denom = _floor_abs(torch.prod(diff, dim=-1), 1e-30)
+        step = pu / denom
+        mag = torch.abs(step)
+        step = torch.where(mag > 10.0, step * (10.0 / mag), step)
+        u = u - step
+    return u * s[..., None].to(cdtype), lead_ok
+
+
+def _poly_backward_error(coeffs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """|p(z)| / sum_i |c_i| |z|^(n-i): the scale-invariant root residual
+    of (..., k) roots of (..., n+1) coefficients."""
+    scale = _polyval(torch.abs(coeffs), torch.abs(z))
+    return torch.abs(_polyval(coeffs, z)) / torch.clamp(scale, min=1e-30)
+
+
+def _newton_real(coeffs: torch.Tensor, x0: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Polish (..., k) real roots of (..., n+1) coefficients by Newton
+    iterations on the real axis."""
+    n = coeffs.shape[-1] - 1
+    dcoeffs = coeffs[..., :-1] * torch.arange(n, 0, -1, dtype=coeffs.dtype, device=coeffs.device)
+    x = x0
+    for _ in range(iters):
+        x = x - _polyval(coeffs, x) / _floor_abs(_polyval(dcoeffs, x), 1e-30)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Structure-of-arrays pipeline: the main path
+# ---------------------------------------------------------------------------
 
 def _soa_nullspace(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """x1/x2 (..., n, 5, 2) -> nullspace basis (..., 4, 9, n)."""
@@ -281,6 +483,15 @@ def _soa_polyval(coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _soa_newton_real(p: torch.Tensor, z: torch.Tensor, iters: int = 8) -> torch.Tensor:
+    """Newton polish on the real axis of (..., k, n) roots of (..., 11, n)
+    coefficients."""
+    dcoeffs = p[..., :-1, :] * torch.arange(10, 0, -1, dtype=p.dtype, device=p.device)[:, None]
+    for _ in range(iters):
+        z = z - _soa_polyval(p, z) / _floor_abs(_soa_polyval(dcoeffs, z), 1e-30)
+    return z
+
+
 def five_point_candidates_batched(x1: torch.Tensor, x2: torch.Tensor,
                                   dk_iters: int = 24, root_method: str = "aberth"):
     """Batched essential-matrix candidates.
@@ -302,10 +513,7 @@ def five_point_candidates_batched(x1: torch.Tensor, x2: torch.Tensor,
     roots_c, lead_ok = _soa_poly_roots(p, iters=dk_iters, method=root_method)
     z_real = roots_c.real.to(dtype)
 
-    dcoeffs = p[..., :-1, :] * torch.arange(10, 0, -1, dtype=dtype, device=p.device)[:, None]
-    z = z_real
-    for _ in range(8):                          # Newton polish, real axis
-        z = z - _soa_polyval(p, z) / _floor_abs(_soa_polyval(dcoeffs, z), 1e-30)
+    z = _soa_newton_real(p, z_real)
 
     bscale = _soa_polyval(torch.abs(p), torch.abs(z))
     resid = torch.abs(_soa_polyval(p, z)) / torch.clamp(bscale, min=1e-30)

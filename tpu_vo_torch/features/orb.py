@@ -5,8 +5,9 @@ Over all B frames and pyramid levels at once:
   select_maps_levels (kernel B1, one launch for all levels): FAST-9/16 +
       strict NMS + border + dense Harris + packed keys + vertical 2-row
       pool
-  _rank_from_maps, per level: exact stage-1 cut of the 2n best FAST keys,
-      then the n best by Harris response (retainBest twice)
+  _rank_from_maps, per level: exact stage-1 cut of the 2n best FAST keys
+      (_stage1_cut), then the n best by Harris response (_rank_keys;
+      retainBest twice)
   extract_patches_levels (kernel B2, one launch for all levels' slots):
       one 43x43 window per keypoint
   angles, blur and steered rBRIEF bits from all windows at once
@@ -91,25 +92,45 @@ def _harris_cut(v2, ys2, xs2, resp, n_level, k2, cfg, area):
     return ys, xs, torch.where(valid, v1, torch.zeros_like(v1)), valid
 
 
-def _rank_from_maps(packed, harris_map, idx_bits, w, n_level, cfg, area):
-    """Stage-1 FAST cut + stage-2 Harris ranking from select_maps' outputs
-    for (B, ...) levels. Returns (ys, xs, response, valid), each (B, k1)."""
-    k2 = min((4 if cfg.retain_best_keep_ties else 2) * n_level, area)
+def _stage1_size(n_level, cfg, area):
+    """The stage-1 cut's capacity: 2n keys, or 4n to hold the ties at the
+    2n-th score (cfg.retain_best_keep_ties), at most the level's area."""
+    return min((4 if cfg.retain_best_keep_ties else 2) * n_level, area)
+
+
+def _stage1_cut(packed, k2):
+    """Stage 1: the (B, k2) largest packed keys of select_maps' (B, H/2,
+    W_pad) map after its 1x2 pool, zero-padded where the map holds fewer.
+    The cut is exact. Only the values are used and nonzero keys are
+    unique (they hold the index), so the order among tied zeros is
+    immaterial."""
     b, hp2, wp = packed.shape
     pooled = packed.view(b, hp2, wp // 2, 2).amax(-1).view(b, -1)
     k_red = min(k2, pooled.shape[1])
-    # Exact cut. Only the values are used and nonzero keys are unique
-    # (they hold the index), so the order among tied zeros is immaterial.
     v = torch.topk(pooled, k_red, dim=-1).values
     if k_red < k2:
         v = torch.nn.functional.pad(v, (0, k2 - k_red))
+    return v
 
+
+def _rank_keys(v, harris_map, idx_bits, w, n_level, cfg, area):
+    """Stage 2 from stage 1's (B, k2) keys v: each key's position decoded,
+    the Harris response gathered there, then _harris_cut. Returns (ys,
+    xs, response, valid), each (B, k1)."""
+    b, k2 = v.shape
     v2 = (v >> idx_bits).to(torch.float32)
     mask = (1 << idx_bits) - 1
     idx2 = torch.where(v > 0, _bit_reverse(mask - (v & mask), idx_bits),
                        torch.zeros_like(v))
     resp = torch.gather(harris_map.reshape(b, -1), 1, idx2.to(torch.int64))
     return _harris_cut(v2, idx2 // w, idx2 % w, resp, n_level, k2, cfg, area)
+
+
+def _rank_from_maps(packed, harris_map, idx_bits, w, n_level, cfg, area):
+    """Stage-1 FAST cut + stage-2 Harris ranking from select_maps' outputs
+    for (B, ...) levels. Returns (ys, xs, response, valid), each (B, k1)."""
+    v = _stage1_cut(packed, _stage1_size(n_level, cfg, area))
+    return _rank_keys(v, harris_map, idx_bits, w, n_level, cfg, area)
 
 
 def _select_level_keypoints(lvl: torch.Tensor, n_level: int, cfg: ORBConfig,
@@ -136,53 +157,68 @@ def _select_level_keypoints(lvl: torch.Tensor, n_level: int, cfg: ORBConfig,
                        h * w)
 
 
-def detect_and_compute(img: torch.Tensor,
-                       cfg: ORBConfig = ORBConfig()) -> ORBFeatures:
-    """ORB features of (B, H, W) or (H, W) grayscale frames (uint8 or
-    float32 0..255); each kernel launches once for all levels and frames."""
-    single = img.dim() == 2
-    frames = img[None] if single else img
-    b = frames.shape[0]
-    dev = frames.device
-    budgets = features_per_level(cfg.n_features, cfg.n_levels,
-                                 cfg.scale_factor)
-    used = [(level, lvl.contiguous(), n_level) for level, (lvl, n_level) in enumerate(
+def pyramid_levels(frames: torch.Tensor, cfg: ORBConfig):
+    """[(level, (B, H, W) float32 level, budget)] of the pyramid levels of
+    (B, H, W) frames that keep at least one keypoint."""
+    budgets = features_per_level(cfg.n_features, cfg.n_levels, cfg.scale_factor)
+    return [(level, lvl.contiguous(), n_level) for level, (lvl, n_level) in enumerate(
         zip(build_pyramid(frames, cfg.n_levels, cfg.scale_factor), budgets)) if n_level > 0]
-    levels = [lvl for _, lvl, _ in used]
-    maps = select_maps_levels(levels, cfg.fast_threshold, cfg.edge_threshold)
 
-    xs_all, ys_all, resp_all, valid_all = [], [], [], []
-    oct_all, size_all, scale_all, starts = [], [], [], []
-    slots = 0
-    for (level, lvl, n_level), (packed, hmap, idx_bits) in zip(used, maps):
+
+def select_keypoints(used, cfg: ORBConfig):
+    """Kernel B1 on all of pyramid_levels' levels (one launch), then each
+    level's two-stage cut: ([(ys, xs, response, valid)] per level, each
+    (B, k), and each level's first slot)."""
+    maps = select_maps_levels([lvl for _, lvl, _ in used], cfg.fast_threshold,
+                              cfg.edge_threshold)
+    kps, starts, slots = [], [], 0
+    for (_, lvl, n_level), (packed, hmap, idx_bits) in zip(used, maps):
         h, w = lvl.shape[-2:]
-        ys, xs, resp, valid = _rank_from_maps(packed, hmap, idx_bits, w,
-                                              n_level, cfg, h * w)
-        scale = float(cfg.scale_factor ** level)
-        k = xs.shape[1]
+        kps.append(_rank_from_maps(packed, hmap, idx_bits, w, n_level, cfg, h * w))
         starts.append(slots)
-        slots += k
-        xs_all.append(xs)
-        ys_all.append(ys)
-        resp_all.append(resp)
-        valid_all.append(valid)
+        slots += kps[-1][0].shape[1]
+    return kps, starts
+
+
+def keypoint_coords(kps):
+    """(ys, xs), each (B, N): every level's keypoint rows and columns, in
+    slot order."""
+    return torch.cat([k[0] for k in kps], 1), torch.cat([k[1] for k in kps], 1)
+
+
+def keypoint_windows(used, ys, xs, starts) -> torch.Tensor:
+    """Kernel B2: the (B, N, 43, 43) windows at keypoint_coords' (ys, xs),
+    each level's from its first slot in `starts`, one launch."""
+    return extract_patches_levels([lvl for _, lvl, _ in used], ys, xs, starts)
+
+
+def describe(raw: torch.Tensor):
+    """(angles, rBRIEF bits) of (B, N, 43, 43) windows."""
+    ang = patches.angles_from_patches(raw)
+    return ang, patches.descriptor_bits_from_patches(raw, ang)
+
+
+def pack_features(used, kps, ys, xs, ang, bits, cfg: ORBConfig) -> ORBFeatures:
+    """ORBFeatures of (B, ...) frames from the levels, keypoints (per level
+    and keypoint_coords' (ys, xs)), angles and bits: level-0 coordinates,
+    octave, size, packed descriptors, every invalid slot zeroed."""
+    b = kps[0][0].shape[0]
+    dev = bits.device
+    oct_all, size_all, scale_all = [], [], []
+    for (level, _, _), kp in zip(used, kps):
+        scale = float(cfg.scale_factor ** level)
+        k = kp[0].shape[1]
         oct_all.append(torch.full((b, k), level, dtype=torch.int32, device=dev))
         size_all.append(torch.full((b, k), cfg.patch_size * scale,
                                    dtype=torch.float32, device=dev))
-        scale_all.append(torch.full((b, k), scale, dtype=torch.float32,
-                                    device=dev))
-
-    ys, xs = torch.cat(ys_all, 1), torch.cat(xs_all, 1)
-    raw = extract_patches_levels(levels, ys.contiguous(), xs.contiguous(), starts)
-    ang = patches.angles_from_patches(raw)
-    bits = patches.descriptor_bits_from_patches(raw, ang)
+        scale_all.append(torch.full((b, k), scale, dtype=torch.float32, device=dev))
     scale = torch.cat(scale_all, dim=1)
     xy = torch.stack([xs, ys], dim=-1).to(torch.float32) * scale[..., None]
-    valid = torch.cat(valid_all, dim=1)
+    valid = torch.cat([k[3] for k in kps], dim=1)
     v1 = valid[..., None]
-    feats = ORBFeatures(
+    return ORBFeatures(
         xy=torch.where(v1, xy, torch.zeros_like(xy)),
-        response=torch.cat(resp_all, 1),
+        response=torch.cat([k[2] for k in kps], 1),
         angle=torch.where(valid, ang, torch.zeros((), device=dev)),
         octave=torch.cat(oct_all, 1),
         size=torch.cat(size_all, 1),
@@ -192,6 +228,21 @@ def detect_and_compute(img: torch.Tensor,
                            torch.zeros((), dtype=torch.int32, device=dev)),
         valid=valid,
     )
+
+
+def detect_and_compute(img: torch.Tensor,
+                       cfg: ORBConfig = ORBConfig()) -> ORBFeatures:
+    """ORB features of (B, H, W) or (H, W) grayscale frames (uint8 or
+    float32 0..255); each kernel launches once for all levels and frames:
+    pyramid_levels, select_keypoints (B1), keypoint_coords,
+    keypoint_windows (B2), describe and pack_features, in that order."""
+    single = img.dim() == 2
+    frames = img[None] if single else img
+    used = pyramid_levels(frames, cfg)
+    kps, starts = select_keypoints(used, cfg)
+    ys, xs = keypoint_coords(kps)
+    ang, bits = describe(keypoint_windows(used, ys, xs, starts))
+    feats = pack_features(used, kps, ys, xs, ang, bits, cfg)
     if single:
         feats = ORBFeatures(*(f[0] for f in feats))
     return feats

@@ -187,36 +187,42 @@ def _empty_features(cfg: VOConfig, device: torch.device) -> ORBFeatures:
     return ORBFeatures(*(f[None] for f in initial_state(cfg, device=device).prev))
 
 
-def _stream_chunk(n: int, chunk: int) -> Optional[int]:
-    """`chunk` items per call where it divides n, else all n at once."""
-    return chunk if n % chunk == 0 else None
+def _stream_chunk(n: int, chunk: Optional[int]) -> Optional[int]:
+    """`chunk` items per call where it divides n, else (or when None) all
+    n at once."""
+    return chunk if chunk is not None and n % chunk == 0 else None
 
 
 def _streamed_pairs(carry: ORBFeatures, feats: ORBFeatures, cfg: VOConfig, seeds,
-                    offset: int) -> dict:
+                    offset: int, pair_chunk: Optional[int] = STREAM_PAIR_CHUNK) -> dict:
     """The n pairs of each of R rows of frames whose first is at global
     index `offset`: features `feats` (R, n, ...), `carry` (R, ...) those
     of the frame before each row's first. Row b's pairs are the carried
     features against its first frame, then frame to frame, pair j
-    drawing from the generator of global pair offset + j of seeds[b].
+    drawing from the generator of global pair offset + j of seeds[b];
+    `pair_chunk` pairs a call where it divides R*n, else all at once.
     Returns their estimates, leading dim R*n (row-major)."""
     R, n = feats.xy.shape[:2]
     prev = ORBFeatures(*(torch.cat([c[:, None], f[:, :-1]], 1).flatten(0, 1)
                          for c, f in zip(carry, feats)))
     cur = ORBFeatures(*(f.flatten(0, 1) for f in feats))
     gens = [g for s in seeds for g in pair_generators(s, range(offset, offset + n))]
-    return estimate_pairs(prev, cur, cfg, gens, _stream_chunk(R * n, STREAM_PAIR_CHUNK))
+    return estimate_pairs(prev, cur, cfg, gens, _stream_chunk(R * n, pair_chunk))
 
 
 def _streamed_step(carry: ORBFeatures, chunk: torch.Tensor, cfg: VOConfig, seed: int,
-                   offset: int):
+                   offset: int, frame_chunk: Optional[int] = STREAM_FRAME_CHUNK,
+                   pair_chunk: Optional[int] = STREAM_PAIR_CHUNK):
     """One chunk of n frames, the first at global index `offset`: its
-    features, then its n pairs (the carried features against the first
-    frame, then frame to frame), pair j drawing from the generator of
-    global pair offset + j. Returns (the last frame's features, the pairs'
-    estimates)."""
-    feats = detect_frames(chunk, cfg, _stream_chunk(chunk.shape[0], STREAM_FRAME_CHUNK))
-    est = _streamed_pairs(carry, ORBFeatures(*(f[None] for f in feats)), cfg, [seed], offset)
+    features, `frame_chunk` frames a launch, then its n pairs (the carried
+    features against the first frame, then frame to frame), `pair_chunk`
+    pairs a call, pair j drawing from the generator of global pair offset
+    + j. A chunk that does not divide n, or None, means all n in one call
+    (tpu_vo's `_streamed_step_fn(cfg, frame_chunk, pair_chunk)`). Returns
+    (the last frame's features, the pairs' estimates)."""
+    feats = detect_frames(chunk, cfg, _stream_chunk(chunk.shape[0], frame_chunk))
+    est = _streamed_pairs(carry, ORBFeatures(*(f[None] for f in feats)), cfg, [seed], offset,
+                          pair_chunk)
     return ORBFeatures(*(f[-1:] for f in feats)), est
 
 

@@ -9,6 +9,10 @@ its host clock).
   benchmark(fn, *args)  first-call and steady-state seconds of fn(*args);
   fence(tree)           wait for the CUDA tensors of a nested structure;
   cuda_times(fn, ...)   milliseconds of each call of fn() by CUDA events;
+  busy_profile(fn, ...) torch.profiler over calls of fn() on the card: host
+                        ms a call, device busy ms (the union of device
+                        intervals), device ops, copies and the runtime
+                        calls that wait for the card;
   card()                the card's "name, power.limit" from nvidia-smi,
                         the tag beside every number taken on it.
 
@@ -19,6 +23,7 @@ didn't stop after throw()"), an exception in the body propagates unchanged.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import subprocess
@@ -136,6 +141,72 @@ def cuda_times(fn: Callable[[], Any], warmup: int = 2, reps: int = 5,
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
     return times
+
+
+# CUDA runtime calls that make the host wait for the card
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize",
+              "cudaMemcpy")
+
+
+def interval_union(intervals) -> float:
+    """Length of the union of (start, end) intervals, in their unit."""
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in sorted(intervals):
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total
+
+
+def busy_profile(fn: Callable[[], Any], runs: int, warmup: int, rows: int = 0,
+                 name: str = "run") -> Dict[str, Any]:
+    """torch.profiler (CPU and CUDA activities) over `runs` calls of fn(),
+    each in a record_function(name), after `warmup` calls. Returns per
+    call: host_ms (host clock, profiler on), busy_ms (the union of the
+    device intervals) and busy_share (busy over host time), device_ops,
+    htod and dtoh copies, waits ({runtime call: count}, SYNC_CALLS) and
+    waits_total; with rows, "table", the top rows by device time. It
+    measures the card and raises without one."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("busy_profile: no CUDA device")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            with record_function(name):
+                fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # the profiler's raw events: building its Python event tree (prof.events())
+    # takes minutes for runs of a million launches
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    dev_ops, host = [], collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            if e.name() != name and not e.is_user_annotation():
+                dev_ops.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.name()))
+        elif e.device_type() == cpu:
+            host[e.name()] += 1
+    busy = interval_union([(a, b) for a, b, _ in dev_ops]) / 1e6
+    waits = {c: host[c] / runs for c in SYNC_CALLS}
+    out = {"host_ms": wall_ms / runs, "busy_ms": busy / runs, "busy_share": busy / wall_ms,
+           "device_ops": len(dev_ops) / runs,
+           "htod": sum("HtoD" in n for _, _, n in dev_ops) / runs,
+           "dtoh": sum("DtoH" in n for _, _, n in dev_ops) / runs,
+           "waits": waits, "waits_total": sum(waits.values())}
+    if rows:
+        out["table"] = prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows,
+                                                 max_name_column_width=60)
+    return out
 
 
 def card() -> str:
