@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port on one CUDA card.
 
-    python3 chip_smoke.py [--profiling-out PATH]
+    python3 chip_smoke.py [--profiling-out PATH] [--diagnostics-out PATH]
 
 Phases, in order; any failure raises and the exit code is non-zero:
 
@@ -212,6 +212,24 @@ Phases, in order; any failure raises and the exit code is non-zero:
      function they split bit for bit; it prints each tool's seconds and
      CUDA-event ms by row, and with --profiling-out PATH writes every
      tool's result there;
+  5k. the accuracy diagnostics and A/B probes (tpu_vo_torch/tools:
+     harris_candidate_probe, dk_iters_diag, score_variants_diag,
+     pan_blur_pair_probe, keepties_seed_sweep, keepties_diag,
+     pan_harsh_ablation, parity_matrix, diagnose_ate; DIAGNOSTIC_TOOLS),
+     each through its main at the JAX tool's shapes (dk_iters_diag with
+     fewer timed calls), on scenes rendered and degraded in the pool
+     with the others (diag_common.prefill), counters reset just before
+     each: every output line parses and the last is its result on the
+     card; B1's launches, those of its Harris-off instance among them,
+     B2's and B3's equal what its calls imply; each tool checks the
+     sha256 of every committed leg it reads (the phase requires the
+     legs it names in DIAGNOSTIC_LEGS); then B1's Harris-off instance
+     against select_maps_reference(..., with_harris=False) bit for bit at
+     the probe's 8 level shapes (one frame of noise, per level and in one
+     launch) and at the main path's 8 levels x 32 frames (one launch):
+     its packed keys equal the Harris instance's and its Harris map is
+     all zero; it prints each tool's seconds and rows, and with
+     --diagnostics-out PATH writes every tool's result there;
   6. time the main path, its three stages and each kernel beside its
      plain version with CUDA events (medians after warm-up), and each
      kernel's bound: the larger of its bytes over 3.35 TB/s and its f32
@@ -226,14 +244,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      and their blocks per SM; the library call of B2, P1, P2
      and P3: their plain versions' final gather as one aten::index call
      on prebuilt indices, checked equal to the kernel's output;
-     B1 and B2 at B = 1 (one frame's 8 levels);
+     B1 and B2 at B = 1 (one frame's 8 levels); B1's Harris-off instance
+     beside its plain version and its bound (B1's bytes: the zero map is
+     still written; fewer lane-instructions), and both instances'
+     registers and blocks per SM (the Harris instance must keep
+     B1_REGISTERS and MIN_BLOCKS) and each instance's own device time
+     (torch.profiler's kernel durations);
   7. profile each stage, the main path and the streaming path (8 frames
      of run_sequence_scan) with torch.profiler: device busy time, kernel
      launches, host-device copies and stream synchronizations per run,
      and the top device time.
 
 The line before the last is a JSON object with the kernels' names,
-sources, launch counts, errors, times and bounds (B1's and B2's also
+sources, launch counts, errors, times and bounds (B1 twice: its Harris
+instance, select_maps, and its Harris-off instance,
+select_maps_no_harris, whose launches are phase 5k's; B1's and B2's also
 with their launches on each path, `launches_by_path`, and their times
 and bounds at config 3's shapes, `at_config3`); the last line is
 {"ok": true, "device": {...}}.
@@ -290,16 +315,19 @@ from tpu_vo_torch.ops.patch import (RAW_RADIUS, RAW_SIZE, extract_patches,  # no
 from tpu_vo_torch.ops.patch import _starts as patch_starts  # noqa: E402
 from tpu_vo_torch.ops.select import (compass_candidates, select_maps,  # noqa: E402
                                      select_maps_levels, select_maps_reference)
+from tpu_vo_torch.ops.select import occupancy as select_occupancy  # noqa: E402
 from tpu_vo_torch.models.refinement import refine_window  # noqa: E402
 from tpu_vo_torch.parallel import distributed, sharding  # noqa: E402
 from tpu_vo_torch.parallel.mesh import make_mesh  # noqa: E402
 from tpu_vo_torch.parallel.sharding import (run_batch_of_sequences,  # noqa: E402
                                             run_batch_time_sharded, run_sequence_time_sharded)
 from tpu_vo_torch.pipeline import runner, step  # noqa: E402
-from tpu_vo_torch.tools import (io_bench, patch_slots_probe, reference_band,  # noqa: E402
-                                run_benchmarks, stage_bench)
+from tpu_vo_torch.tools import (diag_common, io_bench, patch_slots_probe,  # noqa: E402
+                                reference_band, run_benchmarks, stage_bench)
+from tpu_vo_torch.tools.harris_candidate_probe import SELECT_KERNEL, _pyramid_shapes  # noqa: E402
 from tpu_vo_torch.tools.device_time import device_time_ms  # noqa: E402
-from tpu_vo_torch.utils.profiling import busy_profile, card as _card, cuda_times  # noqa: E402
+from tpu_vo_torch.utils.profiling import (busy_profile, card as _card, cuda_times,  # noqa: E402
+                                          kernel_alone_ms)
 from tpu_vo_torch.utils import synthetic  # noqa: E402
 from tpu_vo_torch.utils.metrics import ate_rmse_aligned, trajectory_report  # noqa: E402
 from tpu_vo_torch.utils.synthetic import compass_pattern, make_sequence  # noqa: E402
@@ -423,6 +451,36 @@ PROFILING_TOOLS = {
 # stages the phase holds bit for bit against the function they split
 PROFILING_NO_KERNELS = ("topk_micro", "profile_5pt_micro", "profile_chain")
 PROFILING_COMPOSED = ("profile_features", "profile_pairs", "profile_ransac")
+# Phase 5k: the accuracy diagnostics and A/B probes, each through its main
+# at the JAX tool's shapes; dk_iters_diag with 2 x 3 timed calls a row (the
+# JAX tool's 16 x 5 take about 30 s more)
+DIAGNOSTIC_TOOLS = {
+    "harris_candidate_probe": dict(),
+    "dk_iters_diag": dict(reps=2, iters=3),
+    "score_variants_diag": dict(),
+    "pan_blur_pair_probe": dict(),
+    "keepties_seed_sweep": dict(),
+    "keepties_diag": dict(),
+    "pan_harsh_ablation": dict(),
+    "parity_matrix": dict(),
+    "diagnose_ate": dict(),
+}
+DIAGNOSTIC_CUTS = {"dk_iters_diag": "timed calls cut to reps 2 x iters 3 (the JAX tool's 16 x 5)"}
+# the committed legs whose frames the tools must hash to the legs' sha256
+DIAGNOSTIC_LEGS = ("config1", "config2", "diag_pan_320x240", "diag_corridor_320x240",
+                   "config6_pan_clean", "config6_pan_harsh", "diag_pan_only_noise",
+                   "diag_pan_only_exposure", "diag_pan_only_blur", "diag_pan_only_jpeg",
+                   "diag_planes_640x480")
+# their scenes, rendered in the pool in ranges of DIAG_RANGE frames (the
+# pan of 32 frames at 320x240 is config 6's clean pan, rendered already)
+DIAGNOSTIC_SCENES = (("planes", 16, 1241, 376, 0), ("corridor", 16, 1241, 376, 0),
+                     ("corridor", 64, 1241, 376, 0), ("corridor", 96, 640, 480, 0),
+                     ("pan", 48, 320, 240, 0), ("corridor", 48, 320, 240, 0),
+                     ("planes", 30, 640, 480, 0))
+DIAG_RANGE = 16
+# B1's Harris instance as ptxas builds it before and beside its Harris-off
+# instance (csrc/select.cu's header): 47 registers, MIN_BLOCKS 5 blocks per SM
+B1_REGISTERS, B1_BLOCKS = 47, 5
 # refine_window on the card against the CPU on the same inputs, in float32
 # (the pipeline's) and in float64 (where the LM's accept decisions do not
 # turn on the last bits)
@@ -448,7 +506,8 @@ FAST_ARC_OPS = 12 + 2 * 47 + 2
 # sums of 12 adds, 8 for the response, 1 border select), the packed key
 # (bit reverse, shift, or, subtract, select) and half a compare for the
 # 2-row pool.
-SELECT_OPS = 16 + 10 + (12 + 3 + 36 + 8 + 1) + 5 + 1
+SELECT_HARRIS_OPS = 12 + 3 + 36 + 8 + 1
+SELECT_OPS = 16 + 10 + SELECT_HARRIS_OPS + 5 + 1
 # Per compass candidate: the other 12 differences, the exact arc scan (47
 # min/max per polarity) and 2 to join the polarities.
 SELECT_ARC_OPS = 12 + 2 * 47 + 2
@@ -496,19 +555,21 @@ def _window_pixels(levels, kps) -> int:
     return total
 
 
-def _select_bound(levels, thr: int, border: int):
+def _select_bound(levels, thr: int, border: int, with_harris: bool = True):
     """B1's bound on these levels: ((ms, what bounds it), bytes,
     lane-instructions, pixels inside the border, compass candidates among
-    them). Bytes: each level read once, its Harris map and packed keys
-    written once; lane-instructions: SELECT_OPS per pixel inside the
-    border and SELECT_ARC_OPS per compass candidate, from these levels."""
+    them). Bytes: each level read once, its Harris map (zero or not) and
+    packed keys written once; lane-instructions: SELECT_OPS per pixel
+    inside the border (less SELECT_HARRIS_OPS without Harris) and
+    SELECT_ARC_OPS per compass candidate, from these levels."""
     dev = levels[0].device
     inner = [fast_border(lv.shape[-2], lv.shape[-1], border, dev) for lv in levels]
     n_inner = sum(lv.shape[0] * int(m.sum()) for lv, m in zip(levels, inner))
     n_cand = sum(int((compass_candidates(lv, thr) & m).sum()) for lv, m in zip(levels, inner))
     nbytes = sum(b * (8 * h * w + 4 * ((h + 1) // 2) * (w + w % 2))
                  for b, h, w in (lv.shape for lv in levels))
-    instr = SELECT_OPS * n_inner + SELECT_ARC_OPS * n_cand
+    ops = SELECT_OPS if with_harris else SELECT_OPS - SELECT_HARRIS_OPS
+    instr = ops * n_inner + SELECT_ARC_OPS * n_cand
     bound = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                 (instr / LANE_INSTR_PER_S * 1e3, "operations"))
     return bound, nbytes, instr, n_inner, n_cand
@@ -541,23 +602,6 @@ def _library_gather(levels, windows):
     return flat, torch.cat(parts, 1)
 
 
-def _kernel_alone_ms(fn, name: str, calls: int):
-    """Median device duration (ms) of the kernels named `name` over
-    `calls` calls of fn(), from torch.profiler: the kernel without the
-    wrapper's host work; None where the profiler records none."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    d = [e.time_range.end - e.time_range.start for e in prof.events()
-         if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
-    return statistics.median(d) / 1e3 if d else None
-
-
 def _sass_count(lib_path: str, function: str, opcode: str) -> int:
     """Instructions starting with `opcode` in the SASS of the kernels
     whose name holds `function`, from cuobjdump."""
@@ -585,9 +629,11 @@ def _pair_rot_err_deg(R_wc: np.ndarray, Rs_gt) -> np.ndarray:
 
 
 def _reset(kernels):
-    """Set the launch counters of {name: wrapper} to 0."""
+    """Set the launch counters of {name: wrapper} to 0 (B1's count of its
+    Harris-off launches too)."""
     for k in kernels.values():
         k.launches = 0
+    select_maps.launches_no_harris = 0
 
 
 def _hold_b1_b2(label, frames, ocfg, card):
@@ -1175,6 +1221,86 @@ def _profiling_tools_phase(kernels, card, out=None):
     return total
 
 
+def _diagnostics_phase(kernels, card, out=None):
+    """Phase 5k: each of DIAGNOSTIC_TOOLS through its main on the card,
+    counters reset just before each; its output lines parse and the last
+    is its result; B1's launches (its Harris-off ones counted apart), B2's
+    and B3's equal what its calls imply; the legs of DIAGNOSTIC_LEGS were
+    each hashed against the committed sha256 (diag_common.leg_frames
+    raises on a difference). Prints one line a tool (its seconds and its
+    rows); `out` gets every tool's last line. Returns the launches of all
+    the tools, {kernel: count}."""
+    import importlib
+
+    counters = {"select_maps": lambda: select_maps.launches,
+                "select_maps_no_harris": lambda: select_maps.launches_no_harris,
+                "extract_patches": lambda: extract_patches.launches,
+                "fast_margin": lambda: fast_margin.launches}
+    total = dict.fromkeys(counters, 0)
+    objs = {}
+    diag_common.CHECKED.clear()
+    for name, kw in DIAGNOSTIC_TOOLS.items():
+        mod = importlib.import_module(f"tpu_vo_torch.tools.{name}")
+        _reset(kernels)
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            obj = mod.main(**kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        lines = [json.loads(line) for line in buf.getvalue().strip().splitlines()]
+        if lines[-1] != json.loads(json.dumps(obj)) or lines[-1]["card"] != card:
+            raise AssertionError(f"{name}: its last line is not its result on {card}")
+        got = {k: c() for k, c in counters.items()}
+        want = {k: obj["expected_launches"].get(k, 0) for k in counters}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, its calls imply {want}")
+        for k in total:
+            total[k] += got[k]
+        objs[name] = obj
+        rows = json.dumps(obj["rows"])
+        cut = DIAGNOSTIC_CUTS.get(name, "the JAX tool's shapes and depth")
+        print(f"{name}: {secs:.1f} s ({cut}), launches {got}; rows "
+              f"{rows if len(rows) < 3000 else rows[:3000] + ' ...'} [{card}]", flush=True)
+    missing = set(DIAGNOSTIC_LEGS) - set(diag_common.CHECKED)
+    if missing:
+        raise AssertionError(f"phase 5k read no frames of the legs {sorted(missing)}")
+    print(f"phase 5k: the frames of {len(set(diag_common.CHECKED))} committed legs hash to their "
+          f"sha256: {sorted(set(diag_common.CHECKED))}", flush=True)
+    if out:
+        with open(out, "w") as f:
+            json.dump(objs, f)
+    return total
+
+
+def _hold_harris_off(label, levels, thr, border, per_level=False):
+    """B1's Harris-off instance on `levels` in one launch (and, with
+    per_level, one select_maps launch a level) against its plain version
+    bit for bit, its packed keys equal to the Harris instance's, its map
+    all zero. Returns the largest difference from the plain version (0)."""
+    err = 0.0
+    on = select_maps_levels(levels, thr, border)
+    runs = [select_maps_levels(levels, thr, border, with_harris=False)]
+    if per_level:
+        runs.append([select_maps(lv, thr, border, with_harris=False) for lv in levels])
+    for lvl, (pk, hk, bk), (pt, _, bt) in ((lv, k, t) for off in runs
+                                           for lv, k, t in zip(levels, off, on)):
+        pr, hr, br = select_maps_reference(lvl, thr, border, with_harris=False)
+        torch.cuda.synchronize()
+        if bk != br or not torch.equal(pk, pr) or not torch.equal(hk, hr):
+            raise AssertionError(f"B1 without Harris differs from its plain version on the "
+                                 f"{label} at {tuple(lvl.shape)}: packed {int((pk != pr).sum())} "
+                                 f"cells, harris max {float(hk.abs().max())}")
+        if bk != bt or not torch.equal(pk, pt) or bool(hk.any()):
+            raise AssertionError(f"B1 without Harris: packed keys differ from the Harris "
+                                 f"instance's, or its map is not zero, at {tuple(lvl.shape)}")
+        err = max(err, float((pk - pr).abs().max()), float((hk - hr).abs().max()))
+    print(f"select_maps_levels(with_harris=False) == plain and == the Harris instance's packed "
+          f"keys, zero map, on the {label} at {[tuple(lv.shape) for lv in levels]}, 1 launch"
+          f"{' (and select_maps, 1 launch a level)' if per_level else ''}", flush=True)
+    return err
+
+
 def _start_renders(pool):
     """Submit the accuracy path's scenes to `pool`: {key: futures of
     render_range by frame ranges}, the parity legs, "config5", "config3"
@@ -1194,10 +1320,30 @@ def _start_renders(pool):
         futures[("c6", scene)] = [pool.submit(synthetic.render_range, *spec, a,
                                               min(a + C6_RANGE, spec[1]))
                                   for a in range(0, spec[1], C6_RANGE)]
+    # phase 5k's scenes
+    for spec in DIAGNOSTIC_SCENES:
+        futures[("diag", spec)] = [pool.submit(synthetic.render_range, *spec, a,
+                                               min(a + DIAG_RANGE, spec[1]))
+                                   for a in range(0, spec[1], DIAG_RANGE)]
     for fs in futures.values():
         for f in fs:
             f.add_done_callback(lambda f: setattr(f, "done_s", time.perf_counter() - t0))
     return futures
+
+
+def _diag_prefill(pool, renders, degraded):
+    """Hand phase 5k's scenes to the tools (diag_common.prefill): the
+    rendered ones, config 6's clean and harsh pan, and the pan ablation's
+    four single nuisances, degraded in `pool`."""
+    pan = reference_band.LEGS["config6_pan_clean"]
+    scenes = {spec: _rendered(renders, ("diag", spec)) for spec in DIAGNOSTIC_SCENES}
+    scenes[pan] = _rendered(renders, ("c6", "pan"))
+    only = [n for n in DIAGNOSTIC_LEGS if n.startswith("diag_pan_only_")]
+    futures = {n: pool.submit(reference_band.leg_frames, n, scenes[pan][0]) for n in only}
+    made = {n: f.result() for n, f in futures.items()}
+    made.update(config6_pan_clean=degraded[("pan", "clean")],
+                config6_pan_harsh=degraded[("pan", "harsh")])
+    diag_common.prefill(scenes, made)
 
 
 def _rendered(renders, key):
@@ -1739,6 +1885,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one CUDA card.")
     p.add_argument("--profiling-out", default=None,
                    help="write the profiling tools' results (phase 5j) to this JSON file")
+    p.add_argument("--diagnostics-out", default=None,
+                   help="write the diagnostics' results (phase 5k) to this JSON file")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1749,12 +1897,12 @@ def main(argv=None) -> int:
     pool = concurrent.futures.ProcessPoolExecutor(
         RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
     try:
-        return _run(card, dev, pool, args.profiling_out)
+        return _run(card, dev, pool, args.profiling_out, args.diagnostics_out)
     finally:
         pool.shutdown(cancel_futures=True)
 
 
-def _run(card, dev, pool, profiling_out=None) -> int:
+def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
     t_start = time.perf_counter()
 
     # 2. build: the kernels (nvcc) and, beside them, the native loader (g++)
@@ -1911,6 +2059,10 @@ def _run(card, dev, pool, profiling_out=None) -> int:
     degraded = _degrade(pool, renders)
     print(f"config 6: {len(degraded) - len(run_benchmarks.C6_SCENES)} degraded scenes made in "
           f"the pool in {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    _diag_prefill(pool, renders, degraded)
+    print(f"phase 5k's scenes handed over, its single-nuisance pans made in the pool in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4b. the streaming path, counted: VisualOdometry frame by frame
     stream_counts = _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
@@ -2069,6 +2221,21 @@ def _run(card, dev, pool, profiling_out=None) -> int:
     path_launches["profiling tools"] = _profiling_tools_phase(kernels, card, profiling_out)
     print(f"phase profiling tools: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+    # 5k. the accuracy diagnostics and A/B probes at the JAX tools' shapes,
+    # counted per tool; then B1's Harris-off instance against its plain
+    # version at the probe's shapes and the main path's
+    t0 = time.perf_counter()
+    path_launches["diagnostics"] = _diagnostics_phase(kernels, card, diagnostics_out)
+    rng = np.random.default_rng(0)
+    probe_levels = [torch.from_numpy(rng.uniform(0, 255, (h, w)).astype(np.float32))[None].to(dev)
+                    for h, w in _pyramid_shapes(W, H)]
+    off_err = max(_hold_harris_off("probe's levels (one frame of noise)", probe_levels, thr,
+                                   border, per_level=True),
+                  _hold_harris_off("main path", levels, thr, border))
+    del probe_levels
+    print(f"phase diagnostics: {time.perf_counter() - t0:.1f} s, launches "
+          f"{path_launches['diagnostics']} [{card}]", flush=True)
+
     # 6. times
     def main_path():
         return runner.run_sequence_batched(frames, cfg, seed=0)
@@ -2099,16 +2266,30 @@ def _run(card, dev, pool, profiling_out=None) -> int:
     ms_main = statistics.median(main_times)
     q1, _, q3 = statistics.quantiles(main_times, n=4)
     ms_s1, ms_s2, ms_s3 = (_cuda_ms(f) for f in (stage1, stage2, stage3))
-    sel_ms = _cuda_ms(lambda: select_maps_levels(levels, thr, border))
+    # B1's two instances in turns (with, without, without, with)
+    sel_turns = [_cuda_ms(lambda wh=wh: select_maps_levels(levels, thr, border, with_harris=wh))
+                 for wh in (True, False, False, True)]
+    sel_ms, sel_off_ms = sel_turns[0], sel_turns[1]
     sel_plain = sum(_cuda_ms(lambda lv=lv: select_maps_reference(lv, thr, border))
                     for lv in levels)
+    sel_off_plain = sum(_cuda_ms(lambda lv=lv: select_maps_reference(lv, thr, border,
+                                                                     with_harris=False))
+                        for lv in levels)
+    sel_regs = {wh: select_occupancy(wh) for wh in (True, False)}
+    # each instance's own device time (no host work between the events)
+    sel_alone = {wh: kernel_alone_ms(lambda wh=wh: select_maps_levels(levels, thr, border,
+                                                                      with_harris=wh),
+                                     SELECT_KERNEL[wh], MAIN_REPS) for wh in (True, False)}
+    if sel_regs[True] != (B1_REGISTERS, B1_BLOCKS):
+        raise AssertionError(f"B1's Harris instance: {sel_regs[True]} (registers, blocks per SM), "
+                             f"not {(B1_REGISTERS, B1_BLOCKS)} as before its Harris-off instance")
     ends = starts[1:] + [main_ys.shape[1]]
     pat_ms = _cuda_ms(lambda: extract_patches_levels(levels, main_ys, main_xs, starts))
     pat_plain = _cuda_ms(lambda: [extract_patches_reference(lv, main_ys[:, o:e], main_xs[:, o:e])
                                   for lv, o, e in zip(levels, starts, ends)])
     kp = [(main_ys[:, o:e], main_xs[:, o:e]) for o, e in zip(starts, ends)]
     fast_ms = _cuda_ms(lambda: fast_margin_levels(levels, thr))
-    fast_alone = _kernel_alone_ms(lambda: fast_margin_levels(levels, thr), "fast_margin_kernel",
+    fast_alone = kernel_alone_ms(lambda: fast_margin_levels(levels, thr), "fast_margin_kernel",
                                   MAIN_REPS)
     fast_regs, fast_per_sm = fast_ops.occupancy()
     fast_plain = sum(_cuda_ms(lambda lv=lv: fast_margin_reference(lv, thr), warmup=1, reps=2)
@@ -2121,6 +2302,7 @@ def _run(card, dev, pool, profiling_out=None) -> int:
     fast_bound = max((fast_bytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                      (fast_instr / LANE_INSTR_PER_S * 1e3, "operations"))
     sel_bound, sel_bytes, sel_instr, n_inner, n_cand = _select_bound(levels, thr, border)
+    sel_off_bound, _, sel_off_instr, _, _ = _select_bound(levels, thr, border, with_harris=False)
     pat_bound = _patch_bound(levels, kp)
     probe_n = pys.numel()
     probe_out = probe_n * (8 + 4 * patch_probe.ROWS * RAW_SIZE)  # keypoints in, windows out
@@ -2141,7 +2323,7 @@ def _run(card, dev, pool, profiling_out=None) -> int:
             raise AssertionError(f"{name}'s library gather differs from the kernel")
         probe_lib[name] = device_time_ms(lambda f=flat, i=idx: f[i],
                                          reps=patch_slots_probe.REPS)
-        probe_alone[name] = _kernel_alone_ms(lambda r=run: r(pimgs, pys, pxs),
+        probe_alone[name] = kernel_alone_ms(lambda r=run: r(pimgs, pys, pxs),
                                              PROBE_KERNEL_FN[name], patch_slots_probe.REPS)
         del flat, idx
     per_sm = {k: patch_probe.blocks_per_sm(k, PROBE_TIMED[name][1]["nslots"])
@@ -2171,11 +2353,11 @@ def _run(card, dev, pool, profiling_out=None) -> int:
                             + probe_n * (8 + 4 * RAW_SIZE * RAW_SIZE), 0)
     ys1, xs1 = main_ys[:1].contiguous(), main_xs[:1].contiguous()
     sel1 = (_cuda_ms(lambda: select_maps_levels(levels1, thr, border)),
-            _kernel_alone_ms(lambda: select_maps_levels(levels1, thr, border), "select_kernel",
+            kernel_alone_ms(lambda: select_maps_levels(levels1, thr, border), "select_kernel",
                              MAIN_REPS),
             sum(_cuda_ms(lambda lv=lv: select_maps_reference(lv, thr, border)) for lv in levels1))
     pat1 = (_cuda_ms(lambda: extract_patches_levels(levels1, ys1, xs1, starts)),
-            _kernel_alone_ms(lambda: extract_patches_levels(levels1, ys1, xs1, starts),
+            kernel_alone_ms(lambda: extract_patches_levels(levels1, ys1, xs1, starts),
                              "extract_kernel", MAIN_REPS),
             _cuda_ms(lambda: [extract_patches_reference(lv, ys1[:, o:e], xs1[:, o:e])
                               for lv, o, e in zip(levels1, starts, ends)]))
@@ -2195,9 +2377,22 @@ def _run(card, dev, pool, profiling_out=None) -> int:
           f"({fast_bytes} B), {fast_instr / LANE_INSTR_PER_S * 1e3:.4f} ms by "
           f"lane-instructions ({fast_instr}: {n_inner3} pixels inside the 3-pixel border, "
           f"{n_cand3} compass candidates among them) {tag}")
+    print(f"select_maps without Harris bound: {sel_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes "
+          f"({sel_bytes} B: the zero map is written), "
+          f"{sel_off_instr / LANE_INSTR_PER_S * 1e3:.4f} ms by lane-instructions ({sel_off_instr}) "
+          f"{tag}")
+    alone = {wh: "not measured" if v is None else f"{v:.4f} ms" for wh, v in sel_alone.items()}
+    print(f"select_kernel registers and blocks per SM: Harris instance {sel_regs[True]}, "
+          f"Harris-off instance {sel_regs[False]}; in turns (with, without, without, with) "
+          f"{[round(x, 4) for x in sel_turns]} ms: dense Harris "
+          f"{(sel_turns[0] + sel_turns[3] - sel_turns[1] - sel_turns[2]) / 2:.4f} ms of "
+          f"{(sel_turns[0] + sel_turns[3]) / 2:.4f}; each kernel alone (median of {MAIN_REPS} "
+          f"launches) {alone[True]} with Harris, {alone[False]} without {tag}")
     for name, k_ms, p_ms, (b_ms, by), lib in (
             (f"select_maps_levels 8 levels x {T} frames, 1 launch", sel_ms, sel_plain, sel_bound,
              None),
+            (f"select_maps_levels without Harris 8 levels x {T} frames, 1 launch", sel_off_ms,
+             sel_off_plain, sel_off_bound, None),
             (f"extract_patches_levels 1200 kps x {T} frames, 1 launch", pat_ms, pat_plain,
              pat_bound, pat_lib),
             (f"fast_margin_levels 8 levels x {T} frames, 1 launch", fast_ms, fast_plain,
@@ -2245,9 +2440,15 @@ def _run(card, dev, pool, profiling_out=None) -> int:
         {"name": "select_maps", "route": "cuda", "source": "tpu_vo_torch/csrc/select.cu",
          "replaces": "tpu_vo/ops/select_pallas.py:359", "launches": launches["select_maps"],
          "launches_by_path": {p: c["select_maps"] for p, c in path_launches.items()},
-         "max_abs_err": sel_err, "ms": sel_ms, "plain_ms": sel_plain,
+         "max_abs_err": sel_err, "ms": sel_ms, "alone_ms": sel_alone[True], "plain_ms": sel_plain,
          "bound_ms": sel_bound[0], "bound_by": sel_bound[1], "library_ms": None,
          "at_config3": c3_times["select_maps"]},
+        {"name": "select_maps_no_harris", "route": "cuda", "source": "tpu_vo_torch/csrc/select.cu",
+         "replaces": "tpu_vo/ops/select_pallas.py:359",
+         "launches": path_launches["diagnostics"]["select_maps_no_harris"],
+         "max_abs_err": off_err, "ms": sel_off_ms, "alone_ms": sel_alone[False],
+         "plain_ms": sel_off_plain,
+         "bound_ms": sel_off_bound[0], "bound_by": sel_off_bound[1], "library_ms": None},
         {"name": "extract_patches", "route": "cuda", "source": "tpu_vo_torch/csrc/patch.cu",
          "replaces": "tpu_vo/ops/patch_pallas.py:181",
          "launches": launches["extract_patches"], "max_abs_err": patch_err,

@@ -115,6 +115,12 @@ PROFILING_MODULES = ["tpu_vo_torch.tools." + m for m in (
     "profile_4k", "probe_4k_gap", "profile_pairs", "profile_ransac", "profile_5pt_micro",
     "profile_chain", "streamed_probe", "profile_batch8", "profile_batch8_flat")] + [
     "tpu_vo_torch.estimation.five_point", "tpu_vo_torch.estimation.ransac"]
+# The accuracy diagnostics and A/B probes, which replace tools/ scripts, and
+# their shared module; cv2 only inside their functions
+DIAGNOSTIC_MODULES = ["tpu_vo_torch.tools." + m for m in (
+    "diag_common", "harris_candidate_probe", "dk_iters_diag", "score_variants_diag",
+    "pan_blur_pair_probe", "keepties_seed_sweep", "keepties_diag", "pan_harsh_ablation",
+    "parity_matrix", "diagnose_ate", "extract_orb_pattern")]
 AOS_HELPERS = ("_mul11", "_mul21", "_nullspace_basis", "_constraint_matrix", "_gauss_jordan",
                "_action_polynomials", "_conv", "_det_poly", "_poly_roots",
                "_poly_backward_error", "_newton_real")
@@ -134,3 +140,4 @@ def test_port_imports_without_jax_or_tpu_vo():
     assert set(VIZ_MODULES) <= set(mods)
     assert set(PARALLEL_MODULES) <= set(mods)
     assert set(PROFILING_MODULES) <= set(mods)
+    assert set(DIAGNOSTIC_MODULES) <= set(mods)

@@ -258,6 +258,10 @@ EARLIER_LEGS = {
 NEW_LEGS = {f"config6_{scene}_{level}": spec for scene, spec in (
     ("corridor", ("corridor", 48, 640, 480, 0)), ("pan", ("pan", 32, 320, 240, 0)))
     for level in ts.NUISANCE_LEVELS}
+# the accuracy diagnostics' legs, added after config 6's
+DIAG_LEGS = {"diag_pan_320x240", "diag_corridor_320x240", "diag_pan_only_noise",
+             "diag_pan_only_exposure", "diag_pan_only_blur", "diag_pan_only_jpeg",
+             "diag_planes_640x480"}
 
 
 def test_earlier_legs_unchanged_and_new_legs_present():
@@ -265,7 +269,7 @@ def test_earlier_legs_unchanged_and_new_legs_present():
     for name, want in EARLIER_LEGS.items():
         rec = json.dumps(legs[name], sort_keys=True, separators=(",", ":")).encode()
         assert hashlib.sha256(rec).hexdigest() == want, name
-    assert set(legs) == set(EARLIER_LEGS) | set(NEW_LEGS)
+    assert set(legs) == set(EARLIER_LEGS) | set(NEW_LEGS) | DIAG_LEGS
     for name, spec in NEW_LEGS.items():
         assert reference_band.LEGS[name] == spec
         assert len(legs[name]["t"]) == spec[1] and legs[name]["cv2"]

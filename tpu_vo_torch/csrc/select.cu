@@ -56,6 +56,16 @@
 // The Harris arithmetic keeps the plain version's order of operations, and
 // the library is built with -fmad=false, so every sum and product rounds
 // as the eager plain version's do.
+//
+// The kernel is a template on kHarris. The true instance is the design
+// above. The false instance is the Pallas kernel's with_harris=False, kept
+// for the A/B probe (tpu_vo_torch/tools/harris_candidate_probe) that asks
+// what share of the kernel dense Harris takes: it skips the Sobel products
+// (2b), the horizontal box sums (3) and the vertical sums and response of
+// step 4, writes a zero Harris map (the border tiles' early-out as well),
+// and gives the same packed keys bit for bit. Its shared memory is the
+// input tile, the scores and the candidate list only (no s_p, and s_buf
+// holds the 40x40 tile, not the box sums).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,12 +122,13 @@ __device__ __forceinline__ float arc_extreme(const float (&d)[16]) {
   return best;
 }
 
+template <bool kHarris>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
 select_kernel(const __grid_constant__ LevelTable t, float thr, int border, float k,
               float scale4) {
   __shared__ float s_score[SC][SC];              // FAST score, 0 off corners
-  __shared__ float s_p[3][GR][PS];               // Ix*Ix, Iy*Iy, Ix*Iy
-  __shared__ float s_buf[3 * GR * HS];           // input tile, then box sums
+  __shared__ float s_p[kHarris ? 3 : 1][kHarris ? GR : 1][kHarris ? PS : 1];  // Ix*Ix, Iy*Iy, Ix*Iy
+  __shared__ float s_buf[kHarris ? 3 * GR * HS : IMG * IMG];  // input tile, then box sums
   __shared__ bool s_corner[SC][SC];
   __shared__ short s_cand[SC * SC];              // the compass candidates' indices
   __shared__ int s_ncand;
@@ -205,21 +216,23 @@ select_kernel(const __grid_constant__ LevelTable t, float thr, int border, float
   // 2b. Sobel products on the tile plus a 3-pixel ring, in the plain
   //     version's order of operations; a thread walks down a column strip
   //     of SOBEL_ROWS rows with its 3x3 neighbourhood in registers
+  if constexpr (kHarris) {
 #pragma unroll 1
-  for (int i = tid; i < GR * SOBEL_STRIPS; i += NT) {
-    const int x = i % GR, ra = (i / GR) * SOBEL_ROWS, rb = min(ra + SOBEL_ROWS, GR);
-    float a0 = s_img[ra][x], a1 = s_img[ra][x + 1], a2 = s_img[ra][x + 2];
-    float b0 = s_img[ra + 1][x], b1 = s_img[ra + 1][x + 1], b2 = s_img[ra + 1][x + 2];
+    for (int i = tid; i < GR * SOBEL_STRIPS; i += NT) {
+      const int x = i % GR, ra = (i / GR) * SOBEL_ROWS, rb = min(ra + SOBEL_ROWS, GR);
+      float a0 = s_img[ra][x], a1 = s_img[ra][x + 1], a2 = s_img[ra][x + 2];
+      float b0 = s_img[ra + 1][x], b1 = s_img[ra + 1][x + 1], b2 = s_img[ra + 1][x + 2];
 #pragma unroll 2
-    for (int r = ra; r < rb; ++r) {
-      const float e0 = s_img[r + 2][x], e1 = s_img[r + 2][x + 1], e2 = s_img[r + 2][x + 2];
-      const float ix = ((b2 - b0) * 2.0f + (a2 - a0)) + (e2 - e0);
-      const float iy = ((e1 - a1) * 2.0f + (e0 - a0)) + (e2 - a2);
-      s_p[0][r][x] = ix * ix;
-      s_p[1][r][x] = iy * iy;
-      s_p[2][r][x] = ix * iy;
-      a0 = b0, a1 = b1, a2 = b2;
-      b0 = e0, b1 = e1, b2 = e2;
+      for (int r = ra; r < rb; ++r) {
+        const float e0 = s_img[r + 2][x], e1 = s_img[r + 2][x + 1], e2 = s_img[r + 2][x + 2];
+        const float ix = ((b2 - b0) * 2.0f + (a2 - a0)) + (e2 - e0);
+        const float iy = ((e1 - a1) * 2.0f + (e0 - a0)) + (e2 - a2);
+        s_p[0][r][x] = ix * ix;
+        s_p[1][r][x] = iy * iy;
+        s_p[2][r][x] = ix * iy;
+        a0 = b0, a1 = b1, a2 = b2;
+        b0 = e0, b1 = e1, b2 = e2;
+      }
     }
   }
   __syncthreads();
@@ -242,24 +255,26 @@ select_kernel(const __grid_constant__ LevelTable t, float thr, int border, float
   // 3. horizontal 7-tap box sums, (acc + x[c+d]) + x[c-d], d = 1..3, into
   //    the input tile's memory; a thread makes HSEG sums of one row from
   //    HSEG + 6 products in registers
+  if constexpr (kHarris) {
 #pragma unroll 1
-  for (int i = tid; i < GR * (TILE / HSEG); i += NT) {
-    const int r = i / (TILE / HSEG), cs = (i % (TILE / HSEG)) * HSEG;
+    for (int i = tid; i < GR * (TILE / HSEG); i += NT) {
+      const int r = i / (TILE / HSEG), cs = (i % (TILE / HSEG)) * HSEG;
 #pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      float x[HSEG + 6];
+      for (int q = 0; q < 3; ++q) {
+        float x[HSEG + 6];
 #pragma unroll
-      for (int j = 0; j < HSEG + 6; ++j) x[j] = s_p[q][r][cs + j];
+        for (int j = 0; j < HSEG + 6; ++j) x[j] = s_p[q][r][cs + j];
 #pragma unroll
-      for (int o = 0; o < HSEG; ++o) {
-        float acc = x[o + 3];
+        for (int o = 0; o < HSEG; ++o) {
+          float acc = x[o + 3];
 #pragma unroll
-        for (int d = 1; d <= 3; ++d) acc = (acc + x[o + 3 + d]) + x[o + 3 - d];
-        s_h[q][r][cs + o] = acc;
+          for (int d = 1; d <= 3; ++d) acc = (acc + x[o + 3 + d]) + x[o + 3 - d];
+          s_h[q][r][cs + o] = acc;
+        }
       }
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   // 4. per thread a column of QROWS rows: vertical box sums, Harris, NMS,
   //    border, the packed keys and their 2-row max
@@ -267,25 +282,30 @@ select_kernel(const __grid_constant__ LevelTable t, float thr, int border, float
   const int bits = t.idx_bits[lv];
   const int c = lane, r = warp * QROWS, gx = c0 + c;
   float s3[QROWS][3];
+  if constexpr (kHarris) {
 #pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    float col[QROWS + 6];
+    for (int q = 0; q < 3; ++q) {
+      float col[QROWS + 6];
 #pragma unroll
-    for (int j = 0; j < QROWS + 6; ++j) col[j] = s_h[q][r + j][c];
+      for (int j = 0; j < QROWS + 6; ++j) col[j] = s_h[q][r + j][c];
 #pragma unroll
-    for (int h = 0; h < QROWS; ++h) {
-      float o = col[3 + h];
+      for (int h = 0; h < QROWS; ++h) {
+        float o = col[3 + h];
 #pragma unroll
-      for (int d = 1; d <= 3; ++d) o = (o + col[3 + h + d]) + col[3 + h - d];
-      s3[h][q] = o;
+        for (int d = 1; d <= 3; ++d) o = (o + col[3 + h + d]) + col[3 + h - d];
+        s3[h][q] = o;
+      }
     }
   }
   int key2 = 0;
 #pragma unroll
   for (int h = 0; h < QROWS; ++h) {
     const int gy = r0 + r + h;
-    const float a = s3[h][0], bb = s3[h][1], cc = s3[h][2];
-    const float resp = (a * bb - cc * cc - k * (a + bb) * (a + bb)) * scale4;
+    float resp = 0.f;
+    if constexpr (kHarris) {
+      const float a = s3[h][0], bb = s3[h][1], cc = s3[h][2];
+      resp = (a * bb - cc * cc - k * (a + bb) * (a + bb)) * scale4;
+    }
     const bool inb = gy >= border && gy < H - border && gx >= border && gx < W - border;
     if (gy < H && gx < W) harris[(size_t)gy * W + gx] = inb ? resp : 0.f;
     float nmax = -1e30f;
@@ -310,15 +330,32 @@ select_kernel(const __grid_constant__ LevelTable t, float thr, int border, float
 
 }  // namespace
 
-// The table's tile offsets are filled in here, from H and Wout.
+// The table's tile offsets are filled in here, from H and Wout; with_harris
+// 0 launches the instance without Harris (a zero Harris map).
 extern "C" int tvo_select_maps_levels(LevelTable t, int B, float thr, int border, float k,
-                                      float scale4, void* stream) {
+                                      float scale4, int with_harris, void* stream) {
   t.total = 0;
   for (int l = 0; l < t.n; ++l) {
     t.first[l] = t.total;
     t.total += ((t.H[l] + TILE - 1) / TILE) * ((t.Wout[l] + TILE - 1) / TILE);
   }
   const dim3 grid(t.total, B);
-  select_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(t, thr, border, k, scale4);
+  if (with_harris)
+    select_kernel<true><<<grid, NT, 0, (cudaStream_t)stream>>>(t, thr, border, k, scale4);
+  else
+    select_kernel<false><<<grid, NT, 0, (cudaStream_t)stream>>>(t, thr, border, k, scale4);
   return (int)cudaGetLastError();
+}
+
+// Registers per thread of one instance (into *regs) and its blocks per SM
+// on the current device; -1 on an error.
+extern "C" int tvo_select_maps_occupancy(int with_harris, int* regs) {
+  const void* fn = with_harris ? (const void*)select_kernel<true> : (const void*)select_kernel<false>;
+  cudaFuncAttributes attr;
+  int blocks = 0;
+  if (cudaFuncGetAttributes(&attr, fn) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, NT, 0) != cudaSuccess)
+    return -1;
+  *regs = attr.numRegs;
+  return blocks;
 }

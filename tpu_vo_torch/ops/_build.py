@@ -126,8 +126,10 @@ def library() -> ctypes.CDLL:
         BuildInfo.seconds = time.perf_counter() - t0
     BuildInfo.path = path
     lib = ctypes.CDLL(path)
-    lib.tvo_select_maps_levels.argtypes = [LevelTable, _I, _F, _I, _F, _F, _P]
+    lib.tvo_select_maps_levels.argtypes = [LevelTable, _I, _F, _I, _F, _F, _I, _P]
     lib.tvo_select_maps_levels.restype = _I
+    lib.tvo_select_maps_occupancy.argtypes = [_I, ctypes.POINTER(_I)]
+    lib.tvo_select_maps_occupancy.restype = _I
     lib.tvo_extract_patches_levels.argtypes = [LevelTable, _P, _P, _P, _I, _P]
     lib.tvo_extract_patches_levels.restype = _I
     lib.tvo_fast_margin_levels.argtypes = [LevelTable, _I, _F, _P]

@@ -19,9 +19,18 @@ return, for levels (B, H, W) float32 on the integer grid 0..255:
 Descending packed order is descending FAST score with ties broken by
 ascending bit-reversed index, which spreads kept ties uniformly over the
 image (see _bit_reverse).
+
+with_harris=False (every entry point) is the Pallas kernel's A/B variant:
+the same packed keys bit for bit, and a zero Harris map, the Harris work
+skipped (kernel B1's second instance on the card). Only the Harris probe
+(tools/harris_candidate_probe) asks for it. `select_maps.launches` counts
+every launch of B1, `select_maps.launches_no_harris` those of the second
+instance among them.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -60,7 +69,8 @@ def _check(levels: torch.Tensor, border: int) -> None:
         raise ValueError(f"border must be >= {HALO}, got {border}")
 
 
-def select_maps_reference(levels: torch.Tensor, threshold: int, border: int):
+def select_maps_reference(levels: torch.Tensor, threshold: int, border: int,
+                          with_harris: bool = True):
     """Plain PyTorch version of kernel B1 (same outputs, bit for bit)."""
     _check(levels, border)
     b, h, w = levels.shape
@@ -68,8 +78,11 @@ def select_maps_reference(levels: torch.Tensor, threshold: int, border: int):
     inb = fast._border_mask(h, w, border, levels.device)
     score, corner = fast.fast_score_map(levels, threshold)
     keep = fast.nonmax_suppress(score, corner) & inb
-    hmap = torch.where(inb, harris.harris_response_map(levels),
-                       torch.zeros((), device=levels.device))
+    if with_harris:
+        hmap = torch.where(inb, harris.harris_response_map(levels),
+                           torch.zeros((), device=levels.device))
+    else:
+        hmap = torch.zeros((b, h, w), dtype=torch.float32, device=levels.device)
 
     flat = torch.arange(h * w, device=levels.device).view(h, w)
     key = ((1 << bits) - 1) - _bit_reverse(flat, bits)
@@ -95,7 +108,7 @@ def compass_candidates(img: torch.Tensor, threshold: int) -> torch.Tensor:
     return (dark >= 2) | (bright >= 2)
 
 
-def _select_maps_cuda(levels, threshold: int, border: int):
+def _select_maps_cuda(levels, threshold: int, border: int, with_harris: bool = True):
     from tpu_vo_torch.ops import _build
 
     lvl_table.check_levels(levels)
@@ -115,36 +128,52 @@ def _select_maps_cuda(levels, threshold: int, border: int):
     with _build.on_device(levels[0]) as stream:
         err = _build.library().tvo_select_maps_levels(
             table, b, float(threshold), int(border), harris.HARRIS_K,
-            harris.harris_scale4(), stream)
-    _build.check_launch(err, "select_maps")
+            harris.harris_scale4(), int(bool(with_harris)), stream)
+    _build.check_launch(err, "select_maps" if with_harris else "select_maps (no Harris)")
     select_maps.launches += 1
+    if not with_harris:
+        select_maps.launches_no_harris += 1
     return out
 
 
-def select_maps_levels(levels, threshold: int, border: int):
+def select_maps_levels(levels, threshold: int, border: int, with_harris: bool = True):
     """[(packed, harris, idx_bits)] of a list of (B, H, W) float32 pyramid
     levels: kernel B1 launched once for up to MAX_LEVELS levels of CUDA
     tensors, the plain version level by level on CPU tensors."""
     levels = list(levels)
     if levels and levels[0].device.type == "cpu":
-        return [select_maps_reference(lvl, threshold, border) for lvl in levels]
+        return [select_maps_reference(lvl, threshold, border, with_harris) for lvl in levels]
     if levels and levels[0].device.type == "cuda":
         return [m for i in range(0, len(levels), lvl_table.MAX_LEVELS)
                 for m in _select_maps_cuda(levels[i:i + lvl_table.MAX_LEVELS],
-                                           threshold, border)]
+                                           threshold, border, with_harris)]
     raise ValueError(f"select_maps_levels: unsupported levels "
                      f"{[lvl.device for lvl in levels]}")
 
 
-def select_maps(levels: torch.Tensor, threshold: int, border: int):
+def select_maps(levels: torch.Tensor, threshold: int, border: int, with_harris: bool = True):
     """(packed, harris, idx_bits) of (B, H, W) float32 pyramid levels:
     kernel B1 (a one-level table) on a CUDA tensor, the plain version on a
     CPU tensor."""
     if levels.device.type == "cuda":
-        return _select_maps_cuda([levels], threshold, border)[0]
+        return _select_maps_cuda([levels], threshold, border, with_harris)[0]
     if levels.device.type == "cpu":
-        return select_maps_reference(levels, threshold, border)
+        return select_maps_reference(levels, threshold, border, with_harris)
     raise ValueError(f"select_maps: unsupported device {levels.device}")
 
 
-select_maps.launches = 0  # kernel B1 launches, by either entry point
+def occupancy(with_harris: bool = True):
+    """(registers per thread, blocks per SM) of one instance of kernel B1
+    on the current card."""
+    from tpu_vo_torch.ops import _build
+
+    regs = ctypes.c_int(0)
+    blocks = _build.library().tvo_select_maps_occupancy(int(bool(with_harris)),
+                                                        ctypes.byref(regs))
+    if blocks < 0:
+        raise RuntimeError("select_maps: occupancy query failed")
+    return regs.value, blocks
+
+
+select_maps.launches = 0            # kernel B1 launches, by either entry point
+select_maps.launches_no_harris = 0  # those of the instance without Harris

@@ -24,7 +24,9 @@ card holds a string that says why.
 Every row is printed as a JSON line tagged with the card's name and
 power limit (utils/profiling.card); the last line is one JSON object of
 all rows, with `expected_launches`, the launches of kernels B1
-(select_maps) and B2 (extract_patches) that the tool's calls imply, and
+(select_maps) and B2 (extract_patches) that the tool's calls imply (and
+of any other kernel the tool names: B1's instance without Harris,
+select_maps_no_harris, among B1's; B3, fast_margin), and
 `--out PATH` writes that object too. Nothing else is written.
 """
 
@@ -116,32 +118,34 @@ def host_ms(fn: Callable[[], Any], reps: int, iters: int, warmup: int) -> float:
 class Rows:
     """A tool's rows, printed as they come and gathered for its last line."""
 
-    def __init__(self, tool: str, opts: argparse.Namespace):
+    def __init__(self, tool: str, opts: argparse.Namespace, kernels: Tuple[str, ...] = KERNELS):
         self.tool = tool
+        self.kernels = kernels
         self.dev = opts.device
         self.on_card = self.dev.type == "cuda"
         self.card = card() if self.on_card else "cpu"
         self.out = getattr(opts, "out", None)
         self.sizes = {k: v for k, v in vars(opts).items() if k not in ("device", "out")}
         self.rows: Dict[str, Any] = {}
-        self.expected = dict.fromkeys(KERNELS, 0)
+        self.expected = dict.fromkeys(kernels, 0)
 
-    def counted(self, fn: Callable[[], Any], launches: Tuple[int, int] = (0, 0)):
-        """fn, each call adding `launches` (B1, B2) to expected_launches on
-        the card (on the CPU the kernels' plain versions run, uncounted)."""
+    def counted(self, fn: Callable[[], Any], launches: Tuple[int, ...] = (0, 0)):
+        """fn, each call adding `launches` (B1, B2, then the tool's other
+        kernels, in the order of `kernels`) to expected_launches on the card
+        (on the CPU the kernels' plain versions run, uncounted)."""
         def call(*args):
             if self.on_card:
-                for k, n in zip(KERNELS, launches):
+                for k, n in zip(self.kernels, launches):
                     self.expected[k] += n
             return fn(*args)
         return call
 
-    def run(self, fn: Callable[[], Any], launches: Tuple[int, int] = (0, 0)):
+    def run(self, fn: Callable[[], Any], launches: Tuple[int, ...] = (0, 0)):
         """One untimed call of fn (a setup step), counted."""
         return self.counted(fn, launches)()
 
     def time(self, name: str, fn: Callable[[], Any], reps: int, iters: int, warmup: int = 1,
-             launches: Tuple[int, int] = (0, 0), profile: bool = False,
+             launches: Tuple[int, ...] = (0, 0), profile: bool = False,
              per: Optional[Tuple[str, int]] = None, **extra) -> Dict[str, Any]:
         """Time fn() as row `name` (see the module docstring); `per`
         (unit, n) adds ms_per_<unit>; `extra` goes into the row as it is."""

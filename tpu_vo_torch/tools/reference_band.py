@@ -3,6 +3,7 @@ and computed on the CPU and committed as data/reference_trajectories.json
 (the card's host has no cv2).
 
     python -m tpu_vo_torch.tools.reference_band [--legs name,...] [--workers N]
+                                                [--diagnostics]
 
 needs cv2 (the reference, utils/cv_reference.ReferenceVO). Each leg
 renders its scene with utils/synthetic (numpy and scipy, the frames the
@@ -22,10 +23,21 @@ H, seed 0; config 6's corridor (640x480, T 48) and pan (320x240, T 32),
 seed 0, each at the four nuisance levels (utils/synthetic.nuisance_level,
 seed 17; the record's `nuisance` names the level, and its frames and
 sha256 are the degraded ones); and config 7's five dynamic scenes
-(640x480, T 48, seed 0; tools/run_benchmarks). The scenes are rendered
+(640x480, T 48, seed 0; tools/run_benchmarks); and the accuracy
+diagnostics' own legs (`diag_*`): the parity matrix's pan and corridor at
+320x240 (T 48, seed 0), the pan ablation's four single nuisances at the
+harsh level's amplitudes (pan 320x240, T 32, seed 0, nuisance seed 17;
+`nuisance` is `only_<name>`), and diagnose_ate's planes (make_sequence's
+scene) at 640x480, T 30, seed 0. The scenes are rendered
 in the pool by frame ranges (utils/synthetic.submit_render), each scene
 once for all the legs that share it, so config 3's 4K frames spread over
 the workers.
+
+--diagnostics also writes data/diagnostic_reference.json: cv2's ORB
+keypoint sets of frame 0 of the corridor (seed 0) at 640x480 with 1000
+features (config 1's T 96) and at 1241x376 with 2000 (config 2's T 64),
+as tools/keepties_diag's part A compares them, each keypoint as
+(round(4x), round(4y), octave), with frame 0's sha256 and cv2's version.
 """
 
 from __future__ import annotations
@@ -42,8 +54,9 @@ import numpy as np
 from tpu_vo_torch.utils import synthetic
 from tpu_vo_torch.utils.metrics import ate_rmse_aligned, extent
 
-PATH = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data",
-                    "reference_trajectories.json")
+DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+PATH = os.path.join(DATA, "reference_trajectories.json")
+DIAG_PATH = os.path.join(DATA, "diagnostic_reference.json")
 SEEDS = 5          # reference reruns that make the band
 STATE0 = 12345     # their ransac_state is STATE0 + s
 # name -> (scene, T, W, H, seed)
@@ -61,7 +74,14 @@ LEGS = {
     **{f"config6_{scene}_{level}": spec for scene, spec in (
         ("corridor", ("corridor", 48, 640, 480, 0)), ("pan", ("pan", 32, 320, 240, 0)))
        for level in synthetic.NUISANCE_LEVELS},
+    "diag_pan_320x240": ("pan", 48, 320, 240, 0),
+    "diag_corridor_320x240": ("corridor", 48, 320, 240, 0),
+    **{f"diag_pan_only_{n}": ("pan", 32, 320, 240, 0) for n in synthetic.NUISANCES},
+    "diag_planes_640x480": ("planes", 30, 640, 480, 0),
 }
+# keepties_diag's part A: (W, H, n_features, the corridor's T) of each
+# keypoint set in the diagnostics file
+DIAG_KEYPOINTS = ((640, 480, 1000, 96), (1241, 376, 2000, 64))
 
 CPU_LEGS = ("cpu_corridor_320x240", "cpu_pan_320x240")
 
@@ -69,6 +89,28 @@ CPU_LEGS = ("cpu_corridor_320x240", "cpu_pan_320x240")
 def nuisance(name: str):
     """The nuisance level of a config 6 leg (its name's last part), else None."""
     return name.rsplit("_", 1)[1] if name.startswith("config6_") else None
+
+
+def degradation(name: str):
+    """(label, apply_photometric_nuisances keywords) of a leg's degraded
+    frames: a config 6 level, or `only_<name>`, one nuisance at the harsh
+    level's amplitudes; (None, None) for a clean leg."""
+    if name.startswith("diag_pan_only_"):
+        only = name[len("diag_pan_only_"):]
+        return f"only_{only}", dict(synthetic.NUISANCE_LEVELS["harsh"], which=(only,))
+    level = nuisance(name)
+    if level is None:
+        return None, None
+    return level, synthetic.NUISANCE_LEVELS[level]
+
+
+def leg_frames(name: str, frames):
+    """A leg's frames from its scene's clean frames (degraded where the
+    leg is, with synthetic.NUISANCE_SEED)."""
+    _, kwargs = degradation(name)
+    if kwargs is None:
+        return list(frames)
+    return synthetic.apply_photometric_nuisances(frames, seed=synthetic.NUISANCE_SEED, **kwargs)
 
 
 def ref_with_band(W: int, H: int, frames, k: int = SEEDS):
@@ -93,9 +135,8 @@ def make_leg(name: str, frames=None) -> dict:
     scene, T, W, H, seed = LEGS[name]
     if frames is None:
         frames = synthetic.render(scene, T, W, H, seed)[0]
-    level = nuisance(name)
-    if level is not None:
-        frames = synthetic.nuisance_level(frames, level)
+    level, _ = degradation(name)
+    frames = leg_frames(name, frames)
     traj, rots, band, rels, ext = ref_with_band(W, H, frames)
     return {"scene": scene, "W": W, "H": H, "T": T, "seed": seed,
             **({"nuisance": level, "nuisance_seed": synthetic.NUISANCE_SEED}
@@ -105,6 +146,43 @@ def make_leg(name: str, frames=None) -> dict:
             "R": np.asarray(rots, np.float64).tolist(),
             "band": float(band), "rels": [float(r) for r in rels], "extent": float(ext),
             "cv2": cv2.__version__}
+
+
+def cv2_keypoints(img, n: int, levels: int = 8):
+    """cv2's ORB keypoints of one frame (the reference's detector at n
+    features), as a set of (round(4x), round(4y), octave)."""
+    import cv2
+
+    orb = cv2.ORB_create(n, 1.2, levels, 31, 0, 2, cv2.ORB_HARRIS_SCORE, 31, 10)
+    return {(int(round(k.pt[0] * 4)), int(round(k.pt[1] * 4)), k.octave)
+            for k in orb.detect(img, None)}
+
+
+def diag_key(W: int, H: int, n: int) -> str:
+    return f"corridor_{W}x{H}_n{n}"
+
+
+def make_diagnostics(frames0) -> dict:
+    """The diagnostics file's object from frame 0 of each DIAG_KEYPOINTS
+    corridor ({(W, H): frame})."""
+    import cv2
+
+    sets = {}
+    for W, H, n, T in DIAG_KEYPOINTS:
+        img = frames0[(W, H)]
+        sets[diag_key(W, H, n)] = {
+            "scene": "corridor", "W": W, "H": H, "T": T, "seed": 0, "frame": 0,
+            "n_features": n, "frame_sha256": synthetic.frames_sha256([img]),
+            "keypoints": sorted(cv2_keypoints(img, n))}
+    return {"cv2": cv2.__version__, "keypoint_sets": sets}
+
+
+def load_diagnostics(path: str = DIAG_PATH) -> dict:
+    """{key: record} of the committed keypoint sets (diag_key names them);
+    each record's keypoints as a set of tuples."""
+    with open(path) as f:
+        sets = json.load(f)["keypoint_sets"]
+    return {k: dict(v, keypoints={tuple(p) for p in v["keypoints"]}) for k, v in sets.items()}
 
 
 def load(path: str = PATH) -> dict:
@@ -129,6 +207,9 @@ def main(argv=None) -> int:
     ap.add_argument("--legs", default=",".join(LEGS), help="comma-separated leg names")
     ap.add_argument("--workers", type=int, default=2, help="processes")
     ap.add_argument("--out", default=PATH)
+    ap.add_argument("--diagnostics", action="store_true",
+                    help=f"also write {os.path.relpath(DIAG_PATH)} (cv2's keypoint sets)")
+    ap.add_argument("--diagnostics-out", default=DIAG_PATH)
     args = ap.parse_args(argv)
     names = [n for n in args.legs.split(",") if n]
     unknown = set(names) - set(LEGS)
@@ -138,6 +219,8 @@ def main(argv=None) -> int:
     with concurrent.futures.ProcessPoolExecutor(
             args.workers, mp_context=multiprocessing.get_context("spawn")) as pool:
         renders = {spec: synthetic.submit_render(pool, *spec) for spec in {LEGS[n] for n in names}}
+        firsts = {(W, H): pool.submit(synthetic.render_range, "corridor", T, W, H, 0, 0, 1)
+                  for W, H, _, T in DIAG_KEYPOINTS} if args.diagnostics else {}
         made = [pool.submit(make_leg, n,
                             synthetic.join_ranges([f.result() for f in renders[LEGS[n]]])[0])
                 for n in names]
@@ -145,6 +228,12 @@ def main(argv=None) -> int:
             rec = legs[name] = fut.result()
             print(f"{name}: band {rec['band']:.6f}, extent {rec['extent']:.4f}, "
                   f"sha256 {rec['frames_sha256'][:16]}", flush=True)
+        if firsts:
+            diag = make_diagnostics({k: f.result()[0][0] for k, f in firsts.items()})
+            with open(args.diagnostics_out, "w") as f:
+                json.dump(diag, f, separators=(",", ":"))
+                f.write("\n")
+            print(f"wrote {args.diagnostics_out} ({os.path.getsize(args.diagnostics_out)} bytes)")
     legs = {n: legs[n] for n in LEGS if n in legs}
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:

@@ -96,7 +96,7 @@ def main(rounds: int = 3) -> dict:
     def launch(lib):
         err = lib.tvo_select_maps_levels(table, b, float(cfg.fast_threshold),
                                          cfg.edge_threshold, harris.HARRIS_K,
-                                         harris.harris_scale4(), stream)
+                                         harris.harris_scale4(), 1, stream)
         _build.check_launch(err, "select ablation")
 
     libs = build_variants()

@@ -13,6 +13,8 @@ its host clock).
                         ms a call, device busy ms (the union of device
                         intervals), device ops, copies and the runtime
                         calls that wait for the card;
+  kernel_alone_ms(fn, name, calls)  a kernel's own device time (the
+                        profiler's durations), without its wrapper's host work;
   card()                the card's "name, power.limit" from nvidia-smi,
                         the tag beside every number taken on it.
 
@@ -26,6 +28,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
+import statistics
 import subprocess
 import time
 from typing import Any, Callable, Dict, List, Optional
@@ -207,6 +210,30 @@ def busy_profile(fn: Callable[[], Any], runs: int, warmup: int, rows: int = 0,
         out["table"] = prof.key_averages().table(sort_by="cuda_time_total", row_limit=rows,
                                                  max_name_column_width=60)
     return out
+
+
+def kernel_alone_ms(fn: Callable[[], Any], name, calls: int, attempts: int = 3) -> Optional[float]:
+    """Median device duration (ms) of the kernels whose name holds `name`
+    (or one of a tuple of names) over `calls` calls of fn() (after one),
+    from torch.profiler: the kernel without its wrapper's host work. A
+    profiler session on the card sometimes records no device event at
+    all: up to `attempts` sessions are made; None where none recorded it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = (name,) if isinstance(name, str) else tuple(name)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        d = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(n in e.name for n in names)]
+        if d:
+            return statistics.median(d) / 1e3
+    return None
 
 
 def card() -> str:

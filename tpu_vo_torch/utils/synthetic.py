@@ -5,8 +5,8 @@ textured depth planes), `make_corridor_sequence` and `make_pan_sequence`
 `make_dynamic_corridor_sequence` (the corridor with a moving object,
 occluding pillars or a low-texture stretch, and the object's masks), and
 `compass_pattern`, frames that hold kernel B1's FAST compass test at its
-edge. `render(scene, ...)` draws a scene of `SCENES` by name (config 7's
-as `dynamic_<name>`), `render_range` only a range of its frames (bit for
+edge. `render(scene, ...)` draws a scene of `SCENES` by name
+(`make_sequence`'s as `planes`, config 7's as `dynamic_<name>`), `render_range` only a range of its frames (bit for
 bit the same), and `submit_render` spreads a large scene over a process
 pool by ranges. `apply_photometric_nuisances` degrades frames as
 tpu_vo's does (exposure flicker, motion blur, shot and read noise, a JPEG
@@ -81,16 +81,10 @@ def _warp(src: np.ndarray, H: np.ndarray, width: int, height: int,
     return np.clip(np.rint(out), 0, 255).astype(np.uint8).reshape(height, width)
 
 
-def make_sequence(
-    n_frames: int = 30,
-    width: int = 640,
-    height: int = 480,
-    seed: int = 0,
-    step_t: Tuple[float, float, float] = (0.22, 0.0, 0.06),
-    yaw_per_frame_deg: float = 0.5,
-) -> Tuple[List[np.ndarray], List[np.ndarray], List[np.ndarray], np.ndarray]:
-    """Returns (frames, R_wc_list, t_wc_list, K): uint8 (height, width)
-    frames, camera->world poses and K with fx = fy = width."""
+def _planes_scene(n_frames=30, width=640, height=480, seed=0,
+                  step_t=(0.22, 0.0, 0.06), yaw_per_frame_deg=0.5) -> "_Scene":
+    """make_sequence's scene: two textured depth planes, the camera
+    yawing by yaw_per_frame_deg and moving by step_t each frame."""
     rng = np.random.default_rng(seed)
     K = np.array([[width, 0, width / 2.0],
                   [0, width, height / 2.0],
@@ -103,26 +97,39 @@ def make_sequence(
     z_far, z_near = 10.0, 6.0
     extent_far, extent_near = 28.0, 18.0
 
-    frames, Rs, ts = [], [], []
+    Rs, ts = [], []
     yaw_step = np.deg2rad(yaw_per_frame_deg)
     for i in range(n_frames):
         yaw = yaw_step * i
         cy_, sy_ = np.cos(yaw), np.sin(yaw)
-        R_wc = np.array([[cy_, 0, sy_], [0, 1, 0], [-sy_, 0, cy_]])
-        t_wc = np.asarray(step_t, dtype=np.float64) * i
-        Rs.append(R_wc)
-        ts.append(t_wc)
+        Rs.append(np.array([[cy_, 0, sy_], [0, 1, 0], [-sy_, 0, cy_]]))
+        ts.append(np.asarray(step_t, dtype=np.float64) * i)
 
-        R_cw = R_wc.T
-        t_cw = -R_cw @ t_wc
+    def draw(i):
+        R_cw = Rs[i].T
+        t_cw = -R_cw @ ts[i]
         H_far = _plane_homography(K, R_cw, t_cw, z_far, 1536, extent_far)
         H_near = _plane_homography(K, R_cw, t_cw, z_near, 1024, extent_near)
         far = _warp(tex_far, H_far, width, height, 1, "mirror")
         near = _warp(tex_near, H_near, width, height, 1, "mirror")
         near_mask = _warp(mask, H_near, width, height, 0, "constant")
-        frames.append(np.where(near_mask > 0, near, far))
+        return np.where(near_mask > 0, near, far), None
 
-    return frames, Rs, ts, K
+    return _Scene(Rs, ts, K, draw, False)
+
+
+def make_sequence(
+    n_frames: int = 30,
+    width: int = 640,
+    height: int = 480,
+    seed: int = 0,
+    step_t: Tuple[float, float, float] = (0.22, 0.0, 0.06),
+    yaw_per_frame_deg: float = 0.5,
+) -> Tuple[List[np.ndarray], List[np.ndarray], List[np.ndarray], np.ndarray]:
+    """Returns (frames, R_wc_list, t_wc_list, K): uint8 (height, width)
+    frames, camera->world poses and K with fx = fy = width (the scene
+    `planes` of SCENES)."""
+    return _sequence(_planes_scene(n_frames, width, height, seed, step_t, yaw_per_frame_deg))
 
 
 def _blur(img: np.ndarray, sigma: float) -> np.ndarray:
@@ -543,7 +550,7 @@ DYNAMIC_SCENES = {
     "occluders": dict(n_occluders=4),
     "low_texture": dict(low_texture_span=(10.0, 22.0)),
 }
-SCENES = {"corridor": _corridor_scene, "pan": _pan_scene,
+SCENES = {"planes": _planes_scene, "corridor": _corridor_scene, "pan": _pan_scene,
           **{f"dynamic_{k}": functools.partial(_dynamic_scene, **kw)
              for k, kw in DYNAMIC_SCENES.items()}}
 
@@ -677,6 +684,7 @@ NUISANCE_LEVELS = {
                   jpeg_quality=50),
 }
 NUISANCE_SEED = 17  # the JAX harness degrades every level with this seed
+NUISANCES = ("noise", "exposure", "blur", "jpeg")  # apply_photometric_nuisances' `which`
 
 
 def nuisance_level(frames: List[np.ndarray], level: str,
