@@ -32,6 +32,21 @@ Phases, in order; any failure raises and the exit code is non-zero:
      that B1 and B2 each launched exactly once, the poses are finite and
      the trajectory is accurate, and that a small sequence gives the same
      answer on the card as on the CPU;
+  4a. bench.py's harness: tpu_vo_torch.tools.bench at bench.py's
+     configuration (make_sequence(64, 1241, 376, seed=0), rendered in the
+     worker pool with the other scenes, 1200 keypoints, 256 hypotheses,
+     frame_chunk 8, pair_chunk 9; 2 warm-up and 3 timed windows of 8
+     calls; --reference committed), after the renders are joined and
+     beside no other host work, counters reset just before: its stdout is
+     one line with bench.py's keys, value > 0 and vs_baseline the rounded
+     ratio of the unrounded value and baseline; B1 and B2 launch once per
+     8-frame chunk of every call and B3 never; the last call's pose_ok >=
+     0.7 and mean rotation error < 1.5 deg over the 63 pairs against
+     ground truth; where phase 2 found no png.h or jpeglib.h,
+     e2e_decode_fps is absent and the loader's reason printed; then B1
+     and B2 against their plain versions bit for bit at one 8-frame
+     chunk's shapes; it prints the line, the card's name and power limit
+     and the launches;
   4b. drive the streaming path: api.VisualOdometry over the same 32
      frames, counters reset just before; check that B1 and B2 each
      launched once per frame, pose_ok and the rotation error meet the
@@ -322,8 +337,8 @@ from tpu_vo_torch.parallel.mesh import make_mesh  # noqa: E402
 from tpu_vo_torch.parallel.sharding import (run_batch_of_sequences,  # noqa: E402
                                             run_batch_time_sharded, run_sequence_time_sharded)
 from tpu_vo_torch.pipeline import runner, step  # noqa: E402
-from tpu_vo_torch.tools import (diag_common, io_bench, patch_slots_probe,  # noqa: E402
-                                reference_band, run_benchmarks, stage_bench)
+from tpu_vo_torch.tools import (bench, diag_common, io_bench, patch_slots_probe,  # noqa: E402
+                                profile_rows, reference_band, run_benchmarks, stage_bench)
 from tpu_vo_torch.tools.harris_candidate_probe import SELECT_KERNEL, _pyramid_shapes  # noqa: E402
 from tpu_vo_torch.tools.device_time import device_time_ms  # noqa: E402
 from tpu_vo_torch.utils.profiling import (busy_profile, card as _card, cuda_times,  # noqa: E402
@@ -371,6 +386,11 @@ VIEWER_REPS = 5       # timed render_step calls at each size
 # e2e leg) and over io_bench's host chunks of 16, against the batched
 # runner at bench.py's frame_chunk 8 and pair_chunk 9
 INGEST_T, INGEST_HOST_CHUNK = 64, 16
+# Phase 4a: tools/bench at bench.py's configuration (:41-69), its baseline
+# the committed one (the card's host has no cv2)
+BENCH_SIZES = dict(T=64, width=W, height=H, features=1200, hyps=256, repeats=8, fc=8, pc=9,
+                   reference="committed")
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "cpu_baseline_fps"}
 INGEST_FRAME_CHUNK, INGEST_PAIR_CHUNK = 8, 9
 PAETH = 4
 STREAM_PROFILE_T = 8  # streamed frames per profiled run
@@ -693,6 +713,63 @@ def _card_vs_cpu(label, frames, Rs_gt, cfg):
           f"frames", flush=True)
     if not (float(dg["pose_ok"].float().mean()) >= MIN_POSE_OK and rg.mean() < rc.mean() + 0.5):
         raise AssertionError(f"the card and the CPU disagree on the {label}")
+
+
+def _bench_phase(native_missing, kernels, card):
+    """Phase 4a: tools/bench at bench.py's configuration, counted; its line,
+    ratio, launches, accuracy and IO leg checked; then B1 and B2 bit for
+    bit at one 8-frame chunk's shapes. Returns the B1 and B2 launches."""
+    o = dict(BENCH_SIZES)
+    frames_np, Rs_gt = bench.scene(o["T"], W, H)
+    buf = io.StringIO()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench.main([], **o)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in kernels.items()}
+    lines = buf.getvalue().splitlines()
+    print("\n".join(lines), flush=True)
+    print(f"bench: {secs:.1f} s for one call (T {o['T']}, {o['repeats']} repeats x "
+          f"{bench.WARMUP_WINDOWS + bench.WINDOWS} windows, fc {o['fc']}, pc {o['pc']}); "
+          f"launches {launches} [{card}]", flush=True)
+    if len(lines) != 1:
+        raise AssertionError(f"the bench printed {len(lines)} lines on stdout, not 1")
+    line = json.loads(lines[0])
+    rec = bench.last_run()
+    keys = BENCH_KEYS | ({"e2e_decode_fps"} if "e2e_decode_fps" in line else set())
+    if set(line) != keys or line["metric"] != bench.METRIC or line["unit"] != bench.UNIT:
+        raise AssertionError(f"the bench's line is not bench.py's: {line}")
+    # bench.py rounds value, the baseline and their ratio each on its own;
+    # the ratio of the two printed numbers is within 0.01 of vs_baseline
+    if not (line["value"] > 0 and line["value"] == round(rec["fps"], 2)
+            and line["vs_baseline"] == round(rec["fps"] / rec["cpu_baseline_fps"], 2)
+            and abs(line["vs_baseline"] - line["value"] / line["cpu_baseline_fps"]) <= 0.01):
+        raise AssertionError(f"the bench's value and ratio disagree: {line}")
+    n = (bench.WARMUP_WINDOWS + bench.WINDOWS) * o["repeats"] * profile_rows.frame_launches(
+        o["T"], o["fc"])
+    if "e2e_decode_fps" in line:
+        n += io_bench.e2e_decode_launches(o["T"])
+    want = {"select_maps": n, "extract_patches": n, "fast_margin": 0}
+    if launches != want or rec["expected_launches"] != {k: n for k in profile_rows.KERNELS}:
+        raise AssertionError(f"the bench's launches {launches} are not {want}")
+    poses, diags = rec["poses"], rec["diagnostics"]
+    pose_ok = float(diags["pose_ok"].float().mean())
+    rot = _pair_rot_err_deg(poses.R.double().cpu().numpy(), Rs_gt)
+    print(f"bench's last run: pose_ok {pose_ok:.3f}, mean per-pair rotation error "
+          f"{rot.mean():.4f} deg (max {rot.max():.4f}) over {len(rot)} pairs", flush=True)
+    if len(rot) != o["T"] - 1 or pose_ok < MIN_POSE_OK or not rot.mean() < MAX_MEAN_PAIR_ROT_ERR_DEG:
+        raise AssertionError("the bench's run is below the main path's accuracy bar")
+    if native_missing:
+        print(f"bench: e2e_decode_fps omitted, the native loader does not build: "
+              f"{native_loader.unavailable_reason()}", flush=True)
+        if "e2e_decode_fps" in line:
+            raise AssertionError("e2e_decode_fps measured without the native loader")
+    chunk = torch.from_numpy(frames_np[:o["fc"]].copy()).cuda()
+    ocfg = ORBConfig(n_features=o["features"])
+    _hold_b1_b2(f"bench (one {o['fc']}-frame chunk)", chunk, ocfg, card)
+    return launches
 
 
 def _write_kitti_tree(root, frames, Rs, ts, K) -> str:
@@ -1072,8 +1149,8 @@ def _ingest_phase(cfg, missing, kernels, card):
     onto the card, the streamed runner (counted) against the batched one,
     B1 and B2 at the streamed chunks' shapes, then io_bench. Returns
     {path: launches}."""
-    arr = np.stack(make_sequence(n_frames=INGEST_T, width=W, height=H, seed=0)[0])
-    frames = torch.from_numpy(arr).cuda()
+    arr = bench.scene(INGEST_T, W, H)[0]  # make_sequence(64, seed=0), rendered in the pool
+    frames = torch.from_numpy(arr.copy()).cuda()
     runs = {}
     with tempfile.TemporaryDirectory() as d:
         for i, f in enumerate(arr):
@@ -1305,12 +1382,14 @@ def _start_renders(pool):
     """Submit the accuracy path's scenes to `pool`: {key: futures of
     render_range by frame ranges}, the parity legs, "config5", "config3"
     and config 7's "config7_<scene>" by their names in the reference file,
-    ("c4", b) config 4's sequences, ("c6", scene) config 6's clean
-    scenes; the largest first. Each future's
+    ("c4", b) config 4's sequences, "bench" the bench's and the ingest
+    path's frames, ("c6", scene) config 6's clean scenes; the largest
+    first. Each future's
     `done_s` is set to the seconds from the submission to its end."""
     names = ("config3",) + tuple(f"config7_{k}" for k in synthetic.DYNAMIC_SCENES)
     specs = {name: reference_band.LEGS[name] for name in names + PARITY_LEGS + ("config5",)}
     specs.update({("c4", b): ("corridor", C4_T, C4_W, C4_H, b) for b in range(C4_B)})
+    specs["bench"] = reference_band.BENCH  # make_sequence(64, 1241, 376, seed=0)
     t0 = time.perf_counter()
     futures = {k: synthetic.submit_render(pool, *spec) for k, spec in specs.items()}
     # config 6's clean scenes (the corridor by ranges of C6_RANGE frames);
@@ -2063,6 +2142,12 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
     _diag_prefill(pool, renders, degraded)
     print(f"phase 5k's scenes handed over, its single-nuisance pans made in the pool in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    bench.prefill(_rendered(renders, "bench"))
+
+    # 4a. bench.py's harness (tools/bench), counted, beside no host work
+    t0 = time.perf_counter()
+    bench_counts = _bench_phase(native_missing, kernels, card)
+    print(f"phase bench: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
     # 4b. the streaming path, counted: VisualOdometry frame by frame
     stream_counts = _streaming_phase(frames_np, frames, Rs_gt, cfg, kernels, poses, diags, card)
@@ -2184,7 +2269,10 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
 
     # 5c-5e. the accuracy path, counted: parity with the reference, config
     # 5's window refinement, config 4's batch of sequences
-    path_launches = {"main": launches, "streaming (32 frames)": stream_counts,
+    path_launches = {"main": launches,
+                     f"bench (T {BENCH_SIZES['T']}, {BENCH_SIZES['repeats']} repeats x "
+                     f"{bench.WARMUP_WINDOWS + bench.WINDOWS} windows)": bench_counts,
+                     "streaming (32 frames)": stream_counts,
                      "CLI (24 frames)": cli_counts, "CLI default run (24 frames)": viewer_counts,
                      **{f"streamed, {k} ({INGEST_T} frames)": c
                         for k, c in ingest_counts.items()}, **variant_counts}

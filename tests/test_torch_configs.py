@@ -121,6 +121,10 @@ DIAGNOSTIC_MODULES = ["tpu_vo_torch.tools." + m for m in (
     "diag_common", "harris_candidate_probe", "dk_iters_diag", "score_variants_diag",
     "pan_blur_pair_probe", "keepties_seed_sweep", "keepties_diag", "pan_harsh_ablation",
     "parity_matrix", "diagnose_ate", "extract_orb_pattern")]
+# The port of bench.py, which imports jax; cv2 only inside reference_band's
+# functions (--reference live)
+BENCH_MODULES = ["tpu_vo_torch.tools.bench", "tpu_vo_torch.tools.reference_band",
+                 "tpu_vo_torch.tools.io_bench"]
 AOS_HELPERS = ("_mul11", "_mul21", "_nullspace_basis", "_constraint_matrix", "_gauss_jordan",
                "_action_polynomials", "_conv", "_det_poly", "_poly_roots",
                "_poly_backward_error", "_newton_real")
@@ -141,3 +145,4 @@ def test_port_imports_without_jax_or_tpu_vo():
     assert set(PARALLEL_MODULES) <= set(mods)
     assert set(PROFILING_MODULES) <= set(mods)
     assert set(DIAGNOSTIC_MODULES) <= set(mods)
+    assert set(BENCH_MODULES) <= set(mods)

@@ -152,6 +152,19 @@ def test_tool_raises_without_a_card(name, monkeypatch, small_scenes):
         mod.main(**cut)
 
 
+def test_score_variants_diag_takes_the_jax_tools_frames_flag():
+    """--frames, as tools/score_variants_diag.py parses it (:202); T= still
+    names the frames as a size (the JAX tool's main's name)."""
+    argv = ["--frames", "2", "--width", "160", "--height", "120", "--features", "100",
+            "--hyps", "8", "--seeds", "0", "--device", "cpu"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        a = score_variants_diag.main(argv)
+        b = score_variants_diag.main(argv[2:], T=2)
+    assert a["sizes"]["frames"] == b["sizes"]["frames"] == 2
+    assert a["rows"]["config"]["T"] == 2 and a["rows"] == b["rows"]
+    assert len(a["rows"]["count"]["rot"]) == 1
+
+
 def test_diagnose_ate_crosses_need_cv2_and_the_cpu(monkeypatch):
     """C and D are the string row where cv2 does not import."""
     monkeypatch.setattr(diag_common, "cv2_available", lambda: False)

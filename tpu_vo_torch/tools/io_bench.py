@@ -96,6 +96,29 @@ def _median_fps(n: int, fn, reps: int) -> float:
     return statistics.median(_wall_fps(n, fn) for _ in range(reps))
 
 
+def e2e_decode_fps(root: str, T: int, cfg: VOConfig, dev: torch.device) -> float:
+    """bench.py's e2e leg (bench.py:141-183) over the first T image files
+    in `root`: run_sequence_streamed over the native loader's chunks of
+    min(64, T) frames (E2E_THREADS threads, depth DECODE_DEPTH), the
+    larger of two runs after one warm-up, host wall time to the last
+    pose on the host. Each run launches B1 and B2 once a chunk
+    (e2e_decode_launches)."""
+    c = min(E2E_CHUNK, T)
+    n = (T // c) * c
+
+    def e2e_decode():
+        with native_loader.NativeDataset(root, E2E_THREADS, DECODE_DEPTH) as ds:
+            return run_sequence_streamed(chunks_of(ds, c, limit=n), cfg, c, device=dev)[0]
+
+    _wall_fps(n, e2e_decode)
+    return max(_wall_fps(n, e2e_decode), _wall_fps(n, e2e_decode))
+
+
+def e2e_decode_launches(T: int) -> int:
+    """B1's (and B2's) launches of one e2e_decode_fps call over T frames."""
+    return 3 * (T // min(E2E_CHUNK, T))
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(prog="io_bench", description=__doc__.split("\n\n")[0])
     p.add_argument("--frames", type=int, default=64)
@@ -207,16 +230,7 @@ def main(argv=None) -> dict:
 
             out["e2e_packed_fps"] = _median_fps(T, e2e_packed, args.reps)
 
-            c = min(E2E_CHUNK, T)
-            n = (T // c) * c
-
-            def e2e_decode():
-                with native_loader.NativeDataset(tmp, E2E_THREADS, DECODE_DEPTH) as ds:
-                    return run_sequence_streamed(chunks_of(ds, c, limit=n), cfg, c,
-                                                 device=dev)[0]
-
-            _wall_fps(n, e2e_decode)
-            out["e2e_decode_fps"] = max(_wall_fps(n, e2e_decode), _wall_fps(n, e2e_decode))
+            out["e2e_decode_fps"] = e2e_decode_fps(tmp, T, cfg, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(json.dumps(out), flush=True)

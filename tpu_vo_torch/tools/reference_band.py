@@ -38,16 +38,36 @@ keypoint sets of frame 0 of the corridor (seed 0) at 640x480 with 1000
 features (config 1's T 96) and at 1241x376 with 2000 (config 2's T 64),
 as tools/keepties_diag's part A compares them, each keypoint as
 (round(4x), round(4y), octave), with frame 0's sha256 and cv2's version.
+
+    python -m tpu_vo_torch.tools.reference_band --speed [--workers N]
+
+times the reference instead (no leg is recomputed) and writes
+data/reference_speed.json, the baseline of tools/bench's vs_baseline and
+of tools/run_benchmarks' reference-speed fields. Its entries: `bench`,
+bench.py:47-58 (ReferenceVO(W, H) built outside the timed window, then
+run over the first min(T, 32) frames of make_sequence(64, 1241, 376,
+seed=0), 5 times; cpu_baseline_fps the median); `config1` and `config3`,
+the legs' frames timed as benchmarks/run_benchmarks.py:100-103 times
+them (the construction and the legacy run in the window), 3 times, fps
+the median. Each entry holds its samples, T, W, H, seed, the sha256 of
+the timed frames, the host (CPU model, CPU count, cv2's version and
+threads, the platform) and the date. The scenes are rendered in the pool
+first; the timings run one at a time in this process, after the pool has
+ended.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import datetime
 import json
 import multiprocessing
 import os
+import platform
+import statistics
 import sys
+import time
 
 import numpy as np
 
@@ -57,6 +77,7 @@ from tpu_vo_torch.utils.metrics import ate_rmse_aligned, extent
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
 PATH = os.path.join(DATA, "reference_trajectories.json")
 DIAG_PATH = os.path.join(DATA, "diagnostic_reference.json")
+SPEED_PATH = os.path.join(DATA, "reference_speed.json")
 SEEDS = 5          # reference reruns that make the band
 STATE0 = 12345     # their ransac_state is STATE0 + s
 # name -> (scene, T, W, H, seed)
@@ -84,6 +105,14 @@ LEGS = {
 DIAG_KEYPOINTS = ((640, 480, 1000, 96), (1241, 376, 2000, 64))
 
 CPU_LEGS = ("cpu_corridor_320x240", "cpu_pan_320x240")
+
+# The reference's speed: bench.py's baseline (its make_sequence scene,
+# T W H seed; the first BENCH_TIMED frames timed BENCH_SAMPLES times) and
+# the legs whose speed tools/run_benchmarks reports, each timed LEG_SAMPLES
+# times (the JAX harness times one run; the median damps a shared host)
+BENCH = ("planes", 64, 1241, 376, 0)
+BENCH_TIMED, BENCH_SAMPLES = 32, 5
+SPEED_LEGS, LEG_SAMPLES = ("config1", "config3"), 3
 
 
 def nuisance(name: str):
@@ -202,6 +231,114 @@ def parity_tolerance(band: float) -> float:
     return max(1.15 * band, 0.01)
 
 
+def host() -> dict:
+    """The host a timing ran on: CPU model, CPU count, cv2's version and
+    threads, the platform."""
+    import cv2
+
+    model = "unknown"
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), model)
+    return {"cpu": model, "cpu_count": os.cpu_count(), "cv2": cv2.__version__,
+            "cv2_threads": cv2.getNumThreads(), "platform": platform.platform()}
+
+
+def bench_baseline(frames, W: int, H: int, samples: int = BENCH_SAMPLES):
+    """(median, samples) of bench.py's baseline in frames/s: ReferenceVO(W,
+    H) built outside the window, then run over the first min(T, 32) frames
+    (bench.py:47-58)."""
+    from tpu_vo_torch.utils.cv_reference import ReferenceVO
+
+    n = min(len(frames), BENCH_TIMED)
+    fps = []
+    for _ in range(samples):
+        ref = ReferenceVO(W, H)
+        t0 = time.perf_counter()
+        ref.run(frames[:n])
+        fps.append(n / (time.perf_counter() - t0))
+    return statistics.median(fps), fps
+
+
+def leg_speed(frames, W: int, H: int, samples: int = LEG_SAMPLES):
+    """(median, samples) of the reference's frames/s on a leg, timed as
+    ref_with_band's legacy run is in benchmarks/run_benchmarks.py:100-103:
+    the construction and the run in the window."""
+    from tpu_vo_torch.utils.cv_reference import ReferenceVO
+
+    fps = []
+    for _ in range(samples):
+        t0 = time.perf_counter()
+        ReferenceVO(W, H).run(frames)
+        fps.append(len(frames) / (time.perf_counter() - t0))
+    return statistics.median(fps), fps
+
+
+def speed_entry(T: int, W: int, H: int, seed: int, frames, timed: dict) -> dict:
+    """One entry of the speed file: sizes, the timed frames' sha256, the
+    timing (`timed`), the host and the date."""
+    return {"T": T, "W": W, "H": H, "seed": seed,
+            "frames_sha256": synthetic.frames_sha256(frames), **timed, "host": host(),
+            "date": datetime.datetime.now(datetime.timezone.utc).isoformat(timespec="seconds")}
+
+
+def make_speed(scenes: dict) -> dict:
+    """The speed file's object from the rendered frames ({"bench": frames,
+    leg name: frames}); one timing at a time, in this process."""
+    scene, T, W, H, seed = BENCH
+    frames = scenes["bench"]
+    fps, samples = bench_baseline(frames, W, H)
+    out = {"bench": speed_entry(T, W, H, seed, frames[:BENCH_TIMED], {
+        "scene": scene, "timed_frames": min(T, BENCH_TIMED), "cpu_baseline_fps": fps,
+        "samples_fps": samples})}
+    for name in SPEED_LEGS:
+        scene, T, W, H, seed = LEGS[name]
+        fps, samples = leg_speed(scenes[name], W, H)
+        out[name] = speed_entry(T, W, H, seed, scenes[name], {
+            "scene": scene, "fps": fps, "samples_fps": samples})
+    return {"entries": out}
+
+
+def load_speed() -> dict:
+    """{entry name: record} of the committed reference speeds."""
+    with open(SPEED_PATH) as f:
+        return json.load(f)["entries"]
+
+
+def committed_fps(name: str, frames):
+    """The committed reference frames/s of leg `name` (an entry of the
+    speed file) where `frames` are the ones it timed, else None."""
+    rec = load_speed().get(name)
+    if rec is None or rec["frames_sha256"] != synthetic.frames_sha256(frames):
+        return None
+    return rec["fps"]
+
+
+def speed_main(workers: int, out: str) -> int:
+    """--speed: render the scenes in the pool, then time each in turn here."""
+    specs = {"bench": BENCH, **{n: LEGS[n] for n in SPEED_LEGS}}
+    with concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {k: synthetic.submit_render(pool, *spec) for k, spec in specs.items()}
+        scenes = {k: synthetic.join_ranges([f.result() for f in fs])[0]
+                  for k, fs in futures.items()}
+    for name in SPEED_LEGS:
+        want = load(PATH)[name]["frames_sha256"]
+        if synthetic.frames_sha256(scenes[name]) != want:
+            raise ValueError(f"{name}: the rendered frames are not the committed leg's")
+    obj = make_speed(scenes)
+    for name, rec in obj["entries"].items():
+        fps = rec.get("cpu_baseline_fps", rec.get("fps"))
+        print(f"{name}: {fps:.3f} frames/s (samples {[round(x, 3) for x in rec['samples_fps']]}),"
+              f" sha256 {rec['frames_sha256'][:16]}", flush=True)
+    with open(out, "w") as f:
+        json.dump(obj, f, indent=1)
+        f.write("\n")
+    print(f"wrote {out} ({os.path.getsize(out)} bytes) on {obj['entries']['bench']['host']}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--legs", default=",".join(LEGS), help="comma-separated leg names")
@@ -210,7 +347,12 @@ def main(argv=None) -> int:
     ap.add_argument("--diagnostics", action="store_true",
                     help=f"also write {os.path.relpath(DIAG_PATH)} (cv2's keypoint sets)")
     ap.add_argument("--diagnostics-out", default=DIAG_PATH)
+    ap.add_argument("--speed", action="store_true",
+                    help=f"time the reference into {os.path.relpath(SPEED_PATH)} instead")
+    ap.add_argument("--speed-out", default=SPEED_PATH)
     args = ap.parse_args(argv)
+    if args.speed:
+        return speed_main(args.workers, args.speed_out)
     names = [n for n in args.legs.split(",") if n]
     unknown = set(names) - set(LEGS)
     if unknown:

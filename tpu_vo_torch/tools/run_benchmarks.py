@@ -37,8 +37,13 @@ committed in data/reference_trajectories.json (tools/reference_band) and
 ground truth, and the parity verdict: the aligned relative ATE within the
 reference's own RANSAC scatter band (or 1%). With --frames T the
 frames differ from the committed leg's, and no reference is compared.
-Config 4's accuracy is its sequence 0's. Configs 3, 6 and 7 carry the
-JAX harness's field names beside the port's own; config 6 prints a line
+Config 4's accuracy is its sequence 0's. Configs 1, 2, 3, 6 and 7 carry
+the JAX harness's field names beside the port's own: configs 1-3
+frames_per_sec_chip and one_shot_wall_fps, config 1 vs_opencv_reference
+and config 3 ref_seconds_per_frame from the reference's speed committed
+in data/reference_speed.json (tools/reference_band --speed, a CPU host
+with cv2: a ratio of the card to that host's CPU), null where the frames
+are not the ones it timed; config 6 prints a line
 per scene and level, config 7 one per scene, then each its config line.
 The lines also go to --out (default
 bench_out/run_benchmarks.jsonl in the repo, which git ignores). The
@@ -312,14 +317,22 @@ def run_config(n: int, seqs, dev: torch.device, legs: dict, tag: str) -> dict:
 
             ms, (poses, _) = _timed(run, dev)
             res.update(frame_chunk=fc, pair_chunk=pc)
+            # the JAX harness's fields; its one-shot wall time is one warm
+            # call by the host clock, to the outputs' readiness; the
+            # reference's speed is the committed one (the card's host has
+            # no cv2), null where these frames are not the ones it timed
+            t0 = time.perf_counter()
+            profiling.fence(run())
+            wall_s = time.perf_counter() - t0
+            res.update(frames_per_sec_chip=T / ms * 1e3, one_shot_wall_fps=T / wall_s)
+            ref_fps = (reference_band.committed_fps(leg, seqs[0][0])
+                       if leg in reference_band.SPEED_LEGS else None)
+            if n == 1:
+                res["vs_opencv_reference"] = (None if ref_fps is None
+                                              else res["frames_per_sec_chip"] / ref_fps)
             if n == 3:
-                # the JAX harness's fields; its one-shot wall time is one
-                # warm call by the host clock, to the outputs' readiness
-                t0 = time.perf_counter()
-                profiling.fence(run())
-                wall_s = time.perf_counter() - t0
-                res.update(frames_per_sec_chip=T / ms * 1e3, one_shot_wall_fps=T / wall_s,
-                           ref_seconds_per_frame=None,
+                res.update(ref_seconds_per_frame=None if ref_fps is None
+                           else round(1.0 / ref_fps, 3),
                            short_sequence_caveat=f"T={T}: ATE over a short 4K clip",
                            peak_mem_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
                                          if dev.type == "cuda" else None))

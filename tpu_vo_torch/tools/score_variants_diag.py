@@ -29,7 +29,8 @@ apply_photometric_nuisances(seed=17, blur_len_px=5.0, which=("blur",))).
 Rows: one a variant (rotation mean, p90, max; translation mean, max) and
 `config`. Stage 1 runs once for all frames (one launch of B1 and of B2).
 
-    python -m tpu_vo_torch.tools.score_variants_diag [--scene pan] [--nuisance blur]
+    python -m tpu_vo_torch.tools.score_variants_diag [--frames 16] [--scene pan]
+        [--nuisance blur]
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from tpu_vo_torch.pipeline.step import pair_generators
 from tpu_vo_torch.tools import diag_common, profile_pairs, profile_rows
 from tpu_vo_torch.utils import synthetic
 
-DEFAULTS = dict(width=1241, height=376, T=16, features=2000, seeds=(0, 1), scene="corridor",
+DEFAULTS = dict(width=1241, height=376, frames=16, features=2000, seeds=(0, 1), scene="corridor",
                 nuisance="none", hyps=256)
 VARIANTS = ("count", "msac1", "msac1n", "msac05n", "msac025n", "ladder", "laddern", "lex",
             "adapt")
@@ -120,10 +121,12 @@ def frames_of(scene: str, T: int, W: int, H: int, nuisance: str):
 
 
 def main(argv=None, device=None, **sizes) -> dict:
+    if "T" in sizes:  # the JAX tool's main names the frames T, its command line --frames
+        sizes["frames"] = sizes.pop("T")
     o = profile_rows.options(argv, DEFAULTS, device, sizes, __doc__.split("\n\n")[0])
     rows = profile_rows.Rows("score_variants_diag", o)
     dev = o.device
-    frames, Rs, ts = frames_of(o.scene, o.T, o.width, o.height, o.nuisance)
+    frames, Rs, ts = frames_of(o.scene, o.frames, o.width, o.height, o.nuisance)
     cfg = VOConfig(image_width=o.width, image_height=o.height,
                    orb=ORBConfig(n_features=o.features))
     K = intrinsics_from_image_size(o.width, o.height, device=dev)
@@ -137,7 +140,7 @@ def main(argv=None, device=None, **sizes) -> dict:
     _, _, x1n, x2n, mask = profile_pairs.prep_stage(prev, cur, good, K)
     rot = {v: [] for v in VARIANTS}
     terr = {v: [] for v in VARIANTS}
-    for i in range(o.T - 1):
+    for i in range(o.frames - 1):
         R_gt, t_gt = diag_common.gt_relative(Rs, ts, i + 1)
         for seed in o.seeds:
             idx = draw_samples(pair_generators(seed, [i + 1]), mask[i:i + 1], o.hyps, 5)
@@ -158,7 +161,7 @@ def main(argv=None, device=None, **sizes) -> dict:
         rows.add(v, {"rot_mean": float(r.mean()), "rot_p90": float(np.percentile(r, 90)),
                      "rot_max": float(r.max()), "t_mean": float(te.mean()),
                      "t_max": float(te.max()), "rot": rot[v], "terr": terr[v]})
-    rows.add("config", {"W": o.width, "H": o.height, "T": o.T, "n_feat": o.features,
+    rows.add("config", {"W": o.width, "H": o.height, "T": o.frames, "n_feat": o.features,
                         "scene": o.scene, "nuisance": o.nuisance or "none", "seeds": list(o.seeds)})
     return rows.finish()
 
