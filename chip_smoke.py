@@ -6,10 +6,10 @@ Phases, in order; any failure raises and the exit code is non-zero:
 
   1. require a CUDA device; print the card's name and power limit;
   2. build the CUDA kernels from tpu_vo_torch/csrc (nvcc, sm_90a) and,
-     beside them, the native image loader (g++, io/native_loader) after
-     asking the host compiler for png.h and jpeglib.h: where both are
-     there it must build, where not one line names what is missing and
-     the Python decoder runs in its place; count the tensor-core
+     beside them, the native image loader (g++, io/native_loader; its
+     inflate, PNG and JPEG codecs are csrc's own, it links pthread and no
+     image or compression library): a failed build fails the run, and it
+     prints the build's seconds and the library's path; count the tensor-core
      instructions (HMMA) of P2's phase_mxu_kernel in the library's SASS
      (cuobjdump); none fails the run;
   3. compare each kernel with its plain PyTorch version on the card:
@@ -42,8 +42,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      ratio of the unrounded value and baseline; B1 and B2 launch once per
      8-frame chunk of every call and B3 never; the last call's pose_ok >=
      0.7 and mean rotation error < 1.5 deg over the 63 pairs against
-     ground truth; where phase 2 found no png.h or jpeglib.h,
-     e2e_decode_fps is absent and the loader's reason printed; then B1
+     ground truth; the line holds e2e_decode_fps (the native loader's
+     leg), whose launches count with the rest; then B1
      and B2 against their plain versions bit for bit at one 8-frame
      chunk's shapes; it prints the line, the card's name and power limit
      and the launches;
@@ -64,9 +64,9 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (all five row filters) in a KITTI tree with calib.txt, times.txt
      and poses/00.txt, run by tpu_vo_torch.cli.main on the card, counters
      reset just before; check that B1 and B2 launched once per frame, the
-     three trajectory files hold 24 poses and an ATE figure was printed;
-     it prints which decoder the CLI ran and its ms a frame (host clock
-     between frames, median);
+     three trajectory files hold 24 poses, an ATE figure was printed and
+     the CLI read through the native loader (Decoder: native); it prints
+     its ms a frame (host clock between frames, median);
   4d2. the CLI's default run (the 3D trajectory viewer rendering the
      whole trajectory every frame, the 7 screenshots at the end) over the
      same tree, counters reset just before: B1 and B2 launch once a
@@ -76,8 +76,8 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the port's own render of its view byte for byte;
      process_frame(render_overlay=True) on the card gives the overlay that
      draw_keypoints_overlay draws from a CPU copy of the same features;
-     where the native loader was built, Adam7 PNGs (gray, palette) decode
-     through it to the Python reader's pixels, else it says why not; it
+     Adam7 PNGs (gray, palette) decode through the native loader to the
+     Python reader's pixels; it
      prints the CLI's ms a frame with and without the viewer, render_step's
      ms at 24 and at 1000 poses and the screenshots' seconds (host clock);
   4e. the ingest path: make_sequence(64, 1241, 376, seed=0) written as
@@ -91,19 +91,19 @@ Phases, in order; any failure raises and the exit code is non-zero:
      (frame_chunk 8, pair_chunk 9) on the card: pose_ok equal, world
      positions within 1e-4; B1 and B2 against their plain versions bit
      for bit on each 8-frame chunk's (8, 376, 1241) pyramid and 1200
-     keypoints; then tools/io_bench's rows. Where phase 2 found no png.h
-     or jpeglib.h, the native checks are left out and the Python decoder
-     takes the native loader's place;
+     keypoints; then tools/io_bench's rows, every native one measured;
   4f. frames from files of other formats: the main path's first 24 frames
      written as baseline JPEG at quality 90 (io/jpeg.encode_gray, the card
      host having no other encoder) into one directory, and as 8-bit PNGs
      alternating palette (a PLTE of the 256 grays) and Adam7-interlaced
      gray (a small writer here) into another; over each, load_frame (ms
-     per decoded frame, host clock), PrefetchLoader(use_native=False)
-     onto the card and the CLI (counters reset just before); all 24
-     frames decode and none is skipped, the JPEG frames equal
-     roundtrip_gray(frame, 90) of the originals and the PNG frames the
-     originals, the CLI launches B1 and B2 once a frame, and its
+     per decoded frame, host clock), PrefetchLoader onto the card with
+     use_native=False and with the native loader (which it must choose),
+     and the CLI (counters reset just before; it must report Decoder:
+     native); all 24 frames decode and none is skipped, the JPEG frames
+     equal roundtrip_gray(frame, 90) of the originals and the PNG frames
+     the originals, each native frame the Python reader's frame of the
+     same file, the CLI launches B1 and B2 once a frame, and its
      positions lie within 1e-4 of run_sequence_scan's on those frames in
      memory with the CLI's configuration;
   5. drive the FAST-detect path at full width: the stage benchmark's
@@ -715,7 +715,7 @@ def _card_vs_cpu(label, frames, Rs_gt, cfg):
         raise AssertionError(f"the card and the CPU disagree on the {label}")
 
 
-def _bench_phase(native_missing, kernels, card):
+def _bench_phase(kernels, card):
     """Phase 4a: tools/bench at bench.py's configuration, counted; its line,
     ratio, launches, accuracy and IO leg checked; then B1 and B2 bit for
     bit at one 8-frame chunk's shapes. Returns the B1 and B2 launches."""
@@ -738,9 +738,9 @@ def _bench_phase(native_missing, kernels, card):
         raise AssertionError(f"the bench printed {len(lines)} lines on stdout, not 1")
     line = json.loads(lines[0])
     rec = bench.last_run()
-    keys = BENCH_KEYS | ({"e2e_decode_fps"} if "e2e_decode_fps" in line else set())
-    if set(line) != keys or line["metric"] != bench.METRIC or line["unit"] != bench.UNIT:
-        raise AssertionError(f"the bench's line is not bench.py's: {line}")
+    if (set(line) != BENCH_KEYS | {"e2e_decode_fps"} or line["metric"] != bench.METRIC
+            or line["unit"] != bench.UNIT or not line["e2e_decode_fps"] > 0):
+        raise AssertionError(f"the bench's line is not bench.py's with e2e_decode_fps: {line}")
     # bench.py rounds value, the baseline and their ratio each on its own;
     # the ratio of the two printed numbers is within 0.01 of vs_baseline
     if not (line["value"] > 0 and line["value"] == round(rec["fps"], 2)
@@ -748,9 +748,7 @@ def _bench_phase(native_missing, kernels, card):
             and abs(line["vs_baseline"] - line["value"] / line["cpu_baseline_fps"]) <= 0.01):
         raise AssertionError(f"the bench's value and ratio disagree: {line}")
     n = (bench.WARMUP_WINDOWS + bench.WINDOWS) * o["repeats"] * profile_rows.frame_launches(
-        o["T"], o["fc"])
-    if "e2e_decode_fps" in line:
-        n += io_bench.e2e_decode_launches(o["T"])
+        o["T"], o["fc"]) + io_bench.e2e_decode_launches(o["T"])
     want = {"select_maps": n, "extract_patches": n, "fast_margin": 0}
     if launches != want or rec["expected_launches"] != {k: n for k in profile_rows.KERNELS}:
         raise AssertionError(f"the bench's launches {launches} are not {want}")
@@ -761,11 +759,6 @@ def _bench_phase(native_missing, kernels, card):
           f"{rot.mean():.4f} deg (max {rot.max():.4f}) over {len(rot)} pairs", flush=True)
     if len(rot) != o["T"] - 1 or pose_ok < MIN_POSE_OK or not rot.mean() < MAX_MEAN_PAIR_ROT_ERR_DEG:
         raise AssertionError("the bench's run is below the main path's accuracy bar")
-    if native_missing:
-        print(f"bench: e2e_decode_fps omitted, the native loader does not build: "
-              f"{native_loader.unavailable_reason()}", flush=True)
-        if "e2e_decode_fps" in line:
-            raise AssertionError("e2e_decode_fps measured without the native loader")
     chunk = torch.from_numpy(frames_np[:o["fc"]].copy()).cuda()
     ocfg = ORBConfig(n_features=o["features"])
     _hold_b1_b2(f"bench (one {o['fc']}-frame chunk)", chunk, ocfg, card)
@@ -904,7 +897,7 @@ def _cli_phase(seq_dir, n, K, kernels, card):
           f"Paeth [{card}]", flush=True)
     if (rc != 0 or (len(stamps_tum), len(kitti_R), len(cli_t)) != (n,) * 3
             or not any("ate_rmse=" in ln for ln in lines)
-            or not any(ln.startswith("Decoder:") for ln in lines)
+            or "Decoder: native" not in lines
             or cli_launches["select_maps"] != n or cli_launches["extract_patches"] != n):
         raise AssertionError("the CLI run failed its checks")
     return cli_launches, cli_t, ms
@@ -919,7 +912,7 @@ def _median_ms(fn, reps=VIEWER_REPS) -> float:
     return statistics.median(times)
 
 
-def _viewer_phase(seq_dir, frames_np, cfg, cli_t, cli_ms, missing, kernels, card):
+def _viewer_phase(seq_dir, frames_np, cfg, cli_t, cli_ms, kernels, card):
     """Phase 4d2: the CLI's default run over the same tree, counted, with
     render_step counted and each screenshot checked against the port's own
     render; the overlay on the card against a CPU copy of its features;
@@ -1014,23 +1007,18 @@ def _viewer_phase(seq_dir, frames_np, cfg, cli_t, cli_ms, missing, kernels, card
     if not same:
         raise AssertionError("the overlay on the card differs from the CPU copy's")
 
-    if missing:
-        print(f"native loader on Adam7 PNGs: skipped, png.h or jpeglib.h missing on this host "
-              f"({' '.join(missing.split())[:160]}); the CLI here reads through the Python "
-              f"decoder", flush=True)
-    else:
-        with tempfile.TemporaryDirectory() as d:
-            for i, f in enumerate(frames_np[:4]):
-                _png_variant(os.path.join(d, f"{i:06d}.png"), f, palette=i % 2 == 0)
-            with native_loader.NativeDataset(d) as ds:
-                got = list(ds)
-            paths = list_image_paths(d)
-            if [i for i, _ in got] != [0, 1, 2, 3] or any(
-                    not np.array_equal(f, load_frame(p)) for (_, f), p in zip(got, paths)):
-                raise AssertionError("the native loader does not read Adam7 PNGs as the Python "
-                                     "reader does")
-        print("native loader on Adam7 PNGs: 4 frames (Adam7 gray, palette) equal the Python "
-              "reader's", flush=True)
+    with tempfile.TemporaryDirectory() as d:
+        for i, f in enumerate(frames_np[:4]):
+            _png_variant(os.path.join(d, f"{i:06d}.png"), f, palette=i % 2 == 0)
+        with native_loader.NativeDataset(d) as ds:
+            got = list(ds)
+        paths = list_image_paths(d)
+        if [i for i, _ in got] != [0, 1, 2, 3] or any(
+                not np.array_equal(f, load_frame(p)) for (_, f), p in zip(got, paths)):
+            raise AssertionError("the native loader does not read Adam7 PNGs as the Python "
+                                 "reader does")
+    print("native loader on Adam7 PNGs: 4 frames (Adam7 gray, palette) equal the Python "
+          "reader's", flush=True)
     return launches
 
 
@@ -1067,9 +1055,10 @@ def _png_variant(path, img, palette: bool) -> None:
 def _variants_phase(frames_np, kernels, card):
     """Phase 4f: the frames as baseline JPEG (encode_gray) and as palette
     and Adam7 PNGs; each directory through load_frame (timed),
-    PrefetchLoader(use_native=False) onto the card and the CLI (counted),
-    against the frames they hold and the CLI's runner on those frames in
-    memory. Returns {path: launches}."""
+    PrefetchLoader onto the card (the Python reader, then the native
+    loader) and the CLI (counted, through the native loader), against
+    the frames they hold and the CLI's runner on those frames in memory.
+    Returns {path: launches}."""
     n = len(frames_np)
     want = {"JPEG": [roundtrip_gray(f, VARIANT_QUALITY) for f in frames_np],
             "palette/Adam7 PNG": list(frames_np)}
@@ -1093,13 +1082,16 @@ def _variants_phase(frames_np, kernels, card):
             ms = (time.perf_counter() - t0) * 1e3 / len(paths)
             if len(decoded) != n or any(not np.array_equal(a, b) for a, b in zip(decoded, frames)):
                 raise AssertionError(f"{fmt}: load_frame does not give the frames written")
-            loader = PrefetchLoader(paths, device="cuda", use_native=False)
-            got = [(i, t) for i, _, t in loader]
-            if ([i for i, _ in got] != list(range(n)) or any(
-                    t.device.type != "cuda" or not np.array_equal(t.cpu().numpy(), f)
-                    for (_, t), f in zip(got, frames))):
-                raise AssertionError(f"{fmt}: PrefetchLoader(use_native=False) skipped or "
-                                     f"changed frames: {[i for i, _ in got]}")
+            for use_native in (False, True):
+                loader = PrefetchLoader(paths, device="cuda", use_native=use_native)
+                got = [(i, t) for i, _, t in loader]
+                if (loader.decoder != ("native" if use_native else "python")
+                        or [i for i, _ in got] != list(range(n)) or any(
+                        t.device.type != "cuda" or not np.array_equal(t.cpu().numpy(), f)
+                        for (_, t), f in zip(got, decoded))):
+                    raise AssertionError(f"{fmt}: PrefetchLoader(use_native={use_native}) "
+                                         f"({loader.decoder}) skipped or changed frames: "
+                                         f"{[i for i, _ in got]}")
             out_dir = os.path.join(root, "out_" + os.path.basename(d))
             _reset(kernels)
             text = io.StringIO()
@@ -1116,36 +1108,34 @@ def _variants_phase(frames_np, kernels, card):
                   f"{f', quality {VARIANT_QUALITY}' if fmt == 'JPEG' else ''}): load_frame "
                   f"{ms:.1f} ms per decoded frame (host); all {n} equal to "
                   f"{'roundtrip_gray of the originals' if fmt == 'JPEG' else 'the originals'}; "
-                  f"PrefetchLoader(use_native=False) yields all {n} on the card; the CLI exit "
+                  f"PrefetchLoader yields all {n} on the card through the Python reader and "
+                  f"through the native loader, each frame the Python reader's; the CLI exit "
                   f"{rc} ({decoder}), launches {c}, its {len(cli_t)} positions against "
                   f"run_sequence_scan on the frames in memory: max diff {diff:.3e} (bar "
                   f"{MAX_STREAM_POS_DIFF}) [{card}]", flush=True)
             if (rc != 0 or len(cli_t) != n or not diff <= MAX_STREAM_POS_DIFF
+                    or decoder != "Decoder: native"
                     or c["select_maps"] != n or c["extract_patches"] != n):
                 raise AssertionError(f"{fmt}: the CLI run failed its checks")
     return counts
 
 
 def _native_build():
-    """Phase 2's half for the native loader: where the host compiler finds
-    png.h and jpeglib.h, build it (a failed build raises with g++'s
-    output) and return None; else print one line with the compiler's
-    message and return it."""
-    missing = native_loader.missing_headers()
-    if missing:
-        print(f"native loader: png.h or jpeglib.h missing on this host, so it is not built "
-              f"and the Python decoder runs: {' '.join(missing.split())}", flush=True)
-        return missing
+    """Phase 2's half for the native loader: build it with g++ from csrc's
+    sources, linking pthread alone (a failed build raises with g++'s
+    output), and print the seconds, the libraries and the path."""
+    libs = [a for a in native_loader.build_command("") if a.startswith("-l")]
+    if libs != ["-lpthread"]:
+        raise AssertionError(f"the native loader's build links {libs}, not pthread alone")
     t0 = time.perf_counter()
     native_loader.get_lib()
-    print(f"native loader: built in {time.perf_counter() - t0:.2f} s (g++, beside nvcc) -> "
-          f"{native_loader.library_path()}", flush=True)
-    return None
+    print(f"native loader: built in {time.perf_counter() - t0:.2f} s (g++ {' '.join(libs)}, no "
+          f"libpng, libjpeg or zlib; beside nvcc) -> {native_loader.library_path()}", flush=True)
 
 
-def _ingest_phase(cfg, missing, kernels, card):
+def _ingest_phase(cfg, kernels, card):
     """The ingest path on bench.py's 64 frames as Paeth PNG files: the
-    native loader's decode and pack (unless `missing` headers), PrefetchLoader
+    native loader's decode and pack, PrefetchLoader
     onto the card, the streamed runner (counted) against the batched one,
     B1 and B2 at the streamed chunks' shapes, then io_bench. Returns
     {path: launches}."""
@@ -1156,23 +1146,21 @@ def _ingest_phase(cfg, missing, kernels, card):
         for i, f in enumerate(arr):
             write_png(os.path.join(d, f"{i:06d}.png"), f, filter_type=PAETH)
         paths = list_image_paths(d)
-        if not missing:
-            with native_loader.NativeDataset(d, n_threads=4, depth=8) as ds:
-                got = list(ds)
-            if [i for i, _ in got] != list(range(INGEST_T)) or not np.array_equal(
-                    np.stack([f for _, f in got]), arr):
-                raise AssertionError("NativeDataset's frames differ from the written ones")
-            pack = os.path.join(d, "seq.vobin")
-            n = native_loader.pack_dataset(d, pack)
-            with native_loader.PackedSequence(pack) as ps:
-                if n != INGEST_T or not np.array_equal(ps.read(), arr):
-                    raise AssertionError("the packed sequence does not read back its frames")
-            print(f"ingest: NativeDataset == the {INGEST_T} written Paeth frames, in order; "
-                  f"the .vobin pack reads them back", flush=True)
+        with native_loader.NativeDataset(d, n_threads=4, depth=8) as ds:
+            got = list(ds)
+        if [i for i, _ in got] != list(range(INGEST_T)) or not np.array_equal(
+                np.stack([f for _, f in got]), arr):
+            raise AssertionError("NativeDataset's frames differ from the written ones")
+        pack = os.path.join(d, "seq.vobin")
+        n = native_loader.pack_dataset(d, pack)
+        with native_loader.PackedSequence(pack) as ps:
+            if n != INGEST_T or not np.array_equal(ps.read(), arr):
+                raise AssertionError("the packed sequence does not read back its frames")
+        print(f"ingest: NativeDataset == the {INGEST_T} written Paeth frames, in order; "
+              f"the .vobin pack reads them back", flush=True)
         loader = PrefetchLoader(paths, device="cuda")
-        want = "python" if missing else "native"
         got = [(i, t) for i, _, t in loader]
-        if (loader.decoder != want or [i for i, _ in got] != list(range(INGEST_T))
+        if (loader.decoder != "native" or [i for i, _ in got] != list(range(INGEST_T))
                 or any(t.device != frames.device for _, t in got)
                 or not torch.equal(torch.stack([t for _, t in got]), frames)):
             raise AssertionError(f"PrefetchLoader ({loader.decoder} decoder) did not yield the "
@@ -1189,12 +1177,7 @@ def _ingest_phase(cfg, missing, kernels, card):
                                              depth=io_bench.DECODE_DEPTH) as ds:
                 yield from io_bench.chunks_of(ds, INGEST_T)
 
-        def python_chunks():
-            yield from io_bench.chunks_of(((i, load_frame(p)) for i, p in enumerate(paths)),
-                                           INGEST_T)
-
-        chunked = {f"{want} decoder's {INGEST_T}-frame chunks": (
-                       python_chunks if missing else native_chunks),
+        chunked = {f"native decoder's {INGEST_T}-frame chunks": native_chunks,
                    f"{INGEST_HOST_CHUNK}-frame host chunks": lambda: (
                        arr[i:i + INGEST_HOST_CHUNK] for i in range(0, INGEST_T, INGEST_HOST_CHUNK))}
         for name, chunks in chunked.items():
@@ -1224,8 +1207,13 @@ def _ingest_phase(cfg, missing, kernels, card):
                     frames[a:a + runner.STREAM_FRAME_CHUNK], cfg.orb, card)
     del frames
     t0 = time.perf_counter()
-    io_bench.main([])  # prints its rows, tagged with the card
+    rows = io_bench.main([])  # prints its rows, tagged with the card
     print(f"io_bench: {time.perf_counter() - t0:.1f} s", flush=True)
+    native_rows = ("decode_only_fps", "e2e_png_fps", "e2e_packed_fps", "e2e_decode_fps")
+    if rows["native"] != "built" or not all(rows[k] is not None and rows[k] > 0
+                                            for k in native_rows):
+        raise AssertionError(f"io_bench's native rows are not all measured: "
+                             f"{ {k: rows[k] for k in ('native', *native_rows)} }")
     return runs
 
 
@@ -1989,7 +1977,7 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
     with concurrent.futures.ThreadPoolExecutor(1) as ex:
         native = ex.submit(_native_build)
         _build.library()
-        native_missing = native.result()
+        native.result()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {_build.BuildInfo.seconds:.2f} s) "
           f"-> {_build.BuildInfo.path}", flush=True)
     print(_build.BuildInfo.log.strip(), flush=True)
@@ -2146,7 +2134,7 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
 
     # 4a. bench.py's harness (tools/bench), counted, beside no host work
     t0 = time.perf_counter()
-    bench_counts = _bench_phase(native_missing, kernels, card)
+    bench_counts = _bench_phase(kernels, card)
     print(f"phase bench: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
     # 4b. the streaming path, counted: VisualOdometry frame by frame
@@ -2163,14 +2151,14 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
         seq_dir = _write_kitti_tree(root, frames_np[:CLI_T], Rs_gt[:CLI_T], ts_gt[:CLI_T], K_gt)
         cli_counts, cli_t, cli_ms = _cli_phase(seq_dir, CLI_T, K_gt, kernels, card)
         t0 = time.perf_counter()
-        viewer_counts = _viewer_phase(seq_dir, frames_np[:CLI_T], cfg, cli_t, cli_ms,
-                                      native_missing, kernels, card)
+        viewer_counts = _viewer_phase(seq_dir, frames_np[:CLI_T], cfg, cli_t, cli_ms, kernels,
+                                      card)
         print(f"phase CLI default run: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4e. the ingest path: native decode, PrefetchLoader, the streamed
     # runner (counted), io_bench
     t0 = time.perf_counter()
-    ingest_counts = _ingest_phase(cfg, native_missing, kernels, card)
+    ingest_counts = _ingest_phase(cfg, kernels, card)
     print(f"phase ingest: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 4f. JPEG and PNG variants from files: the Python reader, PrefetchLoader

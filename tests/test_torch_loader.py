@@ -19,8 +19,9 @@ loader:
   - the CLI runs a JPEG directory through the native loader;
   - tools/io_bench gives every row at a small size.
 
-The native tests skip only where png.h or jpeglib.h is missing; a build
-that fails there is a failure.
+The native loader needs g++ and nothing else: its tests never skip, and
+a build that fails is a failure. The build command names no library but
+pthread, and no source in csrc/ includes png.h, jpeglib.h or zlib.h.
 """
 
 import os
@@ -34,8 +35,10 @@ from PIL import Image
 
 from tpu_vo.io import dataset as jdataset, loader as jloader
 from tpu_vo_torch import cli
+from tpu_vo_torch.configs import ORBConfig, RansacConfig, VOConfig
 from tpu_vo_torch.io import dataset, loader, native_loader
 from tpu_vo_torch.io.kitti import load_kitti_poses
+from tpu_vo_torch.pipeline import runner
 from tpu_vo_torch.tools import io_bench
 from tpu_vo_torch.utils.synthetic import make_sequence
 
@@ -58,12 +61,25 @@ def _one_thread():
 
 @pytest.fixture(scope="module")
 def native():
-    """The native library, built here if need be; skips only where the
-    compiler finds no png.h or jpeglib.h."""
-    missing = native_loader.missing_headers()
-    if missing:
-        pytest.skip(f"libpng or libjpeg headers missing: {missing}")
+    """The native library, built here if need be."""
     return native_loader.get_lib()
+
+
+def test_build_needs_no_image_or_compression_library():
+    """g++ links pthread alone, every file the build reads is hashed into
+    the library's name, and no source includes a codec library's header."""
+    cmd = native_loader.build_command("out.so")
+    assert [a for a in cmd if a.startswith("-l")] == ["-lpthread"]
+    compiled = {a for a in cmd if a.endswith(".cpp")}
+    assert compiled == {p for p in native_loader.sources() if p.endswith(".cpp")}
+    csrc = native_loader.CSRC
+    assert set(native_loader.sources()) >= {os.path.join(csrc, n) for n in os.listdir(csrc)
+                                            if n.endswith((".cpp", ".h"))}
+    for name in os.listdir(csrc):
+        with open(os.path.join(csrc, name)) as f:
+            includes = [ln for ln in f if ln.lstrip().startswith("#include")]
+        for header in ("png.h", "jpeglib.h", "zlib.h"):
+            assert not any(header in ln for ln in includes), (name, header)
 
 
 @pytest.fixture(scope="module")
@@ -253,8 +269,6 @@ def test_prefetch_loader_matches_tpu_vo(frames_dir, use_native):
     never starts the JAX package's own build of the library."""
     path, _ = frames_dir
     paths = dataset.list_image_paths(path)
-    if use_native and native_loader.missing_headers():
-        pytest.skip("libpng or libjpeg headers missing")
     ref = [(i, p, np.asarray(f)) for i, p, f in jloader.PrefetchLoader(paths, use_native=False)]
     pl = loader.PrefetchLoader(paths, depth=3, device="cpu", use_native=use_native)
     got = [(i, p, t.numpy()) for i, p, t in pl]
@@ -291,5 +305,28 @@ def test_io_bench_rows_on_the_cpu(native):
     assert rows["native"] == "built" and rows["device"] == "cpu"
     for k in ("upload_only_mbps", "upload_only_fps", "compute_only_fps",
               "streamed_host_chunks_fps", "decode_only_fps", "decode_only_python_fps",
+              "decode_only_1thread_fps", "native_paeth_ms", "native_jpeg_ms",
               "e2e_png_fps", "e2e_packed_fps", "e2e_decode_fps", "e2e_png_python_fps"):
         assert np.isfinite(rows[k]) and rows[k] > 0, k
+
+
+@pytest.mark.parametrize("T", [16, 12])
+def test_e2e_decode_launches_counts_each_stage_1_call(native, tmp_path, monkeypatch, T):
+    """e2e_decode_fps makes e2e_decode_launches(T) stage-1 calls, each one
+    launch of B1 and of B2 on the card: 8 frames a call where 8 divides
+    the chunk (T 16), else the whole chunk (T 12)."""
+    for i, f in enumerate(make_sequence(n_frames=T, width=96, height=72, seed=2)[0]):
+        dataset.write_png(str(tmp_path / f"{i:06d}.png"), f)
+    calls = []
+    detect = runner.detect_and_compute
+
+    def counted(frames, ocfg):
+        calls.append(frames.shape[0])
+        return detect(frames, ocfg)
+
+    monkeypatch.setattr(runner, "detect_and_compute", counted)
+    cfg = VOConfig(image_width=96, image_height=72, orb=ORBConfig(n_features=50, n_levels=1),
+                   ransac=RansacConfig(max_iters=8))
+    assert io_bench.e2e_decode_fps(str(tmp_path), T, cfg, torch.device("cpu")) > 0
+    assert len(calls) == io_bench.e2e_decode_launches(T)
+    assert set(calls) == ({8} if T % 8 == 0 else {T})

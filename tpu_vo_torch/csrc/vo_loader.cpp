@@ -1,21 +1,22 @@
 // vo_loader.cpp — native image loader of tpu_vo_torch (io/native_loader.py).
 //
-// A copy of the JAX package's native/vo_loader.cpp with one repair: an
-// Adam7-interlaced PNG is read whole (png_set_interlace_handling, then
-// png_read_image into one buffer) before its rows are converted to gray.
-// The original reads row by row without interlace handling, so an
-// interlaced file comes back as pass data and libpng stops with "IDAT: Too
-// much image data"; here such a file decodes to the pixels PIL gives.
-//
-// A C++17 shared library that scans datasets, decodes PNG/JPEG on a
-// worker pool into an ordered ring buffer, converts to grayscale with the
-// exact BT.601 fixed-point arithmetic of image/color, and serves frames to
+// The port's counterpart of the JAX package's native/vo_loader.cpp: a
+// C++17 shared library that scans datasets, decodes PNG/JPEG on a worker
+// pool into an ordered ring buffer, converts to grayscale with the exact
+// BT.601 fixed-point arithmetic of image/color, and serves frames to
 // Python through a minimal C ABI (ctypes — no pybind dependency). Also
 // reads and writes the packed ".vobin" sequence format (decode once,
 // stream raw frames via mmap).
 //
-// Build: g++ -O3 -std=c++17 -shared -fPIC vo_loader.cpp -o libvo_loader.so
-//        -lpng -ljpeg -lz -lpthread
+// The decoders are this directory's own (codecs.h: inflate.cpp,
+// png_decode.cpp, jpeg_decode.cpp), so the library needs no image or
+// compression library. They give the pixels that the original's libpng
+// and libjpeg calls give, and an Adam7-interlaced PNG is read whole, which
+// the original cannot do (libpng stops there with "IDAT: Too much image
+// data"). JPEG decodes as io/jpeg.py does: baseline only.
+//
+// Build: g++ -O3 -std=c++17 -shared -fPIC vo_loader.cpp inflate.cpp
+//        png_decode.cpp jpeg_decode.cpp -o libvo_loader.so -lpthread
 
 #include <algorithm>
 #include <atomic>
@@ -27,6 +28,7 @@
 #include <map>
 #include <memory>
 #include <mutex>
+#include <new>
 #include <string>
 #include <thread>
 #include <vector>
@@ -36,21 +38,11 @@
 #include <sys/stat.h>
 #include <unistd.h>
 
-#include <jpeglib.h>
-#include <png.h>
+#include "codecs.h"
 
 namespace fs = std::filesystem;
 
 namespace {
-
-// BT.601 grayscale in 15-bit fixed point; matches tpu_vo.image.color and
-// cv2 5.0 exactly: y = (B*3735 + G*19235 + R*9798 + 16384) >> 15.
-inline uint8_t rgb_to_gray(uint8_t r, uint8_t g, uint8_t b) {
-  return static_cast<uint8_t>(
-      (static_cast<uint32_t>(b) * 3735u + static_cast<uint32_t>(g) * 19235u +
-       static_cast<uint32_t>(r) * 9798u + 16384u) >>
-      15);
-}
 
 struct Image {
   int width = 0;
@@ -67,108 +59,37 @@ bool has_ext(const std::string &path, const char *ext) {
   return tail == ext;
 }
 
-Image decode_png(const std::string &path) {
-  Image out;
+bool read_file(const std::string &path, std::vector<uint8_t> &data) {
   FILE *fp = std::fopen(path.c_str(), "rb");
-  if (!fp) return out;
-  png_structp png =
-      png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-  png_infop info = png ? png_create_info_struct(png) : nullptr;
-  if (!png || !info || setjmp(png_jmpbuf(png))) {
-    if (png) png_destroy_read_struct(&png, info ? &info : nullptr, nullptr);
-    std::fclose(fp);
-    return out;
+  if (!fp) return false;
+  bool ok = std::fseek(fp, 0, SEEK_END) == 0;
+  const long size = ok ? std::ftell(fp) : -1;
+  ok = size >= 0 && std::fseek(fp, 0, SEEK_SET) == 0;
+  if (ok) {
+    data.resize(static_cast<size_t>(size));
+    ok = std::fread(data.data(), 1, data.size(), fp) == data.size();
   }
-  png_init_io(png, fp);
-  png_read_info(png, info);
-  png_uint_32 w, h;
-  int bit_depth, color_type;
-  png_get_IHDR(png, info, &w, &h, &bit_depth, &color_type, nullptr, nullptr,
-               nullptr);
-  // Normalize to 8-bit RGB or gray.
-  if (bit_depth == 16) png_set_strip_16(png);
-  if (color_type == PNG_COLOR_TYPE_PALETTE) png_set_palette_to_rgb(png);
-  if (color_type == PNG_COLOR_TYPE_GRAY && bit_depth < 8)
-    png_set_expand_gray_1_2_4_to_8(png);
-  if (png_get_valid(png, info, PNG_INFO_tRNS)) png_set_tRNS_to_alpha(png);
-  if (color_type & PNG_COLOR_MASK_ALPHA) png_set_strip_alpha(png);
-  // Adam7: libpng fills each row over 7 passes, so the whole image is read
-  // before any row is converted.
-  png_set_interlace_handling(png);
-  png_read_update_info(png, info);
-  color_type = png_get_color_type(png, info);
-
-  const bool is_gray = (color_type == PNG_COLOR_TYPE_GRAY);
-  const size_t rowbytes = png_get_rowbytes(png, info);
-  std::vector<uint8_t> pixels(rowbytes * h);
-  std::vector<png_bytep> rows(h);
-  for (png_uint_32 y = 0; y < h; ++y) rows[y] = pixels.data() + y * rowbytes;
-  png_read_image(png, rows.data());
-  out.width = static_cast<int>(w);
-  out.height = static_cast<int>(h);
-  out.gray.resize(w * h);
-  for (png_uint_32 y = 0; y < h; ++y) {
-    const uint8_t *row = rows[y];
-    uint8_t *dst = out.gray.data() + y * w;
-    if (is_gray) {
-      std::memcpy(dst, row, w);
-    } else {
-      for (png_uint_32 x = 0; x < w; ++x)
-        dst[x] = rgb_to_gray(row[3 * x], row[3 * x + 1], row[3 * x + 2]);
-    }
-  }
-  png_read_end(png, nullptr);
-  png_destroy_read_struct(&png, &info, nullptr);
   std::fclose(fp);
-  out.ok = true;
-  return out;
-}
-
-Image decode_jpeg(const std::string &path) {
-  Image out;
-  FILE *fp = std::fopen(path.c_str(), "rb");
-  if (!fp) return out;
-  jpeg_decompress_struct cinfo;
-  jpeg_error_mgr jerr;
-  cinfo.err = jpeg_std_error(&jerr);
-  jpeg_create_decompress(&cinfo);
-  jpeg_stdio_src(&cinfo, fp);
-  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
-    jpeg_destroy_decompress(&cinfo);
-    std::fclose(fp);
-    return out;
-  }
-  jpeg_start_decompress(&cinfo);
-  const int w = cinfo.output_width;
-  const int h = cinfo.output_height;
-  const int c = cinfo.output_components;
-  out.width = w;
-  out.height = h;
-  out.gray.resize(static_cast<size_t>(w) * h);
-  std::vector<uint8_t> row(static_cast<size_t>(w) * c);
-  uint8_t *rowp = row.data();
-  for (int y = 0; y < h; ++y) {
-    jpeg_read_scanlines(&cinfo, &rowp, 1);
-    uint8_t *dst = out.gray.data() + static_cast<size_t>(y) * w;
-    if (c == 1) {
-      std::memcpy(dst, row.data(), w);
-    } else {
-      for (int x = 0; x < w; ++x)
-        dst[x] = rgb_to_gray(row[c * x], row[c * x + 1], row[c * x + 2]);
-    }
-  }
-  jpeg_finish_decompress(&cinfo);
-  jpeg_destroy_decompress(&cinfo);
-  std::fclose(fp);
-  out.ok = true;
-  return out;
+  return ok;
 }
 
 Image decode(const std::string &path) {
-  if (has_ext(path, ".png")) return decode_png(path);
-  if (has_ext(path, ".jpg") || has_ext(path, ".jpeg"))
-    return decode_jpeg(path);
-  return {};
+  Image out;
+  const bool png = has_ext(path, ".png");
+  if (!png && !has_ext(path, ".jpg") && !has_ext(path, ".jpeg")) return out;
+  try {
+    std::vector<uint8_t> data;
+    vo::GrayImage img;
+    if (!read_file(path, data) || !(png ? vo::decode_png(data.data(), data.size(), img)
+                                        : vo::decode_jpeg(data.data(), data.size(), img)))
+      return out;
+    out.width = img.width;
+    out.height = img.height;
+    out.gray = std::move(img.pixels);
+    out.ok = true;
+  } catch (const std::bad_alloc &) {  // a frame too large to hold is unreadable
+  }
+  return out;
 }
 
 // --------------------------------------------------------------------------

@@ -3,7 +3,7 @@
 The reference loads and processes frames strictly one after the other
 (main.cpp:128-193: imread, process, render). Here the decode of frame
 i + k and its upload overlap the work on frame i: PrefetchLoader decodes
-on the native loader's threads (io/native_loader, libpng and libjpeg)
+on the native loader's threads (io/native_loader, its codecs in csrc/)
 when it can, else on one Python thread (io/dataset.load_frame), and
 uploads through pipeline/upload.upload_ahead (pinned ring, side stream).
 load_sequence_array stages a whole sequence on the device at once.

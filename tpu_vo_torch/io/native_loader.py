@@ -1,23 +1,27 @@
 """ctypes binding of the native C++ image loader (port of
 tpu_vo/io/native_loader.py).
 
-csrc/vo_loader.cpp decodes PNG and JPEG on a pool of threads (libpng,
-libjpeg) into an ordered ring, converts color to gray with the exact
-BT.601 fixed-point arithmetic of image/color, and reads and writes packed
-.vobin sequences (decode once, then mmap). It is the port's own copy of
-the JAX package's native/vo_loader.cpp, repaired to read Adam7-interlaced
-PNGs whole: they decode to PIL's pixels (tpu_vo's Python route), where
-tpu_vo's native route fails on them ("IDAT: Too much image data"). The library is built on first
-use, never at import, with g++ into tpu_vo_torch/_build/, named by a hash
-of the source and the flags, through ops/_build.build_once: concurrent
-first uses in several processes build it once and never load a
-half-written file.
+csrc/vo_loader.cpp decodes PNG and JPEG on a pool of threads into an
+ordered ring, converts color to gray with the exact BT.601 fixed-point
+arithmetic of image/color, and reads and writes packed .vobin sequences
+(decode once, then mmap). It is the port's counterpart of the JAX
+package's native/vo_loader.cpp with the codecs in csrc/ itself
+(inflate.cpp, png_decode.cpp, jpeg_decode.cpp; codecs.h), so that it
+builds with g++ and nothing but the C++ standard library and pthreads.
+A PNG decodes to libpng's pixels under the original's transforms, and an
+Adam7-interlaced one is read whole (tpu_vo's native route fails on it:
+"IDAT: Too much image data"); a JPEG decodes as io/jpeg.decode does
+(baseline only: a progressive file, which libjpeg reads, is unreadable
+here as on the Python route). The library is built on first use, never
+at import, with g++ into tpu_vo_torch/_build/, named by a hash of every
+source and the flags, through ops/_build.build_once: concurrent first
+uses in several processes build it once and never load a half-written
+file.
 
   available()            True once the library is loaded; False only
                          after a failed build, whose output
                          unavailable_reason() then returns;
-  missing_headers()      the compiler's message when png.h or jpeglib.h
-                         is missing (None when both are there);
+  build_command(out)     the g++ command that builds the library into out;
   NativeDataset(path, n_threads=4, depth=8)
                          a directory's sorted .png/.jpg/.jpeg frames:
                          read(i), ordered iteration of (i, frame) that
@@ -32,19 +36,21 @@ import ctypes
 import hashlib
 import os
 import subprocess
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from tpu_vo_torch.ops._build import build_once
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "csrc", "vo_loader.cpp")
+CSRC = os.path.join(_PKG, "csrc")
+SRC = os.path.join(CSRC, "vo_loader.cpp")
+CODEC_SOURCES = ("inflate.cpp", "png_decode.cpp", "jpeg_decode.cpp")
+CODEC_HEADERS = ("codecs.h",)
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
-LIBS = ("-lpng", "-ljpeg", "-lz", "-lpthread")
-HEADERS = ("png.h", "jpeglib.h")
+LIBS = ("-lpthread",)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}    # loaded libraries by path
 _ERRORS: Dict[str, str] = {}          # failed builds' output by path
@@ -53,29 +59,29 @@ _I = ctypes.c_int
 _I64 = ctypes.c_int64
 
 
+def sources() -> Tuple[str, ...]:
+    """Every file the build reads: the loader, then the codecs' sources
+    and header."""
+    return (SRC, *(os.path.join(CSRC, name) for name in CODEC_SOURCES + CODEC_HEADERS))
+
+
+def build_command(out: str) -> List[str]:
+    """g++ with the flags, the loader's and the codecs' sources, and LIBS."""
+    return [CXX, *CXX_FLAGS, SRC, *(os.path.join(CSRC, name) for name in CODEC_SOURCES),
+            "-o", out, *LIBS]
+
+
 def library_path() -> str:
-    """Where the library of the current source and flags lives."""
+    """Where the library of the current sources and flags lives."""
     h = hashlib.sha256(" ".join((CXX, *CXX_FLAGS, *LIBS)).encode())
-    with open(SRC, "rb") as f:
-        h.update(f.read())
+    for path in sources():
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"libvo_loader_{h.hexdigest()[:16]}.so")
 
 
-def missing_headers() -> Optional[str]:
-    """None when the host compiler finds png.h and jpeglib.h, else its
-    message (g++ -x c++ -fsyntax-only on a file that includes both)."""
-    src = "".join(f"#include <{h}>\n" for h in HEADERS)
-    try:
-        out = subprocess.run([CXX, "-x", "c++", "-fsyntax-only", "-"], input=src,
-                             capture_output=True, text=True, timeout=60)
-    except OSError as exc:
-        return f"{CXX}: {exc}"
-    return None if out.returncode == 0 else (out.stderr.strip() or f"{CXX} failed")
-
-
 def _compile(tmp: str) -> None:
-    out = subprocess.run([CXX, *CXX_FLAGS, SRC, "-o", tmp, *LIBS], capture_output=True,
-                         text=True, timeout=300)
+    out = subprocess.run(build_command(tmp), capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise RuntimeError(f"building {SRC} failed:\n{out.stdout}{out.stderr}")
 

@@ -34,8 +34,8 @@ A stderr line names the baseline's source and its host, and on the card
 the card's name and power limit. e2e_decode_fps is bench.py's IO leg
 (:113-124, :140-191; tools/io_bench.e2e_decode_fps over the frames
 written as PNG by io/dataset.write_png); it is omitted where the native
-loader does not build (the card's host has no png.h), saying why on
-stderr, and omitted with a warning where the leg raises.
+loader's build failed, saying why on stderr, and omitted with a warning
+where the leg raises.
 
 main(argv=None, device=None, **sizes) returns the line's dict; last_run()
 returns the last timed call's poses and diagnostics, and the B1 and B2

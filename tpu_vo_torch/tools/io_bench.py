@@ -19,6 +19,10 @@ power limit:
       already on the device, frame_chunk 8, pair_chunk 9 (CUDA events);
   streamed_host_chunks_fps  run_sequence_streamed over decoded host chunks;
   decode_only_fps           the native loader alone (4 threads, depth 32);
+  decode_only_1thread_fps   the same on 1 thread;
+  native_paeth_ms, native_jpeg_ms  NativeDataset.read of one frame alone:
+      the first Paeth PNG, and the same frame as a quality-90 baseline
+      JPEG (io/jpeg.encode_gray);
   decode_only_python_fps    io/dataset.load_frame alone, on min(8, frames)
       frames;
   e2e_png_fps               native decode, upload and compute overlapped:
@@ -33,8 +37,8 @@ power limit:
 Device rows are medians of --reps runs after one warm-up; the streamed
 and e2e rows are host wall time, ending when the last pose is on the
 host. With --device cpu every row is host wall time on the CPU. Native
-rows are null, and `native` holds the reason, where the native loader
-does not build.
+rows are null, and `native` holds the reason, where the native loader's
+build failed.
 """
 
 from __future__ import annotations
@@ -54,8 +58,9 @@ import torch
 from tpu_vo_torch.configs import ORBConfig, RansacConfig, VOConfig
 from tpu_vo_torch.io import native_loader
 from tpu_vo_torch.io.dataset import list_image_paths, load_frame, write_png
-from tpu_vo_torch.pipeline.runner import (entry_device, run_sequence_batched,
-                                          run_sequence_streamed)
+from tpu_vo_torch.io.jpeg import encode_gray
+from tpu_vo_torch.pipeline.runner import (STREAM_FRAME_CHUNK, entry_device,
+                                          run_sequence_batched, run_sequence_streamed)
 from tpu_vo_torch.pipeline.upload import upload_ahead
 from tpu_vo_torch.utils.profiling import card, cuda_times
 from tpu_vo_torch.utils.synthetic import make_sequence
@@ -64,6 +69,7 @@ PAETH = 4
 COMPUTE_FRAME_CHUNK, COMPUTE_PAIR_CHUNK = 8, 9   # bench.py:66-67
 DECODE_THREADS, DECODE_DEPTH = 4, 32
 PYTHON_DECODE_FRAMES = 8
+JPEG_QUALITY = 90
 E2E_CHUNK, E2E_THREADS = 64, 8                    # bench.py:161, :173
 
 
@@ -101,8 +107,7 @@ def e2e_decode_fps(root: str, T: int, cfg: VOConfig, dev: torch.device) -> float
     in `root`: run_sequence_streamed over the native loader's chunks of
     min(64, T) frames (E2E_THREADS threads, depth DECODE_DEPTH), the
     larger of two runs after one warm-up, host wall time to the last
-    pose on the host. Each run launches B1 and B2 once a chunk
-    (e2e_decode_launches)."""
+    pose on the host. B1 and B2 launch as e2e_decode_launches says."""
     c = min(E2E_CHUNK, T)
     n = (T // c) * c
 
@@ -115,8 +120,25 @@ def e2e_decode_fps(root: str, T: int, cfg: VOConfig, dev: torch.device) -> float
 
 
 def e2e_decode_launches(T: int) -> int:
-    """B1's (and B2's) launches of one e2e_decode_fps call over T frames."""
-    return 3 * (T // min(E2E_CHUNK, T))
+    """B1's (and B2's) launches of one e2e_decode_fps call over T frames:
+    3 runs of T // c chunks of c = min(64, T) frames, each chunk
+    STREAM_FRAME_CHUNK frames a launch where that divides c, else one."""
+    c = min(E2E_CHUNK, T)
+    per_chunk = c // STREAM_FRAME_CHUNK if c % STREAM_FRAME_CHUNK == 0 else 1
+    return 3 * (T // c) * per_chunk
+
+
+def _frame_ms(root: str, reps: int) -> float:
+    """Median host ms of NativeDataset.read(0) on `root`'s first file,
+    after one read."""
+    with native_loader.NativeDataset(root, 1) as ds:
+        ds.read(0)
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            ds.read(0)
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def main(argv=None) -> dict:
@@ -201,17 +223,26 @@ def main(argv=None) -> dict:
 
         out["native"] = "built" if native_loader.available() else \
             native_loader.unavailable_reason()
-        rows = ("decode_only_fps", "e2e_png_fps", "e2e_packed_fps", "e2e_decode_fps")
+        rows = ("decode_only_fps", "decode_only_1thread_fps", "native_paeth_ms",
+                "native_jpeg_ms", "e2e_png_fps", "e2e_packed_fps", "e2e_decode_fps")
         out.update(dict.fromkeys(rows))
         if out["native"] == "built":
-            def decode_once() -> float:
-                with native_loader.NativeDataset(tmp, DECODE_THREADS, DECODE_DEPTH) as ds:
+            def decode_once(threads: int) -> float:
+                with native_loader.NativeDataset(tmp, threads, DECODE_DEPTH) as ds:
                     t0 = time.perf_counter()
                     n = sum(1 for _ in ds)
                     return n / (time.perf_counter() - t0)
 
-            out["decode_only_fps"] = statistics.median(decode_once()
-                                                       for _ in range(args.reps))
+            for key, threads in (("decode_only_fps", DECODE_THREADS),
+                                 ("decode_only_1thread_fps", 1)):
+                out[key] = statistics.median(decode_once(threads) for _ in range(args.reps))
+
+            jpeg_dir = os.path.join(tmp, "jpeg")
+            os.makedirs(jpeg_dir)
+            with open(os.path.join(jpeg_dir, "000000.jpg"), "wb") as f:
+                f.write(encode_gray(arr[0], JPEG_QUALITY))
+            for key, d in (("native_paeth_ms", tmp), ("native_jpeg_ms", jpeg_dir)):
+                out[key] = _frame_ms(d, args.reps)
 
             def e2e_png():
                 with native_loader.NativeDataset(tmp, DECODE_THREADS, DECODE_DEPTH) as ds:
