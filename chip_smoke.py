@@ -105,7 +105,15 @@ Phases, in order; any failure raises and the exit code is non-zero:
      the originals, each native frame the Python reader's frame of the
      same file, the CLI launches B1 and B2 once a frame, and its
      positions lie within 1e-4 of run_sequence_scan's on those frames in
-     memory with the CLI's configuration;
+     memory with the CLI's configuration; the same over a third
+     directory, the 8 committed progressive JPEG frames of the main path
+     (tpu_vo_torch/data/jpeg/progressive, PIL's gray q90 files), each
+     file's bytes and each decoded frame held to the sha256 in the
+     manifest (tpu_vo's decode); then each committed JPEG alone
+     (progressive frame 0, SOF9 and SOF10 4:2:0 RGB with restarts, a
+     Huffman 4:2:2 scan script with smoothing) through both readers,
+     held to the manifest, with the ms a frame of each route and kind
+     printed beside this call's baseline q90 file;
   5. drive the FAST-detect path at full width: the stage benchmark's
      ablation (tpu_vo_torch.tools.stage_bench) on 8 frames of 1241x376,
      counters reset just before; check that B3 launched exactly 4 times
@@ -286,6 +294,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import io
 import json
 import multiprocessing
@@ -433,8 +442,11 @@ C6_DECODE_T = 8  # corridor frames encoded and decoded to time the JPEG reader a
 C6_MAX_CORRIDOR_ATE = 0.01
 # The file-format phase (4f): the main path's first VARIANT_T frames as
 # baseline JPEG at VARIANT_QUALITY and as PNGs alternating 8-bit palette
-# and Adam7-interlaced gray
+# and Adam7-interlaced gray; the committed progressive and arithmetic-coded
+# JPEG files, each native decode timed as the median of JPEG_NATIVE_REPS
 VARIANT_T, VARIANT_QUALITY = 24, 90
+JPEG_DATA = os.path.join(HERE, "tpu_vo_torch", "data", "jpeg")
+JPEG_NATIVE_REPS = 5
 # Phase 5i: the parallel runners. A world of 1 on NCCL in this process,
 # then worlds of 2 and 4 gloo ranks sharing the card (NCCL refuses two
 # ranks on one card), each rank a tools/parallel_run process; PAR_REPS
@@ -1052,43 +1064,72 @@ def _png_variant(path, img, palette: bool) -> None:
                 + chunk(b"IDAT", zlib.compress(data)) + chunk(b"IEND", b""))
 
 
+def _frame_sha(frame) -> str:
+    return hashlib.sha256(np.ascontiguousarray(frame, np.uint8).tobytes()).hexdigest()
+
+
+def _committed_jpegs():
+    """tpu_vo_torch/data/jpeg's manifest entries, each file's bytes checked
+    against its sha256 (a mismatch raises), with the bytes under "data"."""
+    with open(os.path.join(JPEG_DATA, "manifest.json")) as f:
+        entries = json.load(f)["files"]
+    for e in entries:
+        with open(os.path.join(JPEG_DATA, e["file"]), "rb") as f:
+            e["data"] = f.read()
+        if hashlib.sha256(e["data"]).hexdigest() != e["sha256"]:
+            raise AssertionError(f"{e['file']}: its bytes are not the manifest's")
+    return entries
+
+
 def _variants_phase(frames_np, kernels, card):
-    """Phase 4f: the frames as baseline JPEG (encode_gray) and as palette
-    and Adam7 PNGs; each directory through load_frame (timed),
-    PrefetchLoader onto the card (the Python reader, then the native
-    loader) and the CLI (counted, through the native loader), against
-    the frames they hold and the CLI's runner on those frames in memory.
-    Returns {path: launches}."""
-    n = len(frames_np)
-    want = {"JPEG": [roundtrip_gray(f, VARIANT_QUALITY) for f in frames_np],
-            "palette/Adam7 PNG": list(frames_np)}
+    """Phase 4f: the frames as baseline JPEG (encode_gray), as palette and
+    Adam7 PNGs, and the committed progressive JPEG of the first 8; each
+    directory through load_frame (timed), PrefetchLoader onto the card (the
+    Python reader, then the native loader) and the CLI (counted, through
+    the native loader), against the frames they hold (by sha256) and the
+    CLI's runner on those frames in memory; then each committed JPEG alone
+    through both readers, timed against the baseline file. Returns {path:
+    launches}."""
+    committed = _committed_jpegs()
+    progressive = [e for e in committed if e["file"].startswith("progressive/")]
+    # (its frames' sha256, a writer of frame i into directory d)
+    formats = {
+        "JPEG": ([_frame_sha(roundtrip_gray(f, VARIANT_QUALITY)) for f in frames_np],
+                 lambda d, i: open(os.path.join(d, f"{i:06d}.jpg"), "wb").write(
+                     encode_gray(frames_np[i], VARIANT_QUALITY))),
+        "palette/Adam7 PNG": ([_frame_sha(f) for f in frames_np],
+                              lambda d, i: _png_variant(os.path.join(d, f"{i:06d}.png"),
+                                                        frames_np[i], palette=i % 2 == 0)),
+        "progressive JPEG": ([e["frame_sha256"] for e in progressive],
+                             lambda d, i: open(os.path.join(d, f"{i:06d}.jpg"), "wb").write(
+                                 progressive[i]["data"])),
+    }
     H_, W_ = frames_np[0].shape
     cli_cfg = cli.build_config(argparse.Namespace(features=1200, levels=8, ratio_test=False,
                                                   ransac_iters=256, scale=0.3), W_, H_)
-    counts = {}
+    counts, python_ms, dirs = {}, {}, {}
     with tempfile.TemporaryDirectory() as root:
-        for fmt, frames in want.items():
-            d = os.path.join(root, fmt.split("/")[0].split()[0].lower())
+        for fmt, (want, write) in formats.items():
+            if fmt == "progressive JPEG":
+                t_new = time.perf_counter()  # the committed JPEGs' share of the phase
+            n = len(want)
+            d = dirs[fmt] = os.path.join(root, fmt.split("/")[0].replace(" ", "_").lower())
             os.makedirs(d)
-            for i, f in enumerate(frames_np):
-                if fmt == "JPEG":
-                    with open(os.path.join(d, f"{i:06d}.jpg"), "wb") as fh:
-                        fh.write(encode_gray(f, VARIANT_QUALITY))
-                else:
-                    _png_variant(os.path.join(d, f"{i:06d}.png"), f, palette=i % 2 == 0)
+            for i in range(n):
+                write(d, i)
             paths = list_image_paths(d)
             t0 = time.perf_counter()
             decoded = [load_frame(p) for p in paths]
-            ms = (time.perf_counter() - t0) * 1e3 / len(paths)
-            if len(decoded) != n or any(not np.array_equal(a, b) for a, b in zip(decoded, frames)):
+            python_ms[fmt] = ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+            if [_frame_sha(f) for f in decoded] != want:
                 raise AssertionError(f"{fmt}: load_frame does not give the frames written")
             for use_native in (False, True):
                 loader = PrefetchLoader(paths, device="cuda", use_native=use_native)
                 got = [(i, t) for i, _, t in loader]
                 if (loader.decoder != ("native" if use_native else "python")
                         or [i for i, _ in got] != list(range(n)) or any(
-                        t.device.type != "cuda" or not np.array_equal(t.cpu().numpy(), f)
-                        for (_, t), f in zip(got, decoded))):
+                        t.device.type != "cuda" or _frame_sha(t.cpu().numpy()) != h
+                        for (_, t), h in zip(got, want))):
                     raise AssertionError(f"{fmt}: PrefetchLoader(use_native={use_native}) "
                                          f"({loader.decoder}) skipped or changed frames: "
                                          f"{[i for i, _ in got]}")
@@ -1102,21 +1143,52 @@ def _variants_phase(frames_np, kernels, card):
                             if ln.startswith("Decoder:")), "")
             with np.load(os.path.join(out_dir, "trajectory.npz")) as z:
                 cli_t = z["t"]
-            scan = runner.run_sequence_scan(torch.from_numpy(np.stack(frames)), cli_cfg, seed=0)
+            scan = runner.run_sequence_scan(torch.from_numpy(np.stack(decoded)), cli_cfg, seed=0)
             diff = float(np.abs(cli_t - scan.pose.t.double().cpu().numpy()).max())
+            held = {"JPEG": "roundtrip_gray of the originals", "palette/Adam7 PNG": "the originals",
+                    "progressive JPEG": "the manifest's frames (tpu_vo's decode)"}[fmt]
             print(f"{fmt} frames from files ({n} of {W_}x{H_}"
                   f"{f', quality {VARIANT_QUALITY}' if fmt == 'JPEG' else ''}): load_frame "
-                  f"{ms:.1f} ms per decoded frame (host); all {n} equal to "
-                  f"{'roundtrip_gray of the originals' if fmt == 'JPEG' else 'the originals'}; "
+                  f"{ms:.1f} ms per decoded frame (host); all {n} equal to {held} by sha256; "
                   f"PrefetchLoader yields all {n} on the card through the Python reader and "
-                  f"through the native loader, each frame the Python reader's; the CLI exit "
+                  f"through the native loader, each frame the same; the CLI exit "
                   f"{rc} ({decoder}), launches {c}, its {len(cli_t)} positions against "
-                  f"run_sequence_scan on the frames in memory: max diff {diff:.3e} (bar "
+                  f"run_sequence_scan on the decoded frames in memory: max diff {diff:.3e} (bar "
                   f"{MAX_STREAM_POS_DIFF}) [{card}]", flush=True)
             if (rc != 0 or len(cli_t) != n or not diff <= MAX_STREAM_POS_DIFF
                     or decoder != "Decoder: native"
                     or c["select_maps"] != n or c["extract_patches"] != n):
                 raise AssertionError(f"{fmt}: the CLI run failed its checks")
+        # each committed JPEG alone through both readers (the full-size
+        # Python decodes once each), beside this call's baseline q90 file
+        rows = {"baseline q90 (encode_gray)": (dirs["JPEG"], None, python_ms["JPEG"]),
+                "progressive, 8 frames": (dirs["progressive JPEG"], None,
+                                          python_ms["progressive JPEG"])}
+        for e in (e for e in committed if "/" not in e["file"]):
+            d = os.path.join(root, "alone_" + e["file"].replace(".jpg", ""))
+            os.makedirs(d)
+            path = os.path.join(d, e["file"])
+            with open(path, "wb") as f:
+                f.write(e["data"])
+            t0 = time.perf_counter()
+            frame = load_frame(path)
+            rows[f"{e['file']} ({e['sof']})"] = (d, e["frame_sha256"],
+                                                 (time.perf_counter() - t0) * 1e3)
+            if _frame_sha(frame) != e["frame_sha256"]:
+                raise AssertionError(f"{e['file']}: load_frame's frame is not the manifest's")
+        for name, (d, sha, _) in rows.items():
+            if sha is not None:
+                with native_loader.NativeDataset(d) as ds:
+                    if _frame_sha(ds.read(0)) != sha:
+                        raise AssertionError(f"{name}: the native frame is not the manifest's")
+        times = {name: (io_bench._frame_ms(d, JPEG_NATIVE_REPS), py)
+                 for name, (d, _, py) in rows.items()}
+    print(f"JPEG kinds, ms a {W_}x{H_} frame, native (NativeDataset.read of the first file alone, "
+          f"median of {JPEG_NATIVE_REPS}) / Python (load_frame, host clock): "
+          + "; ".join(f"{k} {nat:.2f} / {py:.1f}" for k, (nat, py) in times.items())
+          + f"; every committed file's bytes and both readers' frames equal the manifest's; the "
+          f"committed JPEGs took {time.perf_counter() - t_new:.1f} s of the phase [{card}]",
+          flush=True)
     return counts
 
 

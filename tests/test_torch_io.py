@@ -3,10 +3,11 @@ inputs the tests make themselves:
 
   - io/dataset: the PNG decoder against PIL and tpu_vo's PIL-based
     load_frame, bit for bit: gray, RGB and RGBA, each row filter forced,
-    and a file PIL writes with its own filters; what the reader refuses
-    (progressive, arithmetic-coded, 12-bit, lossless and CMYK JPEG, a
-    corrupt PNG) raises naming the file and the reason; listing and
-    timestamps;
+    and a file PIL writes with its own filters; a progressive JPEG and a
+    baseline one whose frame header says arithmetic-coded (SOF9) equal
+    tpu_vo's load_frame; what the reader refuses (12-bit, lossless,
+    hierarchical and CMYK JPEG, a corrupt PNG) raises naming the file and
+    the reason; listing and timestamps;
   - io/trajectory_io: the TUM and KITTI files equal tpu_vo's text, and
     read back;
   - image/color, utils/records, utils/metrics: equal to tpu_vo's.
@@ -77,15 +78,39 @@ def _with_sof(data: bytes, marker: int, precision: int = 8) -> bytes:
     return data[:i + 1] + bytes([marker]) + data[i + 2:i + 4] + bytes([precision]) + data[i + 5:]
 
 
+@pytest.mark.parametrize("name", ["a.jpg", "b.jpg"])
+def test_progressive_and_arithmetic_jpeg_match_tpu_vo(tmp_path, name):
+    """a.jpg is PIL's progressive file; b.jpg is a baseline file whose
+    frame header says SOF9, so its Huffman-coded data decodes as
+    arithmetic-coded data: equal to tpu_vo's load_frame where PIL reads
+    it, a ValueError naming the file where PIL raises."""
+    rgb = _image(3, h=21, w=19)
+    path = str(tmp_path / name)
+    if name == "a.jpg":
+        Image.fromarray(rgb).save(path, progressive=True)
+    else:
+        Image.fromarray(rgb).save(tmp_path / "base.jpg")
+        open(path, "wb").write(_with_sof(open(tmp_path / "base.jpg", "rb").read(), 0xC9))
+    for gray in (True, False):
+        try:
+            want = jdataset.load_frame(path, gray)
+        except OSError:
+            with pytest.raises(ValueError, match=name):
+                dataset.load_frame(path, gray)
+            continue
+        np.testing.assert_array_equal(dataset.load_frame(path, gray), want)
+
+
 def test_unsupported_images_raise_naming_the_file(tmp_path):
     rgb = _image(3, h=21, w=19)
     Image.fromarray(rgb).save(tmp_path / "base.jpg")
     base = open(tmp_path / "base.jpg", "rb").read()
-    cases = {"a.jpg": ("progressive", lambda p: Image.fromarray(rgb).save(p, progressive=True)),
-             "b.jpg": ("arithmetic", lambda p: open(p, "wb").write(_with_sof(base, 0xC9))),
-             "c.jpg": ("12-bit", lambda p: open(p, "wb").write(_with_sof(base, 0xC1, 12))),
+    cases = {"c.jpg": ("12-bit", lambda p: open(p, "wb").write(_with_sof(base, 0xC1, 12))),
              "e.jpg": ("lossless", lambda p: open(p, "wb").write(_with_sof(base, 0xC3))),
-             "f.jpg": ("CMYK", lambda p: Image.fromarray(_image(4), "CMYK").save(p))}
+             "f.jpg": ("CMYK", lambda p: Image.fromarray(_image(4), "CMYK").save(p)),
+             "g.jpg": ("hierarchical", lambda p: open(p, "wb").write(_with_sof(base, 0xC5))),
+             "h.jpg": ("lossless arithmetic", lambda p: open(p, "wb").write(_with_sof(base, 0xCB))),
+             "i.jpg": ("hierarchical", lambda p: open(p, "wb").write(_with_sof(base, 0xCD)))}
     for name, (why, write) in cases.items():
         path = str(tmp_path / name)
         write(path)

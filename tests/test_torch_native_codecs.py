@@ -14,10 +14,12 @@ bit, on a corpus made here from a numpy seed:
     4:2:2 and 4:2:0, optimised Huffman tables, a restart interval, sizes
     that leave MCU padding;
   - unreadable files (a truncated IDAT, a flipped Adler-32 byte, a bad
-    IDAT CRC, a progressive JPEG): skipped by NativeDataset's iteration,
-    None from its read, refused by io/dataset.load_frame; first in a
-    directory, NativeDataset raises FileNotFoundError and PrefetchLoader
-    falls back to the Python reader.
+    IDAT CRC, a lossless JPEG: a baseline file whose frame header says
+    SOF3): skipped by NativeDataset's iteration, None from its read,
+    refused by io/dataset.load_frame; first in a directory, NativeDataset
+    raises FileNotFoundError and PrefetchLoader falls back to the Python
+    reader. (Progressive and arithmetic-coded JPEG, which both readers
+    decode, are in tests/test_torch_jpeg_progressive.py.)
 
 The JAX half is built with g++ into a temporary directory once per module
 (never through tpu_vo.io.native_loader, which builds into the package
@@ -286,11 +288,14 @@ def test_jpeg_equals_the_jax_native_build(jax_native, tmp_path, name, kind, qual
 
 
 def _unreadable(kind, good_png):
-    """A file of `kind` made from a good PNG's bytes (or a progressive JPEG)."""
-    if kind == "progressive_jpeg":
+    """A file of `kind` made from a good PNG's bytes (or a lossless JPEG:
+    a baseline file's SOF0 marker made SOF3)."""
+    if kind == "lossless_jpeg":
         buf = io.BytesIO()
-        Image.fromarray(_pil_rgb(5, H, W)).save(buf, format="JPEG", quality=80, progressive=True)
-        return buf.getvalue(), ".jpg"
+        Image.fromarray(_pil_rgb(5, H, W)).save(buf, format="JPEG", quality=80)
+        data = buf.getvalue()
+        i = data.index(b"\xff\xc0")
+        return data[:i + 1] + b"\xc3" + data[i + 2:], ".jpg"
     i = good_png.index(b"IDAT") - 4
     n = struct.unpack(">I", good_png[i:i + 4])[0]
     z = good_png[i + 8:i + 8 + n]
@@ -303,7 +308,7 @@ def _unreadable(kind, good_png):
     return good_png[:i] + chunk + rest, ".png"
 
 
-UNREADABLE = ("truncated_idat", "flipped_adler32", "bad_idat_crc", "progressive_jpeg")
+UNREADABLE = ("truncated_idat", "flipped_adler32", "bad_idat_crc", "lossless_jpeg")
 
 
 def _good(seed):

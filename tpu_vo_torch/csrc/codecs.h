@@ -4,7 +4,8 @@
 //   zlib_inflate  RFC 1950/1951 (inflate.cpp);
 //   decode_png    PNG to 8-bit gray as libpng gives it with the
 //                 transforms the loader sets (png_decode.cpp);
-//   decode_jpeg   baseline JPEG to 8-bit gray as libjpeg-turbo gives it
+//   decode_jpeg   JPEG (sequential and progressive, Huffman and
+//                 arithmetic) to 8-bit gray as libjpeg-turbo gives it
 //                 with its defaults (jpeg_decode.cpp), the port of
 //                 io/jpeg.py's decoder.
 //
@@ -60,13 +61,16 @@ bool zlib_inflate(const uint8_t *src, size_t n, size_t expected,
 // data that does not inflate or is short, an unknown row filter, no IEND.
 bool decode_png(const uint8_t *data, size_t n, GrayImage &out);
 
-// A baseline JPEG file in memory to gray: SOF0/SOF1, 8-bit, Huffman, 1 or
-// 3 components with sampling factors up to 2x2, DQT of 8 or 16 bits,
-// DRI/RSTn; jidctint (JDCT_ISLOW) with the SIMD IDCT's saturation,
-// libjpeg-turbo's fancy h2v1, h1v2 and h2v2 upsampling, jdcolor.c's
-// YCbCr -> RGB, then rgb_to_gray; one component is Y as it is. False on
-// anything else (progressive, arithmetic, 12-bit, lossless, hierarchical,
-// 2 or 4 components) and on a corrupt file, as io/jpeg.decode raises.
+// A JPEG file in memory to gray: 8-bit SOF0/SOF1 (sequential Huffman),
+// SOF2 (progressive Huffman), SOF9 and SOF10 (sequential and progressive
+// arithmetic, with DAC), 1 or 3 components with sampling factors up to
+// 2x2, DQT of 8 or 16 bits, DRI/RSTn; libjpeg-turbo 3's block smoothing
+// where a progressive frame stops short of a coefficient's last bit;
+// jidctint (JDCT_ISLOW) with the SIMD IDCT's saturation, libjpeg-turbo's
+// fancy h2v1, h1v2 and h2v2 upsampling, jdcolor.c's YCbCr -> RGB, then
+// rgb_to_gray; one component is Y as it is. False on anything else
+// (12-bit, lossless, hierarchical, SOF11, SOF13-15, 2 or 4 components),
+// on a bad progression and on a corrupt file, as io/jpeg.decode raises.
 bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out);
 
 }  // namespace vo

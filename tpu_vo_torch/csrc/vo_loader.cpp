@@ -13,7 +13,8 @@
 // compression library. They give the pixels that the original's libpng
 // and libjpeg calls give, and an Adam7-interlaced PNG is read whole, which
 // the original cannot do (libpng stops there with "IDAT: Too much image
-// data"). JPEG decodes as io/jpeg.py does: baseline only.
+// data"). JPEG decodes as io/jpeg.py does: sequential and progressive,
+// Huffman- and arithmetic-coded.
 //
 // Build: g++ -O3 -std=c++17 -shared -fPIC vo_loader.cpp inflate.cpp
 //        png_decode.cpp jpeg_decode.cpp -o libvo_loader.so -lpthread

@@ -1,18 +1,28 @@
-"""Baseline JPEG in numpy, with libjpeg-turbo's integer arithmetic: the
-decoder that PIL and cv2 run with their defaults, and the gray encoder
-that cv2.imencode runs.
+"""JPEG in numpy, with libjpeg-turbo's integer arithmetic: the decoder
+that PIL and cv2 run with their defaults, and the gray encoder that
+cv2.imencode runs.
 
-- decode(data, path): SOF0 and SOF1 (8-bit, Huffman), DHT, DQT (8- and
-  16-bit tables), DRI with RSTn markers, interleaved and single-component
-  scans, 1 or 3 components with sampling factors up to 2x2, any size
-  (the MCU padding is cropped). Huffman decoding is bit-serial in Python
-  (a 9-bit lookahead table, libjpeg's maxcode search above it); all that
-  follows runs over every block at once: dequantisation, jidctint
+- decode(data, path): 8-bit SOF0 and SOF1 (sequential Huffman), SOF2
+  (progressive Huffman), SOF9 (sequential arithmetic) and SOF10
+  (progressive arithmetic); DHT (redefined between scans as progressive
+  files do), DAC, DQT (8- and 16-bit tables), DRI with RSTn markers,
+  interleaved and single-component scans, 1 or 3 components with
+  sampling factors up to 2x2, any size (the MCU padding is cropped).
+  Entropy decoding is serial in Python: Huffman symbols through a 9-bit
+  lookahead table and libjpeg's maxcode search above it; jdphuff.c's four
+  progressive scan kinds (DC first and refinement, AC first with EOB
+  runs, AC refinement with its correction bits); jdarith.c's QM decoder
+  (T.81 Table D.2, statistics by table, DAC's L, U and Kx). A bad
+  progression (jdphuff.c's fatal checks) raises; where libjpeg only
+  warns, decoding goes on. All that follows runs over every block at
+  once: in a progressive frame that stops short of a coefficient's last
+  bit, jdcoefct.c's block smoothing (libjpeg-turbo 3's 5x5 window, DC
+  interpolation where no low AC was sent); dequantisation, jidctint
   (JDCT_ISLOW), libjpeg-turbo's fancy h2v1, h1v2 and h2v2 upsampling
   (alternating biases, edges replicated) and jdcolor.c's table-driven
-  YCbCr -> RGB. What it does not decode (progressive, arithmetic coding,
-  12-bit, lossless, hierarchical, 2 or 4 components such as Adobe CMYK
-  and YCCK) raises a ValueError naming the file and the reason.
+  YCbCr -> RGB. What it does not decode (12-bit, lossless, hierarchical,
+  SOF11, SOF13-15, 2 or 4 components such as Adobe CMYK and YCCK) raises
+  a ValueError naming the file and the reason.
 - quant_table(quality): jpeg_set_quality's scaled luminance table
   (force_baseline).
 - fdct_islow, quantize (jcdctmgr.c's reciprocal multiply), idct_islow:
@@ -107,11 +117,50 @@ def _fix(x: float) -> int:
 
 
 LOOKAHEAD = 9  # bits of the Huffman lookahead table
+# the frames a decode reads, by SOF marker: (progressive, arithmetic-coded)
+_SOF_DECODED = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
+                0xC9: (False, True), 0xCA: (True, True)}
 # what a decode refuses, by SOF marker
-_SOF_REFUSED = {0xC2: "progressive", 0xC3: "lossless", 0xC5: "hierarchical",
-                0xC6: "hierarchical", 0xC7: "hierarchical", 0xC9: "arithmetic-coded",
-                0xCA: "arithmetic-coded", 0xCB: "arithmetic-coded", 0xCD: "arithmetic-coded",
-                0xCE: "arithmetic-coded", 0xCF: "arithmetic-coded"}
+_SOF_REFUSED = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
+                0xC7: "hierarchical", 0xCB: "lossless arithmetic-coded",
+                0xCD: "hierarchical", 0xCE: "hierarchical", 0xCF: "hierarchical"}
+# ITU-T T.81 Table D.2 (jaricom.c), by state: (Qe, Next_Index_LPS,
+# Next_Index_MPS, Switch_MPS); state 113 is T.851's fixed probability 0.5
+QE_TABLE = (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0))
+# the same packed as jaricom.c packs it: Qe << 16 | NMPS << 8 | switch << 7 | NLPS
+ARITAB = tuple((q << 16) | (nm << 8) | (sw << 7) | nl for q, nl, nm, sw in QE_TABLE)
+# natural index of zigzag positions 1..9, the coefficients block smoothing
+# estimates (jdcoefct.c's Q01, Q10, Q20, Q11, Q02, Q03, Q12, Q21, Q30)
+_SMOOTHED = (1, 8, 16, 9, 2, 3, 10, 17, 24)
 
 
 def _descale(x, n: int):
@@ -491,7 +540,9 @@ class _Huffman:
 
 
 class _Component:
-    __slots__ = ("cid", "h", "v", "tq", "width", "height", "bw", "bh", "coefs", "table")
+    __slots__ = ("cid", "h", "v", "tq", "width", "height", "bw", "bh", "coefs", "table", "bits")
+    # bits: jdphuff.c's coef_bits, the Al of each zigzag coefficient's last
+    # scan (-1 before its first)
 
 
 def _scan_segments(data: bytes, start: int, path: str):
@@ -511,84 +562,534 @@ def _scan_segments(data: bytes, start: int, path: str):
     raise ValueError(f"{path}: truncated JPEG (a scan without an end marker)")
 
 
+_MASK = [(1 << n) - 1 for n in range(65)]
+_NATURAL = ZIGZAG.tolist() + [63] * 16  # jpeg_natural_order's guard entries
+
+
+def _wrap16(x: int) -> int:
+    """x as libjpeg stores a coefficient (JCOEF, 16 bits, two's complement)."""
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _mcu_blocks(comps, mcus, interleaved: bool):
+    """Each MCU of a scan, in scan order, as a list of (index of its
+    component in the scan, offset of the block's first coefficient)."""
+    mx, my = mcus
+    out = []
+    for my_i in range(my):
+        for mx_i in range(mx):
+            if not interleaved:
+                out.append([(0, (my_i * comps[0].bw + mx_i) * 64)])
+                continue
+            mcu = []
+            for ci, c in enumerate(comps):
+                origin = (my_i * c.v * c.bw + mx_i * c.h) * 64
+                mcu.extend((ci, origin + (y * c.bw + x) * 64)
+                           for y in range(c.v) for x in range(c.h))
+            out.append(mcu)
+    return out
+
+
+def _restart_intervals(segs, blocks, restart: int):
+    """(entropy-coded segment, its MCUs) for each restart interval of a scan;
+    a missing segment reads as empty."""
+    per = restart or len(blocks)
+    for j, i in enumerate(range(0, len(blocks), per)):
+        yield (segs[j] if j < len(segs) else b""), blocks[i:i + per]
+
+
 def _decode_scan(segs, comps, mcus, restart: int, interleaved: bool, tables):
     """Huffman-decode one baseline scan into each component's `coefs`
     (a flat list, 64 natural-order entries a block)."""
-    zz = ZIGZAG.tolist() + [63] * 16  # jpeg_natural_order's guard entries
-    mask = [(1 << n) - 1 for n in range(65)]
-    # per component of the scan: (coefs, dc table, ac table, block offsets of an MCU)
-    plan = []
-    for c, (dct, act) in zip(comps, tables):
-        if interleaved:
-            offs = [(y * c.bw + x) * 64 for y in range(c.v) for x in range(c.h)]
-        else:
-            offs = [0]
-        plan.append((c, dct, act, offs))
-    mx, my = mcus
-    per_seg = restart or mx * my
-    n_mcu = 0
-    for seg_i in range((mx * my + per_seg - 1) // per_seg):
-        raw = segs[seg_i] if seg_i < len(segs) else b""
-        pad = (-len(raw)) % 4 + 8  # data that runs out reads as zeros, as libjpeg fills it
-        words = np.frombuffer(raw + b"\x00" * pad, ">u4").tolist()
+    zz, mask = _NATURAL, _MASK
+    for raw, blocks in _restart_intervals(segs, _mcu_blocks(comps, mcus, interleaved), restart):
+        # data that runs out reads as zeros, as libjpeg fills it
+        words = np.frombuffer(raw + b"\x00" * ((-len(raw)) % 4 + 8), ">u4").tolist()
         nw = len(words)
         wp, buf, nb = 0, 0, 0
-        preds = [0] * len(plan)
-        for _ in range(min(per_seg, mx * my - n_mcu)):
-            my_i, mx_i = divmod(n_mcu, mx)
-            n_mcu += 1
-            for ci, (c, dct, act, offs) in enumerate(plan):
-                coefs = c.coefs
-                if interleaved:
-                    origin = (my_i * c.v * c.bw + mx_i * c.h) * 64
-                else:
-                    origin = (my_i * c.bw + mx_i) * 64
-                for off in offs:
-                    base = origin + off
-                    # DC, then AC, each symbol through `look` or libjpeg's search
-                    tab, k = dct, 0
-                    while True:
-                        if nb < 32:  # a code (up to 17 bits) and its extra bits (up to 15)
-                            buf = ((buf & mask[nb]) << 32) | (words[wp] if wp < nw else 0)
-                            wp += 1
-                            nb += 32
-                        e = tab.look[(buf >> (nb - LOOKAHEAD)) & 511]
-                        if e:
-                            nb -= e & 255
-                            s = e >> 8
-                        else:
-                            length = LOOKAHEAD + 1
+        preds = [0] * len(comps)
+        for mcu in blocks:
+            for ci, base in mcu:
+                coefs = comps[ci].coefs
+                dct, act = tables[ci]
+                # DC, then AC, each symbol through `look` or libjpeg's search
+                tab, k = dct, 0
+                while True:
+                    if nb < 32:  # a code (up to 17 bits) and its extra bits (up to 15)
+                        buf = ((buf & mask[nb]) << 32) | (words[wp] if wp < nw else 0)
+                        wp += 1
+                        nb += 32
+                    e = tab.look[(buf >> (nb - LOOKAHEAD)) & 511]
+                    if e:
+                        nb -= e & 255
+                        s = e >> 8
+                    else:
+                        length = LOOKAHEAD + 1
+                        code = (buf >> (nb - length)) & mask[length]
+                        while code > tab.maxcode[length]:
+                            length += 1
                             code = (buf >> (nb - length)) & mask[length]
-                            while code > tab.maxcode[length]:
-                                length += 1
-                                code = (buf >> (nb - length)) & mask[length]
-                            nb -= length
-                            s = tab.vals[code + tab.valoffset[length]] if length <= 16 else 0
-                        if k == 0:
-                            if s:
-                                nb -= s
-                                v = (buf >> nb) & mask[s]
-                                if v < (1 << (s - 1)):
-                                    v -= (1 << s) - 1
-                                preds[ci] += v
-                            coefs[base] = preds[ci]
-                            tab, k = act, 1
-                            continue
-                        r, s = s >> 4, s & 15
+                        nb -= length
+                        s = tab.vals[code + tab.valoffset[length]] if length <= 16 else 0
+                    if k == 0:
                         if s:
-                            k += r
                             nb -= s
                             v = (buf >> nb) & mask[s]
                             if v < (1 << (s - 1)):
                                 v -= (1 << s) - 1
-                            coefs[base + zz[k]] = v
-                            k += 1
-                        elif r == 15:
-                            k += 16
+                            preds[ci] += v
+                        coefs[base] = preds[ci]
+                        tab, k = act, 1
+                        continue
+                    r, s = s >> 4, s & 15
+                    if s:
+                        k += r
+                        nb -= s
+                        v = (buf >> nb) & mask[s]
+                        if v < (1 << (s - 1)):
+                            v -= (1 << s) - 1
+                        coefs[base + zz[k]] = v
+                        k += 1
+                    elif r == 15:
+                        k += 16
+                    else:
+                        break
+                    if k >= 64:
+                        break
+
+
+class _Bits:
+    """A segment's bits as _decode_scan reads them: first bit highest, then
+    zeros without end."""
+    __slots__ = ("words", "nw", "wp", "buf", "nb")
+
+    def __init__(self, raw: bytes):
+        self.words = np.frombuffer(raw + b"\x00" * ((-len(raw)) % 4 + 8), ">u4").tolist()
+        self.nw = len(self.words)
+        self.wp = self.buf = self.nb = 0
+
+    def _fill(self):
+        self.buf = ((self.buf & _MASK[self.nb]) << 32) | (self.words[self.wp]
+                                                          if self.wp < self.nw else 0)
+        self.wp += 1
+        self.nb += 32
+
+    def get(self, n: int) -> int:
+        """The next n bits (n <= 32) as an unsigned number."""
+        if self.nb < n:
+            self._fill()
+        self.nb -= n
+        return (self.buf >> self.nb) & _MASK[n]
+
+    def value(self, s: int) -> int:
+        """The next s bits, sign-extended as JPEG codes them (HUFF_EXTEND)."""
+        v = self.get(s)
+        return v - _MASK[s] if v < (1 << (s - 1)) else v
+
+    def symbol(self, tab: _Huffman) -> int:
+        """The next Huffman symbol of tab, as _decode_scan reads it."""
+        if self.nb < 32:
+            self._fill()
+        buf, nb = self.buf, self.nb
+        e = tab.look[(buf >> (nb - LOOKAHEAD)) & 511]
+        if e:
+            self.nb = nb - (e & 255)
+            return e >> 8
+        length = LOOKAHEAD + 1
+        code = (buf >> (nb - length)) & _MASK[length]
+        while code > tab.maxcode[length]:
+            length += 1
+            code = (buf >> (nb - length)) & _MASK[length]
+        self.nb = nb - length
+        return tab.vals[code + tab.valoffset[length]] if length <= 16 else 0
+
+
+def _decode_progressive_scan(segs, comps, mcus, restart: int, interleaved: bool, tables,
+                             ss: int, se: int, ah: int, al: int):
+    """jdphuff.c: one progressive Huffman scan into each component's
+    `coefs`: DC first (the predicted value << Al), DC refinement (one bit a
+    block), AC first (the band Ss..Se, values << Al, EOB runs across
+    blocks) or AC refinement (a correction bit for each coefficient
+    already nonzero that has not got the bit, new coefficients of
+    +-1 << Al, EOB runs refining the rest of each band). EOBRUN and the DC
+    predictors start at 0 in each restart interval."""
+    zz = _NATURAL
+    p1, m1 = 1 << al, -1 << al
+    for raw, blocks in _restart_intervals(segs, _mcu_blocks(comps, mcus, interleaved), restart):
+        bits = _Bits(raw)
+        preds = [0] * len(comps)
+        eobrun = 0
+        for mcu in blocks:
+            if ss == 0:
+                for ci, base in mcu:
+                    coefs = comps[ci].coefs
+                    if ah:
+                        if bits.get(1):
+                            coefs[base] |= p1
+                        continue
+                    s = bits.symbol(tables[ci][0])
+                    if s:
+                        preds[ci] += bits.value(s)
+                    coefs[base] = preds[ci] << al
+                continue
+            base = mcu[0][1]
+            coefs = comps[0].coefs
+            tab = tables[0][1]
+            if not ah:  # AC first
+                if eobrun:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    s = bits.symbol(tab)
+                    r, s = s >> 4, s & 15
+                    if s:
+                        k += r
+                        coefs[base + zz[k]] = bits.value(s) << al
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = (1 << r) + (bits.get(r) if r else 0) - 1
+                        break
+                    k += 1
+                continue
+            k = ss  # AC refinement
+            if not eobrun:
+                while k <= se:
+                    s = bits.symbol(tab)
+                    r, s = s >> 4, s & 15
+                    if s:  # a new coefficient (its size should be 1), then its sign
+                        s = p1 if bits.get(1) else m1
+                    elif r != 15:
+                        eobrun = (1 << r) + (bits.get(r) if r else 0)
+                        break
+                    # pass r zero coefficients, appending a correction bit to
+                    # each nonzero one on the way
+                    while k <= se:
+                        pos = base + zz[k]
+                        c = coefs[pos]
+                        if c:
+                            if bits.get(1) and not c & p1:
+                                coefs[pos] = c + (p1 if c >= 0 else m1)
                         else:
-                            break
-                        if k >= 64:
-                            break
+                            r -= 1
+                            if r < 0:
+                                break
+                        k += 1
+                    if s:
+                        coefs[base + zz[k]] = s
+                    k += 1
+            if eobrun:  # the rest of the band: correction bits only
+                while k <= se:
+                    pos = base + zz[k]
+                    c = coefs[pos]
+                    if c and bits.get(1) and not c & p1:
+                        coefs[pos] = c + (p1 if c >= 0 else m1)
+                    k += 1
+                eobrun -= 1
+
+
+class _Arith:
+    """jdarith.c's decoder over one entropy-coded segment: the registers C
+    and A and the shift counter CT (-16 before the first two bytes, -1
+    after an error), the segment's bytes, then zeros, which is what
+    libjpeg reads at and past the marker that ends it."""
+    __slots__ = ("data", "n", "pos", "c", "a", "ct")
+
+    def __init__(self, raw: bytes):
+        self.data, self.n, self.pos = raw, len(raw), 0
+        self.c = self.a = 0
+        self.ct = -16
+
+    def decode(self, st, i: int) -> int:
+        """arith_decode: one binary decision on the statistics bin st[i]
+        (state index, MPS in bit 7), which it updates."""
+        a, ct = self.a, self.ct
+        while a < 0x8000:  # renormalisation and data input, T.81 D.2.6
+            ct -= 1
+            if ct < 0:
+                self.c = (self.c << 8) | (self.data[self.pos] if self.pos < self.n else 0)
+                self.pos += 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:  # the two initial bytes are in
+                        a = 0x8000
+            a <<= 1
+        self.ct = ct
+        sv = st[i]
+        e = ARITAB[sv & 0x7F]
+        qe = e >> 16
+        a -= qe
+        temp = a << ct
+        if self.c >= temp:  # LPS sub-interval, with the conditional exchange
+            self.c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ ((e >> 8) & 0xFF)
+            else:
+                st[i] = (sv & 0x80) ^ (e & 0xFF)
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:  # MPS, renormalising: the conditional exchange
+            if a < qe:
+                st[i] = (sv & 0x80) ^ (e & 0xFF)
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ ((e >> 8) & 0xFF)
+        self.a = a
+        return sv >> 7
+
+
+def _arith_dc(ad: _Arith, st, ctx: int, lo: int, hi: int):
+    """Figures F.19-F.24 for one DC difference with the statistics st (64
+    bins) and the block's conditioning context: (difference, next
+    context), or (None, ctx) where the magnitude overflows. lo and hi are
+    DAC's L and U."""
+    if not ad.decode(st, ctx):
+        return 0, 0
+    sign = ad.decode(st, ctx + 1)
+    s = ctx + 2 + sign
+    m = ad.decode(st, s)
+    if m:
+        s = 20  # X1
+        while ad.decode(st, s):
+            m <<= 1
+            if m == 0x8000:
+                return None, ctx
+            s += 1
+    if m < (1 << lo) >> 1:
+        nctx = 0
+    elif m > (1 << hi) >> 1:
+        nctx = 12 + 4 * sign
+    else:
+        nctx = 4 + 4 * sign
+    v = m
+    s += 14
+    m >>= 1
+    while m:
+        if ad.decode(st, s):
+            v |= m
+        m >>= 1
+    v += 1
+    return (-v if sign else v), nctx
+
+
+def _arith_ac(ad: _Arith, st, fixed, s: int, k: int, kx: int):
+    """Figures F.21-F.24 for the nonzero AC coefficient at zigzag k, whose
+    SE bin is st[s]: its value, or None where the magnitude overflows. kx
+    is DAC's Kx; the sign has the fixed bin."""
+    sign = ad.decode(fixed, 0)
+    s += 2
+    m = ad.decode(st, s)
+    if m and ad.decode(st, s):
+        m <<= 1
+        s = 189 if k <= kx else 217  # X2
+        while ad.decode(st, s):
+            m <<= 1
+            if m == 0x8000:
+                return None
+            s += 1
+    v = m
+    s += 14
+    m >>= 1
+    while m:
+        if ad.decode(st, s):
+            v |= m
+        m >>= 1
+    v += 1
+    return -v if sign else v
+
+
+def _arith_band(ad: _Arith, st, fixed, coefs, base: int, ss: int, se: int, al: int,
+                kx: int) -> bool:
+    """Figure F.20: the coefficients ss..se of one block (values << al);
+    False on a spectral or magnitude overflow."""
+    k = ss
+    while k <= se:
+        s = 3 * (k - 1)
+        if ad.decode(st, s):  # EOB
+            return True
+        while not ad.decode(st, s + 1):
+            s += 3
+            k += 1
+            if k > se:
+                return False
+        v = _arith_ac(ad, st, fixed, s, k, kx)
+        if v is None:
+            return False
+        coefs[base + _NATURAL[k]] = _wrap16(v << al)
+        k += 1
+    return True
+
+
+def _arith_refine(ad: _Arith, st, fixed, coefs, base: int, ss: int, se: int,
+                  al: int) -> bool:
+    """decode_mcu_AC_refine of jdarith.c for one block; False on a spectral
+    overflow."""
+    zz = _NATURAL
+    p1, m1 = 1 << al, -1 << al
+    kex = se  # the previous stage's end of block
+    while kex > 0 and not coefs[base + zz[kex]]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        s = 3 * (k - 1)
+        if k > kex and ad.decode(st, s):  # EOB
+            return True
+        while True:
+            pos = base + zz[k]
+            c = coefs[pos]
+            if c:  # previously nonzero: its correction bit
+                if ad.decode(st, s + 2):
+                    coefs[pos] = c + (m1 if c < 0 else p1)
+                break
+            if ad.decode(st, s + 1):  # newly nonzero
+                coefs[pos] = m1 if ad.decode(fixed, 0) else p1
+                break
+            s += 3
+            k += 1
+            if k > se:
+                return False
+        k += 1
+    return True
+
+
+def _decode_arith_scan(segs, comps, mcus, restart: int, interleaved: bool, tables,
+                       dac, progressive: bool, ss: int, se: int, ah: int, al: int):
+    """jdarith.c: one arithmetic-coded scan into each component's `coefs`,
+    sequential (each block's DC and AC) or one of the four progressive
+    kinds. tables: each scan component's (DC, AC) table numbers, which
+    name its statistics (shared by the components that share a table) and
+    its DAC conditioning; dac: (L, U, Kx) lists by table number. Each
+    restart interval starts with zeroed statistics, predictors and
+    contexts and a new decoder; after a spectral or magnitude overflow the
+    rest of the interval is left as it is (CT = -1)."""
+    lo, hi, kx = dac
+    fixed = [113]  # the fixed probability 0.5
+    dc_first = not progressive or (ss == 0 and ah == 0)
+    for raw, blocks in _restart_intervals(segs, _mcu_blocks(comps, mcus, interleaved), restart):
+        ad = _Arith(raw)
+        dc_st = {t[0]: [0] * 64 for t in tables}
+        ac_st = {t[1]: [0] * 256 for t in tables}
+        preds, ctx = [0] * len(comps), [0] * len(comps)
+        for mcu in blocks:
+            if ad.ct == -1:
+                break
+            if progressive and ss == 0 and ah:  # DC refinement: the next bit of each
+                for ci, base in mcu:
+                    if ad.decode(fixed, 0):
+                        comps[ci].coefs[base] |= 1 << al
+                continue
+            if dc_first:
+                for ci, base in mcu:
+                    td, ta = tables[ci]
+                    diff, ctx[ci] = _arith_dc(ad, dc_st[td], ctx[ci], lo[td], hi[td])
+                    if diff is None:
+                        ad.ct = -1
+                        break
+                    preds[ci] = _wrap16(preds[ci] + diff)
+                    coefs = comps[ci].coefs
+                    coefs[base] = _wrap16(preds[ci] << al)
+                    if not progressive and not _arith_band(ad, ac_st[ta], fixed, coefs, base, 1,
+                                                           63, 0, kx[ta]):
+                        ad.ct = -1
+                        break
+                continue
+            base = mcu[0][1]
+            ta = tables[0][1]
+            if ah:
+                ok = _arith_refine(ad, ac_st[ta], fixed, comps[0].coefs, base, ss, se, al)
+            else:
+                ok = _arith_band(ad, ac_st[ta], fixed, comps[0].coefs, base, ss, se, al, kx[ta])
+            if not ok:
+                ad.ct = -1
+
+
+# jdcoefct.c's decompress_smooth_data (libjpeg-turbo's 5x5 window): for
+# each estimated coefficient, by zigzag position 1..9, its natural index and
+# the weights of the 25 DC values around the block (rows, then columns, -2
+# to +2) without and with DC interpolation; the last five have weights only
+# with it, the DC's own last
+_SMOOTH_KERNELS = (
+    (1, [[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [-7, 50, 0, -50, 7], [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]],
+     [[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3], [-3, 13, 0, -13, 3],
+      [-1, -1, 0, 1, 1]]),
+    (8, [[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0, 0, 0, 0, 0], [0, 0, -50, 0, 0], [0, 0, 7, 0, 0]],
+     [[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0, 0, 0, 0, 0], [1, -13, -38, -13, 1],
+      [1, 3, 3, 3, 1]]),
+    (16, [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0], [0, 0, 13, 0, 0],
+          [0, 0, -1, 0, 0]],
+     [[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0], [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]]),
+    (9, [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0, 0, 0, 0, 0], [1, -10, 0, 10, -1],
+         [0, 1, 0, -1, 0]],
+     [[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0, 0, 0, 0, 0], [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]]),
+    (2, [[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [-1, 13, -24, 13, -1], [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]],
+     [[0, 0, 0, 0, 0], [0, 2, -5, 2, 0], [1, 7, -14, 7, 1], [0, 2, -5, 2, 0], [0, 0, 0, 0, 0]]),
+    (3, None, [[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, 2, 0, -2, 0], [0, 1, 0, -1, 0],
+               [0, 0, 0, 0, 0]]),
+    (10, None, [[0, 0, 0, 0, 0], [0, 1, -3, 1, 0], [0, 0, 0, 0, 0], [0, -1, 3, -1, 0],
+                [0, 0, 0, 0, 0]]),
+    (17, None, [[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, -3, 0, 3, 0], [0, 1, 0, -1, 0],
+                [0, 0, 0, 0, 0]]),
+    (24, None, [[0, 0, 0, 0, 0], [0, 1, 2, 1, 0], [0, 0, 0, 0, 0], [0, -1, -2, -1, 0],
+                [0, 0, 0, 0, 0]]),
+    (0, None, [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6], [-8, 42, 152, 42, -8],
+               [-6, 6, 42, 6, -6], [-2, -6, -8, -6, -2]]))
+
+
+def _smoothing_ok(comps) -> bool:
+    """jdcoefct.c's smoothing_ok for a progressive frame: every component's
+    DC seen and its table's entries at DC and _SMOOTHED nonzero, and some
+    component with a coefficient of zigzag 1..9 not known to its last bit."""
+    for c in comps:
+        t = c.table.reshape(-1)
+        if c.bits[0] < 0 or not all(t[i] for i in (0,) + _SMOOTHED):
+            return False
+    return any(b != 0 for c in comps for b in c.bits[1:10])
+
+
+def _smooth(c, blocks: np.ndarray, n_rows: int) -> np.ndarray:
+    """decompress_smooth_data's coefficients of component c: blocks (bh, bw,
+    64) as decoded, n_rows the frame's iMCU rows. In each block of the
+    component's own width and height, a coefficient of zigzag 1..9 that
+    is zero and not known to its last bit gets an estimate from the 5x5 DC
+    values around it (columns clamped to the image's blocks; rows as
+    libjpeg-turbo picks them, which may reach the padding row of an MCU
+    below or, on the last iMCU row of a 2-row component, repeat the row
+    above), clamped below 1 << Al; where no AC coefficient of 1..9 was ever
+    sent, the DC is interpolated too."""
+    bits = c.bits
+    hb, wb, v = -(-c.height // 8), -(-c.width // 8), c.v
+    r = np.arange(hb)
+    last = n_rows - 1
+    tail = hb % v or v  # block rows of the last iMCU row
+    on_last = r // v == last
+    row = np.where(on_last, last * tail + r % v, r)  # image_block_row
+    rows_n = np.where(on_last, tail * n_rows, v * n_rows)  # image_block_rows
+    up = np.where(row > 0, r - 1, r)
+    down = np.where(row < rows_n - 1, r + 1, r)
+    rows = np.stack([np.where(row > 1, r - 2, up), up, r, down,
+                     np.where(row < rows_n - 2, r + 2, down)], 1)
+    cols = np.clip(np.arange(wb)[:, None] + np.arange(-2, 3), 0, wb - 1)
+    dc = blocks[rows[:, None, :, None], cols[None, :, None, :], 0]  # (hb, wb, 5, 5)
+    q = c.table.reshape(-1)
+    change_dc = all(b == -1 for b in bits[1:10])
+    out = blocks.copy()
+    ws = out[:hb, :wb]
+    for k, (pos, plain, interp) in enumerate(_SMOOTH_KERNELS, 1):
+        kern = interp if change_dc else plain
+        if kern is None:
+            break
+        al = bits[k] if pos else 0
+        if pos and al == 0:
+            continue
+        num = q[0] * (dc * np.asarray(kern, np.int64)).sum((-2, -1))
+        pred = ((q[pos] << 7) + np.abs(num)) // (q[pos] << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        pred = (np.where(num >= 0, pred, -pred) + 0x8000) % 0x10000 - 0x8000
+        ws[..., pos] = pred if pos == 0 else np.where(ws[..., pos] == 0, pred, ws[..., pos])
+    return out
 
 
 def _upsample(plane: np.ndarray, fy: int, fx: int) -> np.ndarray:
@@ -642,9 +1143,10 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 
 
 def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
-    """(H, W) gray or (H, W, 3) RGB uint8 pixels of a baseline JPEG, as
-    libjpeg-turbo decodes them with its defaults; `path` names the file
-    in the errors, all ValueErrors."""
+    """(H, W) gray or (H, W, 3) RGB uint8 pixels of a JPEG (baseline,
+    extended, progressive, arithmetic-coded sequential or progressive), as
+    libjpeg-turbo decodes them with its defaults; `path` names the file in
+    the errors, all ValueErrors."""
     try:
         return _decode(data, path)
     except (struct.error, IndexError, KeyError) as exc:  # a segment cut short or malformed
@@ -656,7 +1158,10 @@ def _decode(data: bytes, path: str) -> np.ndarray:
         raise ValueError(f"{path}: not a JPEG file")
     qt = {}
     huff = {}
+    # DAC's conditioning by table number (jdmarker.c's defaults): L, U, Kx
+    dac = ([0] * 16, [1] * 16, [5] * 16)
     comps, frame, restart, adobe, jfif = None, None, 0, None, False
+    progressive = arithmetic = False
     pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
@@ -693,18 +1198,29 @@ def _decode(data: bytes, path: str) -> np.ndarray:
                 vals = tuple(body[i + 17:i + 17 + sum(bits)])
                 huff[tc_th] = _Huffman(bits, vals)
                 i += 17 + sum(bits)
+        elif marker == 0xCC:  # DAC
+            if len(body) % 2:
+                raise ValueError(f"{path}: corrupt JPEG (DAC of odd length)")
+            for index, val in zip(body[0::2], body[1::2]):
+                if index >= 32:
+                    raise ValueError(f"{path}: corrupt JPEG (DAC table {index})")
+                if index >= 16:
+                    dac[2][index - 16] = val
+                elif val & 15 > val >> 4:
+                    raise ValueError(f"{path}: corrupt JPEG (DAC L > U: 0x{val:02X})")
+                else:
+                    dac[0][index], dac[1][index] = val & 15, val >> 4
         elif marker == 0xDD:  # DRI
             restart = struct.unpack(">H", body[:2])[0]
         elif marker == 0xE0 and body[:5] == b"JFIF\x00":
             jfif = True
         elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:  # APP14
             adobe = body[11]
-        elif marker == 0xCC:
-            raise ValueError(f"{path}: arithmetic-coded JPEG is not decoded (baseline only)")
         elif marker in _SOF_REFUSED:
             raise ValueError(f"{path}: {_SOF_REFUSED[marker]} JPEG is not decoded "
-                             "(baseline only)")
-        elif marker in (0xC0, 0xC1):  # SOF0, SOF1
+                             "(SOF0-2, SOF9 and SOF10 only)")
+        elif marker in _SOF_DECODED:
+            progressive, arithmetic = _SOF_DECODED[marker]
             precision, h, w, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"{path}: {precision}-bit JPEG is not decoded (8-bit only)")
@@ -729,11 +1245,20 @@ def _decode(data: bytes, path: str) -> np.ndarray:
                 c.bw, c.bh = mx * c.h, my * c.v
                 c.coefs = []
                 c.table = None
+                c.bits = [-1] * 64
             frame = (h, w, hmax, vmax, mx, my)
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise ValueError(f"{path}: JPEG scan before its frame header")
             ns = body[0]
+            if not 1 <= ns <= 4:
+                raise ValueError(f"{path}: corrupt JPEG (a scan of {ns} components)")
+            ss, se, ahal = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
+            ah, al = ahal >> 4, ahal & 15
+            if progressive and ((se != 0 if ss == 0 else ss > se or se > 63 or ns != 1)
+                                or (ah != 0 and al != ah - 1) or al > 13):
+                raise ValueError(f"{path}: bad JPEG progression (Ss {ss}, Se {se}, Ah {ah}, "
+                                 f"Al {al})")
             by_id = {c.cid: c for c in comps}
             scomps, tables = [], []
             for k in range(ns):
@@ -743,29 +1268,52 @@ def _decode(data: bytes, path: str) -> np.ndarray:
                 c = by_id[cid]
                 if c.tq not in qt:
                     raise ValueError(f"{path}: JPEG without quantisation table {c.tq}")
-                dct, act = huff.get(td_ta >> 4), huff.get(0x10 | (td_ta & 15))
-                if dct is None or act is None:
-                    raise ValueError(f"{path}: JPEG scan without its Huffman tables")
+                if arithmetic:
+                    tables.append((td_ta >> 4, td_ta & 15))
+                else:  # the Huffman tables this scan reads, as they stand now
+                    dct = act = None
+                    if not progressive or (ss == 0 and ah == 0):
+                        dct = huff.get(td_ta >> 4)
+                        if dct is None or any(s > 15 for s in dct.vals):
+                            raise ValueError(f"{path}: JPEG scan without a valid DC table")
+                    if not progressive or ss:
+                        act = huff.get(0x10 | (td_ta & 15))
+                        if act is None:
+                            raise ValueError(f"{path}: JPEG scan without its AC table")
+                    tables.append((dct, act))
                 if not c.coefs:
                     c.coefs = [0] * (c.bw * c.bh * 64)
                     c.table = qt[c.tq]  # latched at the component's first scan
+                if progressive:  # where libjpeg only warns (bogus progression), decode on
+                    c.bits[ss:se + 1] = [al] * (se + 1 - ss)
                 scomps.append(c)
-                tables.append((dct, act))
             if ns == 1:  # single-component scan: one block an MCU, over the component's blocks
                 mcus = (-(-scomps[0].width // 8), -(-scomps[0].height // 8))
             else:
                 mcus = frame[4:]
             segs, pos = _scan_segments(data, pos, path)
-            _decode_scan(segs, scomps, mcus, restart, ns > 1, tables)
+            if arithmetic:
+                _decode_arith_scan(segs, scomps, mcus, restart, ns > 1, tables, dac,
+                                   progressive, ss, se, ah, al)
+            elif progressive:
+                _decode_progressive_scan(segs, scomps, mcus, restart, ns > 1, tables,
+                                         ss, se, ah, al)
+            else:
+                _decode_scan(segs, scomps, mcus, restart, ns > 1, tables)
     if frame is None or comps is None:
         raise ValueError(f"{path}: JPEG without a frame header")
-    h, w, hmax, vmax, _, _ = frame
-    planes = []
+    h, w, hmax, vmax, _, my = frame
     for c in comps:
         if not c.coefs:
             raise ValueError(f"{path}: JPEG component {c.cid} has no scan")
-        coefs = np.asarray(c.coefs, np.int64).reshape(-1, 8, 8) * c.table
-        plane = idct_islow(coefs).reshape(c.bh, c.bw, 8, 8).swapaxes(1, 2)
+    smooth = progressive and _smoothing_ok(comps)
+    planes = []
+    for c in comps:
+        blocks = np.asarray(c.coefs, np.int64).reshape(c.bh, c.bw, 64)
+        if smooth:
+            blocks = _smooth(c, blocks, my)
+        plane = idct_islow(blocks.reshape(-1, 8, 8) * c.table)
+        plane = plane.reshape(c.bh, c.bw, 8, 8).swapaxes(1, 2)
         plane = plane.reshape(c.bh * 8, c.bw * 8)[:c.height, :c.width]
         planes.append(_upsample(plane, vmax // c.v, hmax // c.h)[:h, :w])
     if len(planes) == 1:
