@@ -109,11 +109,14 @@ Phases, in order; any failure raises and the exit code is non-zero:
      directory, the 8 committed progressive JPEG frames of the main path
      (tpu_vo_torch/data/jpeg/progressive, PIL's gray q90 files), each
      file's bytes and each decoded frame held to the sha256 in the
-     manifest (tpu_vo's decode); then each committed JPEG alone
-     (progressive frame 0, SOF9 and SOF10 4:2:0 RGB with restarts, a
-     Huffman 4:2:2 scan script with smoothing) through both readers,
-     held to the manifest, with the ms a frame of each route and kind
-     printed beside this call's baseline q90 file;
+     manifest (tpu_vo's decode); the same over a fourth directory, the
+     5 committed frames of the last kinds (tpu_vo_torch/data/jpeg/kinds:
+     Adobe CMYK, YCCK, 4:1:1 RGB, lossless gray and lossless RGB as
+     frames 0-4; 5 launches each of B1 and B2); then each committed JPEG
+     alone (progressive frame 0, SOF9 and SOF10 4:2:0 RGB with restarts, a
+     Huffman 4:2:2 scan script with smoothing, and the 5 kinds) through
+     both readers, held to the manifest, with the ms a frame of each route
+     and kind printed beside this call's baseline q90 file;
   5. drive the FAST-detect path at full width: the stage benchmark's
      ablation (tpu_vo_torch.tools.stage_bench) on 8 frames of 1241x376,
      counters reset just before; check that B3 launched exactly 4 times
@@ -1069,10 +1072,13 @@ def _frame_sha(frame) -> str:
 
 
 def _committed_jpegs():
-    """tpu_vo_torch/data/jpeg's manifest entries, each file's bytes checked
-    against its sha256 (a mismatch raises), with the bytes under "data"."""
+    """tpu_vo_torch/data/jpeg's manifest entries, then those of its kinds/
+    directory (named kinds/<file>), each file's bytes checked against its
+    sha256 (a mismatch raises), with the bytes under "data"."""
     with open(os.path.join(JPEG_DATA, "manifest.json")) as f:
         entries = json.load(f)["files"]
+    with open(os.path.join(JPEG_DATA, "kinds", "manifest.json")) as f:
+        entries += [{**e, "file": "kinds/" + e["file"]} for e in json.load(f)["files"]]
     for e in entries:
         with open(os.path.join(JPEG_DATA, e["file"]), "rb") as f:
             e["data"] = f.read()
@@ -1083,7 +1089,8 @@ def _committed_jpegs():
 
 def _variants_phase(frames_np, kernels, card):
     """Phase 4f: the frames as baseline JPEG (encode_gray), as palette and
-    Adam7 PNGs, and the committed progressive JPEG of the first 8; each
+    Adam7 PNGs, the committed progressive JPEG of the first 8 and the
+    committed last kinds of the first 5; each
     directory through load_frame (timed), PrefetchLoader onto the card (the
     Python reader, then the native loader) and the CLI (counted, through
     the native loader), against the frames they hold (by sha256) and the
@@ -1092,6 +1099,12 @@ def _variants_phase(frames_np, kernels, card):
     launches}."""
     committed = _committed_jpegs()
     progressive = [e for e in committed if e["file"].startswith("progressive/")]
+    kinds = [e for e in committed if e["file"].startswith("kinds/")]
+
+    def copies(entries):  # committed files as frames 0, 1, ...: their manifest frames, a writer
+        return ([e["frame_sha256"] for e in entries],
+                lambda d, i: open(os.path.join(d, f"{i:06d}.jpg"), "wb").write(entries[i]["data"]))
+
     # (its frames' sha256, a writer of frame i into directory d)
     formats = {
         "JPEG": ([_frame_sha(roundtrip_gray(f, VARIANT_QUALITY)) for f in frames_np],
@@ -1100,9 +1113,8 @@ def _variants_phase(frames_np, kernels, card):
         "palette/Adam7 PNG": ([_frame_sha(f) for f in frames_np],
                               lambda d, i: _png_variant(os.path.join(d, f"{i:06d}.png"),
                                                         frames_np[i], palette=i % 2 == 0)),
-        "progressive JPEG": ([e["frame_sha256"] for e in progressive],
-                             lambda d, i: open(os.path.join(d, f"{i:06d}.jpg"), "wb").write(
-                                 progressive[i]["data"])),
+        "progressive JPEG": copies(progressive),
+        "JPEG kinds": copies(kinds),
     }
     H_, W_ = frames_np[0].shape
     cli_cfg = cli.build_config(argparse.Namespace(features=1200, levels=8, ratio_test=False,
@@ -1145,8 +1157,9 @@ def _variants_phase(frames_np, kernels, card):
                 cli_t = z["t"]
             scan = runner.run_sequence_scan(torch.from_numpy(np.stack(decoded)), cli_cfg, seed=0)
             diff = float(np.abs(cli_t - scan.pose.t.double().cpu().numpy()).max())
-            held = {"JPEG": "roundtrip_gray of the originals", "palette/Adam7 PNG": "the originals",
-                    "progressive JPEG": "the manifest's frames (tpu_vo's decode)"}[fmt]
+            held = {"JPEG": "roundtrip_gray of the originals",
+                    "palette/Adam7 PNG": "the originals"}.get(
+                        fmt, "the manifest's frames (tpu_vo's decode)")
             print(f"{fmt} frames from files ({n} of {W_}x{H_}"
                   f"{f', quality {VARIANT_QUALITY}' if fmt == 'JPEG' else ''}): load_frame "
                   f"{ms:.1f} ms per decoded frame (host); all {n} equal to {held} by sha256; "
@@ -1164,16 +1177,17 @@ def _variants_phase(frames_np, kernels, card):
         rows = {"baseline q90 (encode_gray)": (dirs["JPEG"], None, python_ms["JPEG"]),
                 "progressive, 8 frames": (dirs["progressive JPEG"], None,
                                           python_ms["progressive JPEG"])}
-        for e in (e for e in committed if "/" not in e["file"]):
-            d = os.path.join(root, "alone_" + e["file"].replace(".jpg", ""))
+        for e in (e for e in committed if not e["file"].startswith("progressive/")):
+            d = os.path.join(root, "alone_" + e["file"].replace(".jpg", "").replace("/", "_"))
             os.makedirs(d)
-            path = os.path.join(d, e["file"])
+            path = os.path.join(d, os.path.basename(e["file"]))
             with open(path, "wb") as f:
                 f.write(e["data"])
             t0 = time.perf_counter()
             frame = load_frame(path)
-            rows[f"{e['file']} ({e['sof']})"] = (d, e["frame_sha256"],
-                                                 (time.perf_counter() - t0) * 1e3)
+            kind = f", {e['kind']}" if "kind" in e else ""
+            rows[f"{e['file']} ({e['sof']}{kind})"] = (d, e["frame_sha256"],
+                                                       (time.perf_counter() - t0) * 1e3)
             if _frame_sha(frame) != e["frame_sha256"]:
                 raise AssertionError(f"{e['file']}: load_frame's frame is not the manifest's")
         for name, (d, sha, _) in rows.items():

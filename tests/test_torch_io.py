@@ -5,14 +5,17 @@ inputs the tests make themselves:
     load_frame, bit for bit: gray, RGB and RGBA, each row filter forced,
     and a file PIL writes with its own filters; a progressive JPEG and a
     baseline one whose frame header says arithmetic-coded (SOF9) equal
-    tpu_vo's load_frame; what the reader refuses (12-bit, lossless,
-    hierarchical and CMYK JPEG, a corrupt PNG) raises naming the file and
-    the reason; listing and timestamps;
+    tpu_vo's load_frame; what the reader refuses (12-bit, hierarchical,
+    lossless arithmetic-coded and 2-component JPEG, a DCT scan labelled
+    lossless, a corrupt PNG) raises naming the file and the reason (CMYK,
+    which it reads, is in tests/test_torch_jpeg_remaining.py); listing and
+    timestamps;
   - io/trajectory_io: the TUM and KITTI files equal tpu_vo's text, and
     read back;
   - image/color, utils/records, utils/metrics: equal to tpu_vo's.
 """
 
+import io
 import os
 
 import numpy as np
@@ -101,13 +104,22 @@ def test_progressive_and_arithmetic_jpeg_match_tpu_vo(tmp_path, name):
         np.testing.assert_array_equal(dataset.load_frame(path, gray), want)
 
 
+def _two_components() -> bytes:
+    """PIL's CMYK file with its frame header's component count made 2."""
+    buf = io.BytesIO()
+    Image.fromarray(_image(4), "CMYK").save(buf, format="JPEG")
+    data = buf.getvalue()
+    i = data.index(b"\xff\xc0")
+    return data[:i + 9] + b"\x02" + data[i + 10:]
+
+
 def test_unsupported_images_raise_naming_the_file(tmp_path):
     rgb = _image(3, h=21, w=19)
     Image.fromarray(rgb).save(tmp_path / "base.jpg")
     base = open(tmp_path / "base.jpg", "rb").read()
     cases = {"c.jpg": ("12-bit", lambda p: open(p, "wb").write(_with_sof(base, 0xC1, 12))),
              "e.jpg": ("lossless", lambda p: open(p, "wb").write(_with_sof(base, 0xC3))),
-             "f.jpg": ("CMYK", lambda p: Image.fromarray(_image(4), "CMYK").save(p)),
+             "f.jpg": ("2-component", lambda p: open(p, "wb").write(_two_components())),
              "g.jpg": ("hierarchical", lambda p: open(p, "wb").write(_with_sof(base, 0xC5))),
              "h.jpg": ("lossless arithmetic", lambda p: open(p, "wb").write(_with_sof(base, 0xCB))),
              "i.jpg": ("hierarchical", lambda p: open(p, "wb").write(_with_sof(base, 0xCD)))}

@@ -4,10 +4,10 @@
 //   zlib_inflate  RFC 1950/1951 (inflate.cpp);
 //   decode_png    PNG to 8-bit gray as libpng gives it with the
 //                 transforms the loader sets (png_decode.cpp);
-//   decode_jpeg   JPEG (sequential and progressive, Huffman and
-//                 arithmetic) to 8-bit gray as libjpeg-turbo gives it
-//                 with its defaults (jpeg_decode.cpp), the port of
-//                 io/jpeg.py's decoder.
+//   decode_jpeg   JPEG (sequential, progressive and lossless, Huffman
+//                 and arithmetic) to 8-bit gray as PIL reads it through
+//                 libjpeg-turbo with its defaults (jpeg_decode.cpp), the
+//                 port of io/jpeg.py's decoder.
 //
 // Each function is pure: it keeps no state between calls, so the loader's
 // worker threads call them at once. Any error makes it return false.
@@ -62,15 +62,20 @@ bool zlib_inflate(const uint8_t *src, size_t n, size_t expected,
 bool decode_png(const uint8_t *data, size_t n, GrayImage &out);
 
 // A JPEG file in memory to gray: 8-bit SOF0/SOF1 (sequential Huffman),
-// SOF2 (progressive Huffman), SOF9 and SOF10 (sequential and progressive
-// arithmetic, with DAC), 1 or 3 components with sampling factors up to
-// 2x2, DQT of 8 or 16 bits, DRI/RSTn; libjpeg-turbo 3's block smoothing
+// SOF2 (progressive Huffman), SOF3 (lossless Huffman: predictors 1-7,
+// point transform, no color conversion), SOF9 and SOF10 (sequential and
+// progressive arithmetic, with DAC), 1, 3 or 4 components with sampling
+// factors 1 to 4 in integral ratios (at most 10 blocks in an interleaved
+// MCU), DQT of 8 or 16 bits, DRI/RSTn; libjpeg-turbo 3's block smoothing
 // where a progressive frame stops short of a coefficient's last bit;
 // jidctint (JDCT_ISLOW) with the SIMD IDCT's saturation, libjpeg-turbo's
-// fancy h2v1, h1v2 and h2v2 upsampling, jdcolor.c's YCbCr -> RGB, then
-// rgb_to_gray; one component is Y as it is. False on anything else
-// (12-bit, lossless, hierarchical, SOF11, SOF13-15, 2 or 4 components),
-// on a bad progression and on a corrupt file, as io/jpeg.decode raises.
+// fancy h2v1, h1v2 and h2v2 upsampling (box replication for other ratios
+// and lossless frames), jdcolor.c's YCbCr -> RGB, CMYK or YCCK through
+// PIL's cmyk2rgb, then rgb_to_gray; one component is Y as it is. False on
+// anything else (12-bit, hierarchical, SOF11, SOF13-15, 2 components, a
+// fractional ratio, a larger MCU, a bad lossless scan, a lossless frame
+// in YCbCr or YCCK), on a bad progression and on a corrupt file, as
+// io/jpeg.decode raises.
 bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out);
 
 }  // namespace vo

@@ -3,7 +3,7 @@
 // libjpeg-turbo's integer arithmetic, block by block where the Python one
 // runs over all blocks at once.
 //
-// Markers as _decode reads them (SOF0, SOF1, SOF2, SOF9, SOF10, DAC); each
+// Markers as _decode reads them (SOF0-3, SOF9, SOF10, DAC); each
 // scan's entropy-coded segments as _scan_segments cuts them (split at RSTn,
 // fill bytes before a marker dropped, stuffed zeros removed). Baseline
 // Huffman symbols as _decode_scan reads them (a 9-bit lookahead table,
@@ -16,8 +16,13 @@
 // at each restart). Then, in a progressive frame whose coefficients stop
 // short of their last bit, jdcoefct.c's block smoothing (_smooth);
 // jidctint's islow IDCT in 64-bit integers, saturated as libjpeg-turbo's
-// SIMD IDCT does (idct_islow); fancy upsampling of each component cropped
-// to its own size (_upsample); jdcolor.c's tables (_ycc_to_rgb); then
+// SIMD IDCT does (idct_islow). A lossless scan (SOF3) as
+// _decode_lossless_scan: jdlhuff.c's difference categories 0-16,
+// jddiffct.c's iMCU rows and restarts, jdlossls.c's predictors 1-7 and
+// point transform. Then each component cropped to its own size and
+// upsampled (_upsample: fancy h2v1, h1v2, h2v2 in a DCT frame, else box
+// replication), jdapimin.c's guess of the color space (_color_space),
+// jdcolor.c's tables (_ycc_to_rgb), PIL's CMYK to RGB (cmyk_to_rgb), then
 // rgb_to_gray.
 
 #include <algorithm>
@@ -31,6 +36,7 @@ namespace {
 
 constexpr int kLookahead = 9;
 constexpr uint32_t kMaxDimension = 65500;  // libjpeg's JPEG_MAX_DIMENSION
+constexpr int kMaxBlocksInMcu = 10;        // libjpeg's D_MAX_BLOCKS_IN_MCU
 // natural (row-major) index of each zigzag position, then 16 guard entries
 // of 63 for a run that overshoots the block (jpeg_natural_order's)
 constexpr uint8_t kNatural[80] = {
@@ -200,6 +206,7 @@ struct Component {
   int width = 0, height = 0;  // its own size, ceil(image * factor / max factor)
   int bw = 0, bh = 0;         // its blocks across and down, MCU padding included
   std::vector<int32_t> coefs;  // 64 a block, natural order, blocks row-major
+  std::vector<uint8_t> samples;  // a lossless frame's: height rows of width
   int32_t table[64];          // the quantisation table latched at its first scan
   int bits[64];               // coef_bits: each zigzag coefficient's last Al, -1 before
 };
@@ -208,7 +215,7 @@ struct ScanPart {
   Component *c;
   const Huffman *dc, *ac;  // Huffman scans: the tables it reads (null where it reads none)
   int dc_tbl, ac_tbl;      // arithmetic scans: its statistics' and conditioning's tables
-  int offs[4];  // block offsets (in coefficients) of its blocks in an MCU
+  int offs[kMaxBlocksInMcu];  // block offsets (in coefficients) of its blocks in an MCU
   int n_offs;
 };
 
@@ -586,6 +593,126 @@ bool decode_arith_scan(const std::vector<std::vector<uint8_t>> &segs,
   return true;
 }
 
+// One row of a lossless component (jdlossls.c): x[c] = (d[c] + prediction)
+// mod 2^16 from the row above (up) and the sample to the left; a first row
+// (of the scan or after a restart) from init and the left, any other row's
+// first sample from above.
+void undifference_row(const int32_t *d, const int32_t *up, int32_t *x, int w, int psv,
+                      bool first, int init) {
+  if (first) {
+    int32_t ra = (d[0] + init) & 0xFFFF;
+    x[0] = ra;
+    for (int c = 1; c < w; ++c) x[c] = ra = (d[c] + ra) & 0xFFFF;
+    return;
+  }
+  x[0] = (d[0] + up[0]) & 0xFFFF;
+  for (int c = 1; c < w; ++c) {
+    const int32_t ra = x[c - 1], rb = up[c], rc = up[c - 1];
+    int32_t pred;
+    switch (psv) {
+      case 1: pred = ra; break;
+      case 2: pred = rb; break;
+      case 3: pred = rc; break;
+      case 4: pred = ra + rb - rc; break;
+      case 5: pred = ra + ((rb - rc) >> 1); break;
+      case 6: pred = rb + ((ra - rc) >> 1); break;
+      default: pred = (ra + rb) >> 1; break;
+    }
+    x[c] = (d[c] + pred) & 0xFFFF;
+  }
+}
+
+// _decode_lossless_scan: one lossless scan (jddiffct.c, jdlhuff.c) into its
+// components' samples. An interleaved scan's MCU holds v rows of h samples
+// of each component, a single component's scan one sample; the restart
+// interval must be whole MCU rows. Rows are undifferenced an iMCU row (v
+// sample rows of a component) at a time, after its MCU rows are decoded,
+// so a restart inside one makes its first row a first row. The samples
+// are the reconstructions << Al cut to 8 bits.
+bool decode_lossless_scan(const std::vector<std::vector<uint8_t>> &segs,
+                          std::vector<ScanPart> &parts, int mx, int my, int restart, int psv,
+                          int al) {
+  const bool interleaved = parts.size() > 1;
+  const int per_row = interleaved ? mx : parts[0].c->width;
+  if (restart % per_row) return false;
+  const int64_t rows_per = restart / per_row;
+  const int init = 1 << (8 - al - 1);
+  struct Rows {
+    std::vector<int32_t> diff, prev, cur;  // an iMCU row's differences; the last row; this row
+    int pw = 0;                            // the differences' row length, MCU padding included
+    bool first = true;
+  };
+  std::vector<Rows> st(parts.size());
+  for (size_t k = 0; k < parts.size(); ++k) {
+    Component &c = *parts[k].c;
+    st[k].pw = interleaved ? mx * c.h : c.width;
+    st[k].diff.assign(static_cast<size_t>(st[k].pw) * c.v, 0);
+    st[k].prev.assign(c.width, 0);
+    st[k].cur.assign(c.width, 0);
+    c.samples.assign(static_cast<size_t>(c.width) * c.height, 0);
+  }
+  size_t seg = 0;
+  BitReader r{segs.empty() ? nullptr : segs[0].data(), segs.empty() ? 0 : segs[0].size()};
+  int64_t rows_to_go = rows_per;
+  auto diff = [&](const Huffman &t, int32_t &d) {
+    int s;
+    if (r.nb < 32) r.refill();  // a code (up to 17 bits) and its extra bits (up to 15)
+    if (!next_symbol(r, t, s)) return false;
+    d = 0;
+    if (s == 16) {
+      d = 32768;
+    } else if (s) {
+      r.nb -= s;
+      d = extend(static_cast<uint32_t>((r.buf >> r.nb) & ((1u << s) - 1)), s);
+    }
+    return true;
+  };
+  for (int imcu = 0; imcu < my; ++imcu) {
+    Component &c0 = *parts[0].c;
+    const int mcu_rows = interleaved ? 1 : std::min(c0.v, c0.height - imcu * c0.v);
+    for (int y = 0; y < mcu_rows; ++y) {
+      if (restart && rows_to_go == 0) {
+        ++seg;
+        r = BitReader{seg < segs.size() ? segs[seg].data() : nullptr,
+                      seg < segs.size() ? segs[seg].size() : 0};
+        for (Rows &s : st) s.first = true;
+        rows_to_go = rows_per;
+      }
+      for (int col = 0; col < per_row; ++col) {
+        for (size_t k = 0; k < parts.size(); ++k) {
+          const Component &c = *parts[k].c;
+          if (!interleaved) {
+            if (!diff(*parts[k].dc, st[k].diff[static_cast<size_t>(y) * st[k].pw + col]))
+              return false;
+            continue;
+          }
+          for (int dy = 0; dy < c.v; ++dy)
+            for (int dx = 0; dx < c.h; ++dx)
+              if (!diff(*parts[k].dc,
+                        st[k].diff[static_cast<size_t>(dy) * st[k].pw + col * c.h + dx]))
+                return false;
+        }
+      }
+      if (restart) --rows_to_go;
+    }
+    for (size_t k = 0; k < parts.size(); ++k) {
+      Component &c = *parts[k].c;
+      const int row0 = imcu * c.v;
+      const int n_rows = std::min(c.v, c.height - row0);
+      for (int y = 0; y < n_rows; ++y) {
+        Rows &s = st[k];
+        undifference_row(s.diff.data() + static_cast<size_t>(y) * s.pw, s.prev.data(),
+                         s.cur.data(), c.width, psv, s.first, init);
+        s.first = false;
+        uint8_t *out = c.samples.data() + static_cast<size_t>(row0 + y) * c.width;
+        for (int x = 0; x < c.width; ++x) out[x] = static_cast<uint8_t>(s.cur[x] << al);
+        s.prev.swap(s.cur);
+      }
+    }
+  }
+  return true;
+}
+
 // _scan_segments: the scan's entropy-coded segments from `start`, split at
 // RSTn; `end` gets the offset of the marker that ends the scan.
 bool scan_segments(const uint8_t *data, size_t n, size_t start,
@@ -723,13 +850,16 @@ struct Plane {
   const uint8_t *at(size_t y) const { return v.data() + y * stride; }
 };
 
-// _upsample of the h x w samples at p (rows `stride` apart) by (fy, fx).
-Plane upsample(const uint8_t *p, size_t stride, int h, int w, int fy, int fx) {
+// _upsample of the h x w samples at p (rows `stride` apart) by the integral
+// ratio (fy, fx): fancy h2v1, h1v2 and h2v2 where `fancy` (a DCT frame) and
+// a row holds more than 2 samples (h1v2 whatever it holds), else box
+// replication (int_upsample, h2v1_upsample, h2v2_upsample).
+Plane upsample(const uint8_t *p, size_t stride, int h, int w, int fy, int fx, bool fancy) {
   Plane o;
   o.stride = static_cast<size_t>(w) * fx;
   o.v.resize(o.stride * h * fy);
   auto in = [&](int y, int x) { return static_cast<int>(p[y * stride + x]); };
-  if (fx == 2 && w <= 2) {  // h2v1_upsample / h2v2_upsample: replication
+  if (!fancy || fx > 2 || fy > 2 || (fx == 2 && w <= 2)) {
     for (int y = 0; y < h * fy; ++y)
       for (int x = 0; x < w * fx; ++x) o.v[y * o.stride + x] = p[(y / fy) * stride + x / fx];
     return o;
@@ -764,6 +894,26 @@ Plane upsample(const uint8_t *p, size_t stride, int h, int w, int fy, int fx) {
   return o;
 }
 
+inline uint8_t clip8(int64_t v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); }
+
+// jdcolor.c's ycc_rgb_convert of one sample.
+inline void ycc_to_rgb(int64_t y, int64_t cb, int64_t cr, uint8_t rgb[3]) {
+  cb -= 128;
+  cr -= 128;
+  rgb[0] = clip8(y + ((FIX_1_40200 * cr + kOneHalf) >> kScaleBits));
+  rgb[1] = clip8(y + ((-FIX_0_34414 * cb + kOneHalf - FIX_0_71414 * cr) >> kScaleBits));
+  rgb[2] = clip8(y + ((FIX_1_77200 * cb + kOneHalf) >> kScaleBits));
+}
+
+// cmyk_to_rgb: PIL's "CMYK;I" inversion of libjpeg's CMYK, then cmyk2rgb.
+inline void cmyk_to_rgb(const uint8_t cmyk[4], uint8_t rgb[3]) {
+  const int nk = cmyk[3];  // 255 - (255 - k)
+  for (int i = 0; i < 3; ++i) {
+    const int t = (255 - cmyk[i]) * nk + 128;
+    rgb[i] = clip8(nk - (((t >> 8) + t) >> 8));
+  }
+}
+
 }  // namespace
 
 bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out) {
@@ -776,7 +926,7 @@ bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out) {
   std::fill(cond.hi, cond.hi + 16, 1);
   std::fill(cond.kx, cond.kx + 16, 5);
   std::vector<Component> comps;
-  bool have_frame = false, jfif = false, progressive = false, arithmetic = false;
+  bool have_frame = false, jfif = false, progressive = false, arithmetic = false, lossless = false;
   int adobe = -1;
   int fh = 0, fw = 0, hmax = 1, vmax = 1, mx = 0, my = 0;
   int restart = 0;
@@ -838,18 +988,19 @@ bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out) {
       jfif = true;
     } else if (marker == 0xEE && blen >= 12 && std::memcmp(body, "Adobe", 5) == 0) {
       adobe = body[11];
-    } else if (marker == 0xC3 || (marker >= 0xC5 && marker <= 0xC7) || marker == 0xCB ||
+    } else if ((marker >= 0xC5 && marker <= 0xC7) || marker == 0xCB ||
                (marker >= 0xCD && marker <= 0xCF)) {
-      return false;  // lossless or hierarchical
-    } else if ((marker >= 0xC0 && marker <= 0xC2) || marker == 0xC9 || marker == 0xCA) {
-      // SOF0-2, SOF9, SOF10
+      return false;  // hierarchical, or lossless arithmetic-coded
+    } else if ((marker >= 0xC0 && marker <= 0xC3) || marker == 0xC9 || marker == 0xCA) {
+      // SOF0-3, SOF9, SOF10
       progressive = marker == 0xC2 || marker == 0xCA;
       arithmetic = marker >= 0xC9;
+      lossless = marker == 0xC3;
       if (blen < 6) return false;
       const int precision = body[0], nc = body[5];
       fh = static_cast<int>(be16(body + 1));
       fw = static_cast<int>(be16(body + 3));
-      if (precision != 8 || (nc != 1 && nc != 3) || fh == 0 || fw == 0) return false;
+      if (precision != 8 || (nc != 1 && nc != 3 && nc != 4) || fh == 0 || fw == 0) return false;
       if (static_cast<uint32_t>(fh) > kMaxDimension || static_cast<uint32_t>(fw) > kMaxDimension)
         return false;
       if (blen < 6 + 3 * static_cast<size_t>(nc)) return false;
@@ -862,12 +1013,15 @@ bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out) {
         c.v = body[7 + 3 * k] & 15;
         c.tq = body[8 + 3 * k];
         std::fill(c.bits, c.bits + 64, -1);
-        if (c.h < 1 || c.h > 2 || c.v < 1 || c.v > 2) return false;
+        if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) return false;
         hmax = std::max(hmax, c.h);
         vmax = std::max(vmax, c.v);
       }
-      mx = (fw + 8 * hmax - 1) / (8 * hmax);
-      my = (fh + 8 * vmax - 1) / (8 * vmax);
+      for (const Component &c : comps)
+        if (hmax % c.h || vmax % c.v) return false;  // a fractional ratio
+      const int unit = lossless ? 1 : 8;  // a lossless data unit is one sample
+      mx = (fw + unit * hmax - 1) / (unit * hmax);
+      my = (fh + unit * vmax - 1) / (unit * vmax);
       for (Component &c : comps) {
         c.width = (fw * c.h + hmax - 1) / hmax;
         c.height = (fh * c.v + vmax - 1) / vmax;
@@ -884,14 +1038,29 @@ bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out) {
       if (progressive && ((b.ss == 0 ? b.se != 0 : b.ss > b.se || b.se > 63 || ns != 1) ||
                           (b.ah != 0 && b.al != b.ah - 1) || b.al > 13))
         return false;  // a bad progression (jdphuff.c's and jdarith.c's start_pass)
+      if (lossless && (b.ss < 1 || b.ss > 7 || b.se != 0 || b.ah != 0 || b.al >= 8))
+        return false;  // a bad lossless scan (jdlossls.c's start_input_pass)
       std::vector<ScanPart> parts;
+      int mcu_blocks = 0;
       for (int k = 0; k < ns; ++k) {
         const int cid = body[1 + 2 * k], td_ta = body[2 + 2 * k];
         Component *c = nullptr;  // the last of the frame's components with this id
         for (Component &cc : comps)
           if (cc.id == cid) c = &cc;
-        if (!c || c->tq > 15 || !have_qt[c->tq]) return false;
+        if (!c) return false;
+        mcu_blocks += c->h * c->v;
+        if (ns > 1 && mcu_blocks > kMaxBlocksInMcu) return false;  // JERR_BAD_MCU_SIZE
         ScanPart sp{c, nullptr, nullptr, td_ta >> 4, td_ta & 15, {0}, 0};
+        if (lossless) {  // a DC-class table of categories 0 to 16
+          const auto dc = huff.find(td_ta >> 4);
+          if (dc == huff.end()) return false;
+          for (int i = 0; i < dc->second.nvals; ++i)
+            if (dc->second.vals[i] > 16) return false;
+          sp.dc = &dc->second;
+          parts.push_back(sp);
+          continue;
+        }
+        if (c->tq > 15 || !have_qt[c->tq]) return false;
         if (!arithmetic) {  // the Huffman tables this scan reads, as they stand now
           if (!progressive || (b.ss == 0 && b.ah == 0)) {
             const auto dc = huff.find(td_ta >> 4);
@@ -919,6 +1088,12 @@ bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out) {
         }
         parts.push_back(sp);
       }
+      if (lossless) {
+        std::vector<std::vector<uint8_t>> segs;
+        if (!scan_segments(data, n, pos, segs, pos)) return false;
+        if (!decode_lossless_scan(segs, parts, mx, my, restart, b.ss, b.al)) return false;
+        continue;
+      }
       int smx = mx, smy = my;
       if (ns == 1) {  // one block an MCU, over the component's own blocks
         smx = (parts[0].c->width + 7) / 8;
@@ -937,10 +1112,26 @@ bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out) {
   if (!have_frame) return false;
 
   for (const Component &c : comps)
-    if (c.coefs.empty()) return false;  // a component with no scan
+    if (lossless ? c.samples.empty() : c.coefs.empty()) return false;  // a component with no scan
+  // jdapimin.c's guess of the color space (_color_space): for three
+  // components JFIF means YCbCr, else the Adobe transform (0 RGB), else
+  // the ids ('R', 'G', 'B', or any in a lossless frame, mean RGB); for
+  // four, Adobe transform 0 or no Adobe marker means CMYK, else YCCK
+  const size_t nc = comps.size();
+  const bool rgb = nc == 3 && !jfif &&
+                   (adobe >= 0 ? adobe == 0
+                               : lossless || (comps[0].id == 'R' && comps[1].id == 'G' &&
+                                              comps[2].id == 'B'));
+  const bool ycck = nc == 4 && adobe > 0;
+  if (lossless && ((nc == 3 && !rgb) || ycck)) return false;  // no color conversion in lossless
   const bool smooth = progressive && smoothing_ok(comps);
   std::vector<Plane> planes;
   for (Component &c : comps) {
+    const int fy = vmax / c.v, fx = hmax / c.h;
+    if (lossless) {
+      planes.push_back(upsample(c.samples.data(), c.width, c.height, c.width, fy, fx, false));
+      continue;
+    }
     Plane full;
     full.stride = static_cast<size_t>(c.bw) * 8;
     full.v.resize(full.stride * c.bh * 8);
@@ -960,39 +1151,43 @@ bool decode_jpeg(const uint8_t *data, size_t n, GrayImage &out) {
                    full.v.data() + static_cast<size_t>(by) * 8 * full.stride + bx * 8, full.stride);
       }
     }
-    const int fy = vmax / c.v, fx = hmax / c.h;
     if (fy == 1 && fx == 1) {
       planes.push_back(std::move(full));
     } else {
-      planes.push_back(upsample(full.v.data(), full.stride, c.height, c.width, fy, fx));
+      planes.push_back(upsample(full.v.data(), full.stride, c.height, c.width, fy, fx, true));
     }
   }
   out.width = fw;
   out.height = fh;
   out.pixels.resize(static_cast<size_t>(fw) * fh);
   uint8_t *dst = out.pixels.data();
-  if (planes.size() == 1) {
+  if (nc == 1) {
     for (int y = 0; y < fh; ++y) std::memcpy(dst + static_cast<size_t>(y) * fw, planes[0].at(y), fw);
     return true;
   }
-  // jdapimin.c's guess of the color space: JFIF means YCbCr, else the
-  // Adobe transform, else the component ids ('R', 'G', 'B' means RGB)
-  const bool rgb = !jfif && (adobe == 0 || (adobe < 0 && comps[0].id == 'R' &&
-                                            comps[1].id == 'G' && comps[2].id == 'B'));
   for (int y = 0; y < fh; ++y) {
-    const uint8_t *p0 = planes[0].at(y), *p1 = planes[1].at(y), *p2 = planes[2].at(y);
+    const uint8_t *p[4];
+    for (size_t k = 0; k < nc; ++k) p[k] = planes[k].at(y);
     uint8_t *d = dst + static_cast<size_t>(y) * fw;
-    if (rgb) {
-      for (int x = 0; x < fw; ++x) d[x] = rgb_to_gray(p0[x], p1[x], p2[x]);
-      continue;
-    }
-    for (int x = 0; x < fw; ++x) {  // jdcolor.c's ycc_rgb_convert
-      const int64_t Y = p0[x], cb = p1[x] - 128, cr = p2[x] - 128;
-      const int64_t r = Y + ((FIX_1_40200 * cr + kOneHalf) >> kScaleBits);
-      const int64_t g = Y + ((-FIX_0_34414 * cb + kOneHalf - FIX_0_71414 * cr) >> kScaleBits);
-      const int64_t b = Y + ((FIX_1_77200 * cb + kOneHalf) >> kScaleBits);
-      auto clip = [](int64_t v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); };
-      d[x] = rgb_to_gray(clip(r), clip(g), clip(b));
+    uint8_t rgb3[3], cmyk[4];
+    for (int x = 0; x < fw; ++x) {
+      if (nc == 3) {
+        if (rgb) {
+          d[x] = rgb_to_gray(p[0][x], p[1][x], p[2][x]);
+          continue;
+        }
+        ycc_to_rgb(p[0][x], p[1][x], p[2][x], rgb3);
+      } else {
+        if (ycck) {  // jdcolor.c's ycck_cmyk_convert
+          ycc_to_rgb(p[0][x], p[1][x], p[2][x], rgb3);
+          for (int i = 0; i < 3; ++i) cmyk[i] = static_cast<uint8_t>(255 - rgb3[i]);
+        } else {
+          for (int i = 0; i < 3; ++i) cmyk[i] = p[i][x];
+        }
+        cmyk[3] = p[3][x];
+        cmyk_to_rgb(cmyk, rgb3);
+      }
+      d[x] = rgb_to_gray(rgb3[0], rgb3[1], rgb3[2]);
     }
   }
   return true;

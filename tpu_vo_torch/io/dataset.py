@@ -10,12 +10,13 @@ of tpu_vo/io/dataset.py).
   mode L as it is), with no imaging library: decode_png reads every PNG
   (color types 0, 2, 3, 4 and 6 at every legal bit depth, PLTE with tRNS
   read and dropped, Adam7 interlace, all five row filters; zlib + numpy)
-  and hands a JPEG to io/jpeg.decode (sequential and progressive,
-  Huffman- and arithmetic-coded). It gives PIL's values: 1-, 2- and
-  4-bit gray scaled to 0..255, 16-bit gray clipped to 255, 16-bit color
-  and gray with alpha cut to their high byte, the alpha dropped. A file
-  it does not decode (12-bit, lossless, hierarchical or CMYK JPEG, a
-  corrupt file) raises a ValueError that names the file and the reason.
+  and hands a JPEG to io/jpeg.decode (sequential, progressive and
+  lossless, Huffman- and arithmetic-coded, gray, RGB, CMYK and YCCK). It
+  gives PIL's values: 1-, 2- and 4-bit gray scaled to 0..255, 16-bit gray
+  clipped to 255, 16-bit color and gray with alpha cut to their high byte,
+  the alpha dropped, CMYK through PIL's cmyk2rgb. A file it does not
+  decode (12-bit, hierarchical, 2-component or lossless arithmetic JPEG,
+  a corrupt file) raises a ValueError that names the file and the reason.
 - write_png: an 8-bit gray/RGB/RGBA encoder, one filter for all rows.
 """
 

@@ -3,11 +3,12 @@ that PIL and cv2 run with their defaults, and the gray encoder that
 cv2.imencode runs.
 
 - decode(data, path): 8-bit SOF0 and SOF1 (sequential Huffman), SOF2
-  (progressive Huffman), SOF9 (sequential arithmetic) and SOF10
-  (progressive arithmetic); DHT (redefined between scans as progressive
-  files do), DAC, DQT (8- and 16-bit tables), DRI with RSTn markers,
-  interleaved and single-component scans, 1 or 3 components with
-  sampling factors up to 2x2, any size (the MCU padding is cropped).
+  (progressive Huffman), SOF3 (lossless Huffman), SOF9 (sequential
+  arithmetic) and SOF10 (progressive arithmetic); DHT (redefined between
+  scans as progressive files do), DAC, DQT (8- and 16-bit tables), DRI
+  with RSTn markers, interleaved and single-component scans, 1, 3 or 4
+  components with sampling factors 1 to 4 in integral ratios and at most
+  10 blocks in an interleaved MCU, any size (the MCU padding is cropped).
   Entropy decoding is serial in Python: Huffman symbols through a 9-bit
   lookahead table and libjpeg's maxcode search above it; jdphuff.c's four
   progressive scan kinds (DC first and refinement, AC first with EOB
@@ -19,10 +20,21 @@ cv2.imencode runs.
   bit, jdcoefct.c's block smoothing (libjpeg-turbo 3's 5x5 window, DC
   interpolation where no low AC was sent); dequantisation, jidctint
   (JDCT_ISLOW), libjpeg-turbo's fancy h2v1, h1v2 and h2v2 upsampling
-  (alternating biases, edges replicated) and jdcolor.c's table-driven
-  YCbCr -> RGB. What it does not decode (12-bit, lossless, hierarchical,
-  SOF11, SOF13-15, 2 or 4 components such as Adobe CMYK and YCCK) raises
-  a ValueError naming the file and the reason.
+  (alternating biases, edges replicated), box replication for the other
+  ratios (4:1:1, 4:1:0, 3:1, h1v4, chroma above luma) and jdcolor.c's
+  table-driven YCbCr -> RGB. A lossless scan: jdlhuff.c's difference
+  categories 0-16 (each code looked up at every bit position at once,
+  then chained), jdlossls.c's predictors 1-7 (1-5 as cumulative sums
+  along rows) and point transform, jddiffct.c's restarts, box
+  upsampling, no color conversion (libjpeg refuses a lossless frame in
+  YCbCr or YCCK). Four components are libjpeg's CMYK (Adobe transform 0
+  or no Adobe marker) or YCCK (any other transform: ycck_cmyk_convert),
+  then what PIL makes of them: its "CMYK;I" inversion and cmyk2rgb
+  (cmyk_to_rgb). What it does not decode (12-bit, hierarchical, SOF11,
+  SOF13-15, 2 components, a fractional sampling ratio, an interleaved MCU
+  of more than 10 blocks, a bad lossless scan or restart interval) raises
+  a ValueError naming the file and the reason, as PIL refuses each.
+- cmyk_to_rgb(cmyk): PIL's RGB of libjpeg's CMYK output.
 - quant_table(quality): jpeg_set_quality's scaled luminance table
   (force_baseline).
 - fdct_islow, quantize (jcdctmgr.c's reciprocal multiply), idct_islow:
@@ -117,13 +129,16 @@ def _fix(x: float) -> int:
 
 
 LOOKAHEAD = 9  # bits of the Huffman lookahead table
-# the frames a decode reads, by SOF marker: (progressive, arithmetic-coded)
-_SOF_DECODED = {0xC0: (False, False), 0xC1: (False, False), 0xC2: (True, False),
-                0xC9: (False, True), 0xCA: (True, True)}
+# the frames a decode reads, by SOF marker: (progressive, arithmetic-coded,
+# lossless)
+_SOF_DECODED = {0xC0: (False, False, False), 0xC1: (False, False, False),
+                0xC2: (True, False, False), 0xC3: (False, False, True),
+                0xC9: (False, True, False), 0xCA: (True, True, False)}
 # what a decode refuses, by SOF marker
-_SOF_REFUSED = {0xC3: "lossless", 0xC5: "hierarchical", 0xC6: "hierarchical",
-                0xC7: "hierarchical", 0xCB: "lossless arithmetic-coded",
-                0xCD: "hierarchical", 0xCE: "hierarchical", 0xCF: "hierarchical"}
+_SOF_REFUSED = {0xC5: "hierarchical", 0xC6: "hierarchical", 0xC7: "hierarchical",
+                0xCB: "lossless arithmetic-coded", 0xCD: "hierarchical", 0xCE: "hierarchical",
+                0xCF: "hierarchical"}
+MAX_BLOCKS_IN_MCU = 10  # libjpeg's D_MAX_BLOCKS_IN_MCU: an interleaved scan's MCU
 # ITU-T T.81 Table D.2 (jaricom.c), by state: (Qe, Next_Index_LPS,
 # Next_Index_MPS, Switch_MPS); state 113 is T.851's fixed probability 0.5
 QE_TABLE = (
@@ -518,6 +533,7 @@ class _Huffman:
     maxcode, valoffset and vals drive libjpeg's search for longer codes."""
 
     def __init__(self, bits, vals):
+        self.bits = tuple(bits)
         self.vals = list(vals)
         self.look = [0] * (1 << LOOKAHEAD)
         self.maxcode = [-1] * 18
@@ -540,7 +556,8 @@ class _Huffman:
 
 
 class _Component:
-    __slots__ = ("cid", "h", "v", "tq", "width", "height", "bw", "bh", "coefs", "table", "bits")
+    __slots__ = ("cid", "h", "v", "tq", "width", "height", "bw", "bh", "coefs", "table", "bits",
+                 "samples")
     # bits: jdphuff.c's coef_bits, the Al of each zigzag coefficient's last
     # scan (-1 before its first)
 
@@ -1005,6 +1022,170 @@ def _decode_arith_scan(segs, comps, mcus, restart: int, interleaved: bool, table
                 ad.ct = -1
 
 
+# ---------------------------------------------------------------------------
+# lossless (SOF3): jdlhuff.c's differences, jddiffct.c's rows, jdlossls.c's
+# predictors
+
+
+def _lossless_table(tab: _Huffman, path: str):
+    """(difference category, bits it takes: code and extra bits) of every
+    16-bit window: the canonical codes filled in, and where no code starts,
+    libjpeg's sentinel (category 0 after 17 bits, jpeg_huff_decode's bad
+    code). Category 16 takes no extra bits."""
+    sym = np.zeros(1 << 16, np.int64)
+    length = np.full(1 << 16, 17, np.int64)
+    code = k = 0
+    for n, count in enumerate(tab.bits, 1):
+        for _ in range(count):
+            lo, hi = code << (16 - n), (code + 1) << (16 - n)
+            if hi > 1 << 16:
+                raise ValueError(f"{path}: corrupt JPEG (a Huffman code past its length)")
+            sym[lo:hi], length[lo:hi] = tab.vals[k], n
+            code += 1
+            k += 1
+        code <<= 1
+    return sym, length + np.where(sym < 16, sym, 0)
+
+
+def _lossless_diffs(raw: bytes, tables, pattern, n_mcu: int) -> np.ndarray:
+    """The sample differences of n_mcu MCUs of one restart interval, in
+    scan order; pattern names the table (index into tables, each a
+    _lossless_table) of each sample of an MCU. The bits a code takes are
+    looked up at every bit position of the segment at once, as if a code
+    started there; the chain of positions from 0 then picks the codes the
+    scan reads, and only those are decoded (category s, s extra bits,
+    HUFF_EXTEND; 16 is 32768). Data that runs out reads as zeros: every
+    position from the segment's end on stands for that all-zero window."""
+    nbits = 8 * len(raw)
+    b = np.frombuffer(raw + b"\x00" * 12, np.uint8).astype(np.uint64)
+    n = len(raw) + 5
+    w40 = (b[:n] << 32) | (b[1:n + 1] << 24) | (b[2:n + 2] << 16) | (b[3:n + 3] << 8) | b[4:n + 4]
+    w32 = ((w40[:, None] >> (8 - np.arange(8, dtype=np.uint64))) & 0xFFFFFFFF)
+    w32 = w32.reshape(-1)[:nbits + 33].astype(np.int64)
+    top = w32 >> 16
+    p = np.arange(nbits + 33)
+    seq = [np.minimum(p + step[top], nbits).tolist() for _, step in tables]
+    seq = [seq[t] for t in pattern]
+    pos = []
+    put = pos.append
+    x = 0
+    for _ in range(n_mcu):
+        for nxt in seq:
+            put(x)
+            x = nxt[x]
+        if x == nbits:  # the data ran out: every code from here reads the zero window
+            break
+    pos = np.asarray(pos + [nbits] * (n_mcu * len(seq) - len(pos)), np.int64)
+    t = np.tile(np.asarray(pattern), n_mcu)
+    w, tp = w32[pos], top[pos]
+    s = np.stack([sym for sym, _ in tables])[t, tp]
+    step = np.stack([st for _, st in tables])[t, tp]
+    extra = np.where(s < 16, s, 0)
+    v = (w >> (32 - step)) & ((np.int64(1) << extra) - 1)
+    d = np.where(v < (np.int64(1) << np.maximum(extra - 1, 0)), v - (np.int64(1) << extra) + 1, v)
+    return np.where(s == 16, 32768, np.where(s == 0, 0, d))
+
+
+def _undifference(d: np.ndarray, psv: int, first_rows, init: int) -> np.ndarray:
+    """jdlossls.c's undifferencing of one component's differences d (rows,
+    width), int64 samples modulo 2^16: a row of first_rows (the first of
+    the scan, and of each restart interval as jddiffct.c applies it) is
+    predicted from the sample to its left, its first from init; every
+    other row's first sample from the one above, the rest by predictor psv
+    (Ra left, Rb above, Rc above left): 1 Ra, 2 Rb, 3 Rc, 4 Ra + Rb - Rc,
+    5 Ra + ((Rb - Rc) >> 1), 6 Rb + ((Ra - Rc) >> 1), 7 (Ra + Rb) >> 1.
+    Rows run in order; within a row, 2 and 3 read the row above alone,
+    1, 4 and 5 are linear in Ra (a cumulative sum), 6 and 7 run along it."""
+    x = np.empty_like(d)
+    starts = sorted(set(first_rows))
+    for a, b in zip(starts, starts[1:] + [d.shape[0]]):
+        first = d[a].copy()
+        first[0] += init
+        x[a] = np.cumsum(first) & 0xFFFF
+        for r in range(a + 1, b):
+            up, dr = x[r - 1], d[r]
+            if psv in (6, 7):
+                x[r] = _serial_row(up.tolist(), dr.tolist(), psv)
+                continue
+            e = dr.copy()
+            e[0] += up[0]
+            if psv in (2, 3):
+                e[1:] += up[1:] if psv == 2 else up[:-1]
+                x[r] = e & 0xFFFF
+                continue
+            if psv == 4:
+                e[1:] += up[1:] - up[:-1]
+            elif psv == 5:
+                e[1:] += (up[1:] - up[:-1]) >> 1
+            x[r] = np.cumsum(e) & 0xFFFF
+    return x
+
+
+def _serial_row(up, d, psv: int):
+    """A row by predictor 6 (Rb + ((Ra - Rc) >> 1)) or 7 ((Ra + Rb) >> 1),
+    sample by sample (lists in, list out); its first sample from above."""
+    ra = (up[0] + d[0]) & 0xFFFF
+    out = [ra]
+    put = out.append
+    if psv == 6:
+        for rb, rc, dc in zip(up[1:], up, d[1:]):
+            ra = (rb + ((ra - rc) >> 1) + dc) & 0xFFFF
+            put(ra)
+    else:
+        for rb, dc in zip(up[1:], d[1:]):
+            ra = (((ra + rb) >> 1) + dc) & 0xFFFF
+            put(ra)
+    return out
+
+
+def _decode_lossless_scan(segs, comps, frame, restart: int, tables, psv: int, al: int,
+                          path: str):
+    """jddiffct.c: one lossless scan into each of its components' `samples`
+    ((height, width) uint8). An interleaved scan's MCU holds v rows of h
+    samples of each component in turn, one of a single component's scan a
+    sample; a restart interval is whole MCU rows (libjpeg refuses another),
+    and restarts the first-row prediction from the first row of the
+    iMCU row (v sample rows of a component) it falls in, the rows being
+    undifferenced an iMCU row at a time. The samples are the
+    reconstructions << Al, cut to 8 bits as libjpeg stores them."""
+    _, _, _, _, mx, my = frame
+    interleaved = len(comps) > 1
+    distinct = list({id(t): t for t in tables}.values())
+    if interleaved:
+        per_row, mcu_rows = mx, my
+        pattern = [distinct.index(t) for t, c in zip(tables, comps) for _ in range(c.h * c.v)]
+    else:
+        per_row, mcu_rows = comps[0].width, comps[0].height
+        pattern = [0]
+    if restart % per_row:
+        raise ValueError(f"{path}: lossless JPEG restart interval {restart} is not a multiple "
+                         f"of the {per_row} MCUs of a row")
+    rows_per = restart // per_row or mcu_rows
+    luts = [_lossless_table(t, path) for t in distinct]
+    parts = []
+    for j, m0 in enumerate(range(0, mcu_rows, rows_per)):
+        n = min(rows_per, mcu_rows - m0)
+        parts.append(_lossless_diffs(segs[j] if j < len(segs) else b"", luts, pattern,
+                                     n * per_row))
+    diffs = np.concatenate(parts)
+    init = 1 << (8 - al - 1)
+    off = 0
+    for c in comps:
+        if interleaved:
+            per = c.h * c.v
+            d = diffs.reshape(mcu_rows, mx, len(pattern))[:, :, off:off + per]
+            d = d.reshape(mcu_rows, mx, c.v, c.h).transpose(0, 2, 1, 3)
+            d = d.reshape(mcu_rows * c.v, mx * c.h)
+            off += per
+            restart_rows = range(0, mcu_rows * c.v, rows_per * c.v)
+        else:
+            d = diffs.reshape(mcu_rows, per_row)
+            restart_rows = range(0, mcu_rows, rows_per)
+        first = [r // c.v * c.v for r in restart_rows if r // c.v * c.v < c.height]
+        x = _undifference(d[:c.height, :c.width], psv, first, init)
+        c.samples = ((x << al) & 0xFF).astype(np.uint8)
+
+
 # jdcoefct.c's decompress_smooth_data (libjpeg-turbo's 5x5 window): for
 # each estimated coefficient, by zigzag position 1..9, its natural index and
 # the weights of the 25 DC values around the block (rows, then columns, -2
@@ -1092,17 +1273,21 @@ def _smooth(c, blocks: np.ndarray, n_rows: int) -> np.ndarray:
     return out
 
 
-def _upsample(plane: np.ndarray, fy: int, fx: int) -> np.ndarray:
-    """libjpeg-turbo's upsampling of a (h, w) component plane (the
-    component's own size, its MCU padding cropped) by (fy, fx) in {1, 2}: fancy
-    h2v1, h1v2 and h2v2 (triangle filters with alternating biases, edges
-    replicated), or plain replication where a row is 2 samples or less."""
+def _upsample(plane: np.ndarray, fy: int, fx: int, fancy: bool) -> np.ndarray:
+    """jdsample.c's upsampling of a (h, w) component plane (the component's
+    own size, its MCU padding cropped) by the integral ratio (fy, fx) of the
+    largest sampling factors to its own: where `fancy` (a DCT frame; a
+    lossless one has 1-sample data units, and libjpeg then upsamples
+    plainly), fancy h2v1, h1v2 and h2v2 (triangle filters with alternating
+    biases, edges replicated), or plain replication where a row is 2
+    samples or less; every other ratio (4:1:1, 4:1:0, 3:1, h1v4, a plane
+    above luma's sampling) by int_upsample's box replication."""
     p = plane.astype(np.int64)
     h, w = p.shape
     if (fy, fx) == (1, 1):
         return plane
-    if fx == 2 and w <= 2:  # h2v1_upsample / h2v2_upsample
-        return np.repeat(np.repeat(plane, fx, 1), fy, 0)
+    if not fancy or (fy, fx) not in ((1, 2), (2, 1), (2, 2)) or (fx == 2 and w <= 2):
+        return np.repeat(np.repeat(plane, fx, 1), fy, 0)  # int_upsample, h2v1/h2v2_upsample
     if fy == 1:  # h2v1 fancy
         left = np.concatenate([p[:, :1], p[:, :-1]], 1)
         right = np.concatenate([p[:, 1:], p[:, -1:]], 1)
@@ -1142,11 +1327,58 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's RGB of libjpeg's (..., 4) CMYK output: its "CMYK;I" raw mode
+    inverts every byte (Adobe's convention, whatever the markers say), then
+    Convert.c's cmyk2rgb: each of R, G and B is clip(nk - MULDIV255(c, nk))
+    with nk = 255 - k, MULDIV255(a, b) = (((t >> 8) + t) >> 8), t = a b + 128."""
+    inv = 255 - np.asarray(cmyk, np.int64)
+    nk = 255 - inv[..., 3:]
+    t = inv[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def _color_space(comps, jfif: bool, adobe, lossless: bool) -> str:
+    """jdapimin.c's guess of a frame's color space: "gray" for one
+    component; for three, JFIF means "ycc", else the Adobe transform (0
+    "rgb", any other "ycc"), else the component ids ('R', 'G', 'B' mean
+    "rgb", any others "ycc" in a DCT frame and "rgb" in a lossless one);
+    for four, Adobe transform 0 or no Adobe marker means "cmyk", any other
+    transform "ycck"."""
+    if len(comps) == 1:
+        return "gray"
+    if len(comps) == 4:
+        return "cmyk" if adobe is None or adobe == 0 else "ycck"
+    if jfif:
+        return "ycc"
+    if adobe is not None:
+        return "rgb" if adobe == 0 else "ycc"
+    return "rgb" if lossless or [c.cid for c in comps] == [82, 71, 66] else "ycc"
+
+
+def _color(planes, space: str) -> np.ndarray:
+    """The frame as PIL hands it over from the full-size component planes
+    in their color space: gray as it is; RGB as it is, YCbCr through
+    jdcolor.c's ycc_rgb_convert; libjpeg's CMYK output (CMYK as stored;
+    YCCK's C, M and Y 255 minus ycc_rgb_convert's R, G and B, K as
+    stored) through cmyk_to_rgb."""
+    if space == "gray":
+        return np.ascontiguousarray(planes[0])
+    if space == "rgb":
+        return np.stack(planes, -1)
+    if space == "ycc":
+        return _ycc_to_rgb(*planes)
+    if space == "cmyk":
+        return cmyk_to_rgb(np.stack(planes, -1))
+    return cmyk_to_rgb(np.concatenate([255 - _ycc_to_rgb(*planes[:3]), planes[3][..., None]], -1))
+
+
 def decode(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """(H, W) gray or (H, W, 3) RGB uint8 pixels of a JPEG (baseline,
-    extended, progressive, arithmetic-coded sequential or progressive), as
-    libjpeg-turbo decodes them with its defaults; `path` names the file in
-    the errors, all ValueErrors."""
+    extended, progressive, lossless, arithmetic-coded sequential or
+    progressive), as libjpeg-turbo decodes them with its defaults and PIL
+    hands them over (a 4-component file as PIL's RGB of its CMYK); `path`
+    names the file in the errors, all ValueErrors."""
     try:
         return _decode(data, path)
     except (struct.error, IndexError, KeyError) as exc:  # a segment cut short or malformed
@@ -1161,7 +1393,7 @@ def _decode(data: bytes, path: str) -> np.ndarray:
     # DAC's conditioning by table number (jdmarker.c's defaults): L, U, Kx
     dac = ([0] * 16, [1] * 16, [5] * 16)
     comps, frame, restart, adobe, jfif = None, None, 0, None, False
-    progressive = arithmetic = False
+    progressive = arithmetic = lossless = False
     pos = 2
     while True:
         while pos < len(data) and data[pos] == 0xFF and pos + 1 < len(data) \
@@ -1218,15 +1450,15 @@ def _decode(data: bytes, path: str) -> np.ndarray:
             adobe = body[11]
         elif marker in _SOF_REFUSED:
             raise ValueError(f"{path}: {_SOF_REFUSED[marker]} JPEG is not decoded "
-                             "(SOF0-2, SOF9 and SOF10 only)")
+                             "(SOF0-3, SOF9 and SOF10 only)")
         elif marker in _SOF_DECODED:
-            progressive, arithmetic = _SOF_DECODED[marker]
+            progressive, arithmetic, lossless = _SOF_DECODED[marker]
             precision, h, w, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise ValueError(f"{path}: {precision}-bit JPEG is not decoded (8-bit only)")
-            if nc not in (1, 3):
-                raise ValueError(f"{path}: {nc}-component JPEG (CMYK, YCCK or other) is not "
-                                 "decoded (1 or 3 components only)")
+            if nc not in (1, 3, 4):
+                raise ValueError(f"{path}: {nc}-component JPEG is not decoded (1, 3 or 4 "
+                                 "components)")
             if h == 0 or w == 0:
                 raise ValueError(f"{path}: JPEG of size {w}x{h}")
             comps = []
@@ -1234,18 +1466,24 @@ def _decode(data: bytes, path: str) -> np.ndarray:
                 c = _Component()
                 c.cid, hv, c.tq = body[6 + 3 * k], body[7 + 3 * k], body[8 + 3 * k]
                 c.h, c.v = hv >> 4, hv & 15
-                if c.h not in (1, 2) or c.v not in (1, 2):
+                if not (1 <= c.h <= 4 and 1 <= c.v <= 4):
                     raise ValueError(f"{path}: JPEG sampling factors {c.h}x{c.v} are not "
-                                     "decoded (up to 2x2)")
+                                     "decoded (1 to 4 each)")
                 comps.append(c)
             hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-            mx, my = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+            for c in comps:
+                if hmax % c.h or vmax % c.v:  # jdsample.c's JERR_FRACT_SAMPLE_NOTIMPL
+                    raise ValueError(f"{path}: JPEG sampling factors {c.h}x{c.v} under "
+                                     f"{hmax}x{vmax} are a fractional ratio, not decoded")
+            unit = 1 if lossless else 8  # a lossless data unit is one sample
+            mx, my = -(-w // (unit * hmax)), -(-h // (unit * vmax))
             for c in comps:
                 c.width, c.height = -(-w * c.h // hmax), -(-h * c.v // vmax)
                 c.bw, c.bh = mx * c.h, my * c.v
                 c.coefs = []
                 c.table = None
                 c.bits = [-1] * 64
+                c.samples = None
             frame = (h, w, hmax, vmax, mx, my)
         elif marker == 0xDA:  # SOS
             if frame is None:
@@ -1255,6 +1493,9 @@ def _decode(data: bytes, path: str) -> np.ndarray:
                 raise ValueError(f"{path}: corrupt JPEG (a scan of {ns} components)")
             ss, se, ahal = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns]
             ah, al = ahal >> 4, ahal & 15
+            if lossless and not (1 <= ss <= 7 and se == 0 and ah == 0 and al < 8):
+                raise ValueError(f"{path}: bad lossless JPEG scan (predictor Ss {ss}, Se {se}, "
+                                 f"Ah {ah}, Al {al})")
             if progressive and ((se != 0 if ss == 0 else ss > se or se > 63 or ns != 1)
                                 or (ah != 0 and al != ah - 1) or al > 13):
                 raise ValueError(f"{path}: bad JPEG progression (Ss {ss}, Se {se}, Ah {ah}, "
@@ -1266,6 +1507,13 @@ def _decode(data: bytes, path: str) -> np.ndarray:
                 if cid not in by_id:
                     raise ValueError(f"{path}: JPEG scan names an unknown component {cid}")
                 c = by_id[cid]
+                if lossless:  # a DC-class table of categories 0 to 16
+                    dct = huff.get(td_ta >> 4)
+                    if dct is None or any(s > 16 for s in dct.vals):
+                        raise ValueError(f"{path}: lossless JPEG scan without a valid table")
+                    tables.append(dct)
+                    scomps.append(c)
+                    continue
                 if c.tq not in qt:
                     raise ValueError(f"{path}: JPEG without quantisation table {c.tq}")
                 if arithmetic:
@@ -1287,6 +1535,13 @@ def _decode(data: bytes, path: str) -> np.ndarray:
                 if progressive:  # where libjpeg only warns (bogus progression), decode on
                     c.bits[ss:se + 1] = [al] * (se + 1 - ss)
                 scomps.append(c)
+            if ns > 1 and sum(c.h * c.v for c in scomps) > MAX_BLOCKS_IN_MCU:
+                raise ValueError(f"{path}: JPEG MCU of {sum(c.h * c.v for c in scomps)} blocks "
+                                 f"(libjpeg reads at most {MAX_BLOCKS_IN_MCU})")
+            if lossless:
+                segs, pos = _scan_segments(data, pos, path)
+                _decode_lossless_scan(segs, scomps, frame, restart, tables, ss, al, path)
+                continue
             if ns == 1:  # single-component scan: one block an MCU, over the component's blocks
                 mcus = (-(-scomps[0].width // 8), -(-scomps[0].height // 8))
             else:
@@ -1304,22 +1559,23 @@ def _decode(data: bytes, path: str) -> np.ndarray:
         raise ValueError(f"{path}: JPEG without a frame header")
     h, w, hmax, vmax, _, my = frame
     for c in comps:
-        if not c.coefs:
+        if (c.samples is None) if lossless else not c.coefs:
             raise ValueError(f"{path}: JPEG component {c.cid} has no scan")
+    space = _color_space(comps, jfif, adobe, lossless)
+    if lossless and space in ("ycc", "ycck"):  # jdcolor.c: no lossy conversion in lossless mode
+        raise ValueError(f"{path}: lossless JPEG in {'YCbCr' if space == 'ycc' else 'YCCK'} is "
+                         "not decoded (libjpeg converts no color of a lossless frame)")
     smooth = progressive and _smoothing_ok(comps)
     planes = []
     for c in comps:
-        blocks = np.asarray(c.coefs, np.int64).reshape(c.bh, c.bw, 64)
-        if smooth:
-            blocks = _smooth(c, blocks, my)
-        plane = idct_islow(blocks.reshape(-1, 8, 8) * c.table)
-        plane = plane.reshape(c.bh, c.bw, 8, 8).swapaxes(1, 2)
-        plane = plane.reshape(c.bh * 8, c.bw * 8)[:c.height, :c.width]
-        planes.append(_upsample(plane, vmax // c.v, hmax // c.h)[:h, :w])
-    if len(planes) == 1:
-        return np.ascontiguousarray(planes[0])
-    # jdapimin.c's guess of the color space: JFIF means YCbCr, else the
-    # Adobe transform, else the component ids ('R', 'G', 'B' means RGB)
-    if not jfif and (adobe == 0 or (adobe is None and [c.cid for c in comps] == [82, 71, 66])):
-        return np.stack(planes, -1)
-    return _ycc_to_rgb(*planes)
+        if lossless:
+            plane = c.samples
+        else:
+            blocks = np.asarray(c.coefs, np.int64).reshape(c.bh, c.bw, 64)
+            if smooth:
+                blocks = _smooth(c, blocks, my)
+            plane = idct_islow(blocks.reshape(-1, 8, 8) * c.table)
+            plane = plane.reshape(c.bh, c.bw, 8, 8).swapaxes(1, 2)
+            plane = plane.reshape(c.bh * 8, c.bw * 8)[:c.height, :c.width]
+        planes.append(_upsample(plane, vmax // c.v, hmax // c.h, not lossless)[:h, :w])
+    return _color(planes, space)

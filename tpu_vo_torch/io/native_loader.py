@@ -11,9 +11,10 @@ builds with g++ and nothing but the C++ standard library and pthreads.
 A PNG decodes to libpng's pixels under the original's transforms, and an
 Adam7-interlaced one is read whole (tpu_vo's native route fails on it:
 "IDAT: Too much image data"); a JPEG decodes as io/jpeg.decode does
-(sequential and progressive, Huffman- and arithmetic-coded; 12-bit,
-lossless, hierarchical and CMYK files are skipped, as the Python route
-refuses them). The library is built on first use, never
+(sequential, progressive and lossless, Huffman- and arithmetic-coded,
+gray, RGB, CMYK and YCCK; 12-bit, hierarchical, 2-component and lossless
+arithmetic files are skipped, as the Python route refuses them). The
+library is built on first use, never
 at import, with g++ into tpu_vo_torch/_build/, named by a hash of every
 source and the flags, through ops/_build.build_once: concurrent first
 uses in several processes build it once and never load a half-written
