@@ -26,6 +26,7 @@ from tpu_vo_torch.image.color import bgr_to_gray
 from tpu_vo_torch.io.trajectory_io import load_checkpoint, save_checkpoint
 from tpu_vo_torch.pipeline.runner import entry_device
 from tpu_vo_torch.pipeline.step import VOState, initial_state, vo_step
+from tpu_vo_torch.utils.profiling import CALL_SPAN, span
 from tpu_vo_torch.utils.records import step_record
 from tpu_vo_torch.viz.overlay import draw_keypoints_overlay, host_features
 from tpu_vo_torch.viz.trajectory import TrajectoryRenderer, save_trajectory_screenshots
@@ -82,28 +83,30 @@ class VisualOdometry:
         rendered it)."""
         if frame.image is None:
             raise ValueError("frame has no image")
-        img = torch.as_tensor(np.asarray(frame.image)).to(self.device)
-        if img.dim() == 3:
-            img = bgr_to_gray(img)
-        self._state, out = vo_step(self._state, img, self.config)
+        with span(CALL_SPAN):
+            with span("vo.upload"):
+                img = torch.as_tensor(np.asarray(frame.image)).to(self.device)
+            if img.dim() == 3:
+                img = bgr_to_gray(img)
+            self._state, out = vo_step(self._state, img, self.config)
 
-        pose = Pose(out.pose.R.cpu(), out.pose.t.cpu())
-        frame.pose = pose
-        frame.processed = True
-        rec = step_record(frame.id, out)
-        with self._lock:
-            self._trajectory.append(pose)
-            self._records.append(rec)
-            if bool(out.has_F):
-                self._last_F = out.F.cpu().numpy()
+            pose = Pose(out.pose.R.cpu(), out.pose.t.cpu())
+            frame.pose = pose
+            frame.processed = True
+            rec = step_record(frame.id, out)
+            with self._lock:
+                self._trajectory.append(pose)
+                self._records.append(rec)
+                if bool(out.has_F):
+                    self._last_F = out.F.cpu().numpy()
 
-        if not render_overlay:
-            return None
-        feats = host_features(self._state.prev)
-        frame.keypoints = feats.xy[feats.valid]
-        frame.descriptors = feats.desc[feats.valid]
-        gray = np.asarray(frame.image) if np.ndim(frame.image) == 2 else img.cpu().numpy()
-        return draw_keypoints_overlay(gray, feats)
+            if not render_overlay:
+                return None
+            feats = host_features(self._state.prev)
+            frame.keypoints = feats.xy[feats.valid]
+            frame.descriptors = feats.desc[feats.valid]
+            gray = np.asarray(frame.image) if np.ndim(frame.image) == 2 else img.cpu().numpy()
+            return draw_keypoints_overlay(gray, feats)
 
     # --- reference getters -------------------------------------------------
     def get_trajectory(self) -> List[np.ndarray]:

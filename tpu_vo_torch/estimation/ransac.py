@@ -27,7 +27,6 @@ samples depend neither on how the pairs are batched nor on the device.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -37,6 +36,7 @@ from tpu_vo_torch.estimation.five_point import five_point_candidates_batched
 from tpu_vo_torch.estimation.recover_pose import decompose_essential
 from tpu_vo_torch.geometry.epipolar import sampson_error
 from tpu_vo_torch.geometry.triangulation import cheirality_mask
+from tpu_vo_torch.utils.profiling import span
 
 
 # Two-phase scoring: every hypothesis ranked on a subset of PRESCREEN
@@ -291,10 +291,6 @@ def lo_refit(winner: Winner, x1, x2, mask, thr_sq, score_sq, num_hypotheses,
     )
 
 
-def _no_mark(name: str):
-    return contextlib.nullcontext()
-
-
 class Phases:
     """find_essential_ransac on one batch of P pairs, phase by phase: its
     arguments, the policy they set (two-phase scoring or not; adaptive
@@ -323,7 +319,8 @@ class Phases:
 
     def draw(self, generators: Sequence[torch.Generator]) -> torch.Tensor:
         """draw_samples: (P, max_iters, S) sample indices."""
-        return draw_samples(generators, self.mask, self.max_iters, self.sample_size)
+        with span("ransac.draw"):
+            return draw_samples(generators, self.mask, self.max_iters, self.sample_size)
 
     def hypotheses(self, idx: torch.Tensor):
         """(Es, valid_models, num_hypotheses) of the samples idx."""
@@ -352,17 +349,16 @@ class Phases:
         return lo_refit(winner, self.x1, self.x2, self.mask, self.thr_sq, score_sq,
                         num_hypotheses, self.sample_size)
 
-    def run(self, idx: torch.Tensor, mark=_no_mark) -> EssentialRansacResult:
-        """The phases chained on samples idx; `mark(name)`, a context
-        manager, wraps each phase ("hypotheses", "prescreen", "fullscore",
-        "refit")."""
-        with mark("hypotheses"):
+    def run(self, idx: torch.Tensor) -> EssentialRansacResult:
+        """The phases chained on samples idx, each in its span
+        (ransac.hypotheses, .prescreen, .fullscore, .refit)."""
+        with span("ransac.hypotheses"):
             Es, valid_models, num_hypotheses = self.hypotheses(idx)
-        with mark("prescreen"):
+        with span("ransac.prescreen"):
             Es, valid_models, gate_ok, score_sq = self.prescreen(Es, valid_models)
-        with mark("fullscore"):
+        with span("ransac.fullscore"):
             winner, score_sq = self.fullscore(Es, valid_models, gate_ok, score_sq)
-        with mark("refit"):
+        with span("ransac.refit"):
             return self.refit(winner, score_sq, num_hypotheses)
 
 

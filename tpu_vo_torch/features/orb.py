@@ -35,6 +35,7 @@ from tpu_vo_torch.features.fast import _border_mask
 from tpu_vo_torch.image.pyramid import build_pyramid
 from tpu_vo_torch.ops.patch import extract_patches_levels
 from tpu_vo_torch.ops.select import _bit_reverse, select_maps_levels
+from tpu_vo_torch.utils.profiling import span
 
 
 class ORBFeatures(NamedTuple):
@@ -235,14 +236,21 @@ def detect_and_compute(img: torch.Tensor,
     """ORB features of (B, H, W) or (H, W) grayscale frames (uint8 or
     float32 0..255); each kernel launches once for all levels and frames:
     pyramid_levels, select_keypoints (B1), keypoint_coords,
-    keypoint_windows (B2), describe and pack_features, in that order."""
+    keypoint_windows (B2), describe and pack_features, in that order,
+    each in its span (orb.pyramid, .select, .windows, .describe, .pack)."""
     single = img.dim() == 2
     frames = img[None] if single else img
-    used = pyramid_levels(frames, cfg)
-    kps, starts = select_keypoints(used, cfg)
-    ys, xs = keypoint_coords(kps)
-    ang, bits = describe(keypoint_windows(used, ys, xs, starts))
-    feats = pack_features(used, kps, ys, xs, ang, bits, cfg)
+    with span("orb.pyramid"):
+        used = pyramid_levels(frames, cfg)
+    with span("orb.select"):
+        kps, starts = select_keypoints(used, cfg)
+        ys, xs = keypoint_coords(kps)
+    with span("orb.windows"):
+        raw = keypoint_windows(used, ys, xs, starts)
+    with span("orb.describe"):
+        ang, bits = describe(raw)
+    with span("orb.pack"):
+        feats = pack_features(used, kps, ys, xs, ang, bits, cfg)
     if single:
         feats = ORBFeatures(*(f[0] for f in feats))
     return feats

@@ -26,6 +26,7 @@ from typing import Callable
 import torch
 
 from tpu_vo_torch.ops.levels import LevelTable
+from tpu_vo_torch.utils.profiling import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -119,30 +120,32 @@ def _nvcc_build(tmp: str) -> None:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if its sources changed."""
-    path = os.path.join(BUILD_DIR, f"libtpu_vo_kernels_{_digest()}.so")
-    t0 = time.perf_counter()
-    if build_once(path, _nvcc_build):
-        BuildInfo.seconds = time.perf_counter() - t0
-    BuildInfo.path = path
-    lib = ctypes.CDLL(path)
-    lib.tvo_select_maps_levels.argtypes = [LevelTable, _I, _F, _I, _F, _F, _I, _P]
-    lib.tvo_select_maps_levels.restype = _I
-    lib.tvo_select_maps_occupancy.argtypes = [_I, ctypes.POINTER(_I)]
-    lib.tvo_select_maps_occupancy.restype = _I
-    lib.tvo_extract_patches_levels.argtypes = [LevelTable, _P, _P, _P, _I, _P]
-    lib.tvo_extract_patches_levels.restype = _I
-    lib.tvo_fast_margin_levels.argtypes = [LevelTable, _I, _F, _P]
-    lib.tvo_fast_margin_levels.restype = _I
-    lib.tvo_fast_margin_occupancy.argtypes = [ctypes.POINTER(_I)]
-    lib.tvo_fast_margin_occupancy.restype = _I
-    lib.tvo_band_windows.argtypes = [_P, _P, _P, _P, *[_I] * 9, _P]
-    lib.tvo_band_windows.restype = _I
-    lib.tvo_phase_windows.argtypes = [_P, _P, _P, _P, *[_I] * 8, _P]
-    lib.tvo_phase_windows.restype = _I
-    lib.tvo_windows_blocks_per_sm.argtypes = [_I, _I, _I]
-    lib.tvo_windows_blocks_per_sm.restype = _I
-    return lib
+    """The loaded kernel library, built first if its sources changed (in
+    the span kernels.load)."""
+    with span("kernels.load"):
+        path = os.path.join(BUILD_DIR, f"libtpu_vo_kernels_{_digest()}.so")
+        t0 = time.perf_counter()
+        if build_once(path, _nvcc_build):
+            BuildInfo.seconds = time.perf_counter() - t0
+        BuildInfo.path = path
+        lib = ctypes.CDLL(path)
+        lib.tvo_select_maps_levels.argtypes = [LevelTable, _I, _F, _I, _F, _F, _I, _P]
+        lib.tvo_select_maps_levels.restype = _I
+        lib.tvo_select_maps_occupancy.argtypes = [_I, ctypes.POINTER(_I)]
+        lib.tvo_select_maps_occupancy.restype = _I
+        lib.tvo_extract_patches_levels.argtypes = [LevelTable, _P, _P, _P, _I, _P]
+        lib.tvo_extract_patches_levels.restype = _I
+        lib.tvo_fast_margin_levels.argtypes = [LevelTable, _I, _F, _P]
+        lib.tvo_fast_margin_levels.restype = _I
+        lib.tvo_fast_margin_occupancy.argtypes = [ctypes.POINTER(_I)]
+        lib.tvo_fast_margin_occupancy.restype = _I
+        lib.tvo_band_windows.argtypes = [_P, _P, _P, _P, *[_I] * 9, _P]
+        lib.tvo_band_windows.restype = _I
+        lib.tvo_phase_windows.argtypes = [_P, _P, _P, _P, *[_I] * 8, _P]
+        lib.tvo_phase_windows.restype = _I
+        lib.tvo_windows_blocks_per_sm.argtypes = [_I, _I, _I]
+        lib.tvo_windows_blocks_per_sm.restype = _I
+        return lib
 
 
 @contextlib.contextmanager

@@ -58,6 +58,7 @@ from tpu_vo_torch.pipeline.runner import (
     estimate_pairs,
 )
 from tpu_vo_torch.pipeline.step import pair_generators
+from tpu_vo_torch.utils.profiling import CALL_SPAN, span
 
 # The per-pair estimates that the seq axis gathers: the pose chain's
 # inputs and the diagnostics (106 B a pair)
@@ -96,10 +97,11 @@ def _block(total: int, rank: int, n: int, what: str, axis: str) -> range:
 
 def _upload(frames, rows: range, times: range, device: torch.device) -> torch.Tensor:
     """frames[rows, times] of the global host array, on `device`."""
-    part = frames[rows.start:rows.stop, times.start:times.stop]
-    if isinstance(part, np.ndarray):
-        part = torch.from_numpy(np.array(part))  # a copy: the array may be a read-only memmap
-    return part.to(device)
+    with span("vo.upload"):
+        part = frames[rows.start:rows.stop, times.start:times.stop]
+        if isinstance(part, np.ndarray):
+            part = torch.from_numpy(np.array(part))  # a copy: the array may be a read-only memmap
+        return part.to(device)
 
 
 def _wire(group) -> Optional[torch.device]:
@@ -175,10 +177,11 @@ def _gather(fields: list, R: int, group, n: int, axis: str) -> list:
 
 def _chain_rows(est: dict, cfg: VOConfig):
     """Each row's pose chain from (R, P) estimates: (Pose (R, P+1), diagnostics (R, P))."""
-    poses = [chain_relative_poses(est["R"][b], est["t"][b], est["have_rt"][b],
-                                  est["pose_ok"][b], cfg) for b in range(est["R"].shape[0])]
-    return (Pose(torch.stack([p.R for p in poses]), torch.stack([p.t for p in poses])),
-            diagnostics(est))
+    with span("vo.stage3"):
+        poses = [chain_relative_poses(est["R"][b], est["t"][b], est["have_rt"][b],
+                                      est["pose_ok"][b], cfg) for b in range(est["R"].shape[0])]
+        return (Pose(torch.stack([p.R for p in poses]), torch.stack([p.t for p in poses])),
+                diagnostics(est))
 
 
 def run_batch_of_sequences(frames, cfg: VOConfig, seed: int = 0,
@@ -201,14 +204,17 @@ def run_batch_of_sequences(frames, cfg: VOConfig, seed: int = 0,
     R = len(rows)
     _spans(R * T, frame_chunk)
     _spans(R * (T - 1), pair_chunk)
-    local = _upload(frames, rows, range(T), entry_device(device))
-    feats = detect_frames(local.reshape(R * T, *local.shape[2:]), cfg, frame_chunk)
-    feats = [f.reshape(R, T, *f.shape[1:]) for f in feats]
-    prev = ORBFeatures(*(f[:, :-1].reshape(R * (T - 1), *f.shape[2:]) for f in feats))
-    cur = ORBFeatures(*(f[:, 1:].reshape(R * (T - 1), *f.shape[2:]) for f in feats))
-    gens = [g for b in rows for g in pair_generators(seed + b, range(1, T))]
-    est = estimate_pairs(prev, cur, cfg, gens, pair_chunk)
-    return _chain_rows({k: est[k].reshape(R, T - 1, *est[k].shape[1:]) for k in GATHERED}, cfg)
+    with span(CALL_SPAN):
+        local = _upload(frames, rows, range(T), entry_device(device))
+        feats = detect_frames(local.reshape(R * T, *local.shape[2:]), cfg, frame_chunk)
+        feats = [f.reshape(R, T, *f.shape[1:]) for f in feats]
+        prev = ORBFeatures(*(f[:, :-1].reshape(R * (T - 1), *f.shape[2:]) for f in feats))
+        cur = ORBFeatures(*(f[:, 1:].reshape(R * (T - 1), *f.shape[2:]) for f in feats))
+        with span("vo.seeds"):
+            gens = [g for b in rows for g in pair_generators(seed + b, range(1, T))]
+        est = estimate_pairs(prev, cur, cfg, gens, pair_chunk)
+        return _chain_rows({k: est[k].reshape(R, T - 1, *est[k].shape[1:]) for k in GATHERED},
+                           cfg)
 
 
 def _time_sharded(frames, rows: range, seed: int, cfg: VOConfig, mesh, axis: str, device):
@@ -217,21 +223,22 @@ def _time_sharded(frames, rows: range, seed: int, cfg: VOConfig, mesh, axis: str
     group, r, n = _axis(mesh, axis)
     times = _block(frames.shape[1], r, n, "T", axis)
     dev = entry_device(device)
-    local = _upload(frames, rows, times, dev)
-    R, t = local.shape[:2]
-    feats = detect_frames(local.reshape(R * t, *local.shape[2:]), cfg,
-                          _stream_chunk(R * t, STREAM_FRAME_CHUNK))
-    feats = ORBFeatures(*(f.reshape(R, t, *f.shape[1:]) for f in feats))
-    empty = ORBFeatures(*(f.expand(R, *f.shape[1:]) for f in _empty_features(cfg, dev)))
-    carry = _halo(ORBFeatures(*(f[:, -1] for f in feats)), empty, group, r, n, axis)
-    est = _streamed_pairs(carry, feats, cfg, [seed + b for b in rows], times.start)
-    fields = [est[k] for k in GATHERED]
-    if n > 1:
-        fields = _gather(fields, R, group, n, axis)
-    else:
-        fields = [f.reshape(R, t, *f.shape[1:]) for f in fields]
-    # drop each row's first pair: frame 0 against the empty features
-    return _chain_rows({k: f[:, 1:] for k, f in zip(GATHERED, fields)}, cfg)
+    with span(CALL_SPAN):
+        local = _upload(frames, rows, times, dev)
+        R, t = local.shape[:2]
+        feats = detect_frames(local.reshape(R * t, *local.shape[2:]), cfg,
+                              _stream_chunk(R * t, STREAM_FRAME_CHUNK))
+        feats = ORBFeatures(*(f.reshape(R, t, *f.shape[1:]) for f in feats))
+        empty = ORBFeatures(*(f.expand(R, *f.shape[1:]) for f in _empty_features(cfg, dev)))
+        carry = _halo(ORBFeatures(*(f[:, -1] for f in feats)), empty, group, r, n, axis)
+        est = _streamed_pairs(carry, feats, cfg, [seed + b for b in rows], times.start)
+        fields = [est[k] for k in GATHERED]
+        if n > 1:
+            fields = _gather(fields, R, group, n, axis)
+        else:
+            fields = [f.reshape(R, t, *f.shape[1:]) for f in fields]
+        # drop each row's first pair: frame 0 against the empty features
+        return _chain_rows({k: f[:, 1:] for k, f in zip(GATHERED, fields)}, cfg)
 
 
 def run_sequence_time_sharded(frames, cfg: VOConfig, mesh, seed: int = 0, axis: str = "seq",

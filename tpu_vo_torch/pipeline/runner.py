@@ -41,6 +41,7 @@ from tpu_vo_torch.pipeline.step import (
     vo_step,
 )
 from tpu_vo_torch.pipeline.upload import upload_ahead
+from tpu_vo_torch.utils.profiling import CALL_SPAN, span
 
 # Frames per stage-1 launch and pairs per stage-2 call of a streamed
 # chunk whose length they divide (else the whole chunk at once), as
@@ -118,31 +119,35 @@ def run_sequence_scan(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
     the per-frame outputs stacked along a leading T (poses: the
     trajectory, the first the identity). Pair i draws the samples that
     run_sequence_batched gives it."""
-    frames = frames.to(entry_device(device))
-    state = initial_state(cfg, seed, frames.device)
-    outs = []
-    for frame in frames:
-        state, out = vo_step(state, frame, cfg)
-        outs.append(out)
-    return _cat(outs, torch.stack)
+    with span(CALL_SPAN):
+        with span("vo.upload"):
+            frames = frames.to(entry_device(device))
+        state = initial_state(cfg, seed, frames.device)
+        outs = []
+        for frame in frames:
+            state, out = vo_step(state, frame, cfg)
+            outs.append(out)
+        return _cat(outs, torch.stack)
 
 
 def detect_frames(frames: torch.Tensor, cfg: VOConfig,
                   frame_chunk: Optional[int] = None) -> ORBFeatures:
     """Stage 1: ORB features of (n, H, W) frames, `frame_chunk` frames
     per launch of each kernel (all at once when None)."""
-    return _cat([detect_and_compute(frames[a:e], cfg.orb)
-                 for a, e in _spans(frames.shape[0], frame_chunk)])
+    with span("vo.stage1"):
+        return _cat([detect_and_compute(frames[a:e], cfg.orb)
+                     for a, e in _spans(frames.shape[0], frame_chunk)])
 
 
 def estimate_pairs(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig, generators,
                    pair_chunk: Optional[int] = None) -> dict:
     """Stage 2: `estimate_pair` over P pairs (leading dim P), `pair_chunk`
     pairs at a time, pair i drawing from generators[i]."""
-    return _cat([estimate_pair(ORBFeatures(*(f[a:e] for f in prev)),
-                               ORBFeatures(*(f[a:e] for f in cur)), cfg,
-                               generators=generators[a:e])
-                 for a, e in _spans(prev.xy.shape[0], pair_chunk)])
+    with span("vo.stage2"):
+        return _cat([estimate_pair(ORBFeatures(*(f[a:e] for f in prev)),
+                                   ORBFeatures(*(f[a:e] for f in cur)), cfg,
+                                   generators=generators[a:e])
+                     for a, e in _spans(prev.xy.shape[0], pair_chunk)])
 
 
 def diagnostics(est: dict) -> dict:
@@ -169,15 +174,19 @@ def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
     dim T, diagnostics dict of (T-1,) tensors), the same for every
     chunking."""
     _check_chunks(frame_chunk, pair_chunk)
-    frames = frames.to(entry_device(device))
-    T = frames.shape[0]
-    feats = detect_frames(frames, cfg, frame_chunk)
-    est = estimate_pairs(ORBFeatures(*(f[:-1] for f in feats)),
-                         ORBFeatures(*(f[1:] for f in feats)), cfg,
-                         pair_generators(seed, range(1, T)), pair_chunk)
-    poses = chain_relative_poses(est["R"], est["t"], est["have_rt"],
-                                 est["pose_ok"], cfg)
-    return poses, diagnostics(est)
+    with span(CALL_SPAN):
+        with span("vo.upload"):
+            frames = frames.to(entry_device(device))
+        T = frames.shape[0]
+        feats = detect_frames(frames, cfg, frame_chunk)
+        with span("vo.seeds"):
+            gens = pair_generators(seed, range(1, T))
+        est = estimate_pairs(ORBFeatures(*(f[:-1] for f in feats)),
+                             ORBFeatures(*(f[1:] for f in feats)), cfg, gens, pair_chunk)
+        with span("vo.stage3"):
+            poses = chain_relative_poses(est["R"], est["t"], est["have_rt"],
+                                         est["pose_ok"], cfg)
+        return poses, diagnostics(est)
 
 
 @functools.lru_cache(maxsize=None)
@@ -206,7 +215,8 @@ def _streamed_pairs(carry: ORBFeatures, feats: ORBFeatures, cfg: VOConfig, seeds
     prev = ORBFeatures(*(torch.cat([c[:, None], f[:, :-1]], 1).flatten(0, 1)
                          for c, f in zip(carry, feats)))
     cur = ORBFeatures(*(f.flatten(0, 1) for f in feats))
-    gens = [g for s in seeds for g in pair_generators(s, range(offset, offset + n))]
+    with span("vo.seeds"):
+        gens = [g for s in seeds for g in pair_generators(s, range(offset, offset + n))]
     return estimate_pairs(prev, cur, cfg, gens, _stream_chunk(R * n, pair_chunk))
 
 
@@ -240,14 +250,17 @@ def run_sequence_streamed(chunks: Iterable, cfg: VOConfig, chunk_size: int = 0, 
     concatenated frames, each pair drawing the same samples."""
     del chunk_size
     dev = entry_device(device)
-    carry = _empty_features(cfg, dev)
-    ests, offset = [], 0
-    for _, chunk in upload_ahead(((None, c) for c in chunks), dev, prefetch_depth):
-        carry, est = _streamed_step(carry, chunk, cfg, seed, offset)
-        ests.append(est)
-        offset += chunk.shape[0]
-    if not ests:
-        raise ValueError("run_sequence_streamed: empty chunk iterator")
-    est = {k: v[1:] for k, v in _cat(ests).items() if k != "stats"}  # drop the first pair
-    poses = chain_relative_poses(est["R"], est["t"], est["have_rt"], est["pose_ok"], cfg)
-    return poses, diagnostics(est)
+    with span(CALL_SPAN):
+        carry = _empty_features(cfg, dev)
+        ests, offset = [], 0
+        for _, chunk in upload_ahead(((None, c) for c in chunks), dev, prefetch_depth):
+            carry, est = _streamed_step(carry, chunk, cfg, seed, offset)
+            ests.append(est)
+            offset += chunk.shape[0]
+        if not ests:
+            raise ValueError("run_sequence_streamed: empty chunk iterator")
+        est = {k: v[1:] for k, v in _cat(ests).items() if k != "stats"}  # drop the first pair
+        with span("vo.stage3"):
+            poses = chain_relative_poses(est["R"], est["t"], est["have_rt"], est["pose_ok"],
+                                         cfg)
+        return poses, diagnostics(est)

@@ -30,10 +30,7 @@ import numpy as np
 import torch
 
 from tpu_vo_torch.configs import VOConfig
-from tpu_vo_torch.estimation.ransac import (
-    find_essential_ransac,
-    pixel_threshold_to_normalized,
-)
+from tpu_vo_torch.estimation.ransac import Phases, pixel_threshold_to_normalized
 from tpu_vo_torch.estimation.recover_pose import recover_pose_from_essential
 from tpu_vo_torch.features.orb import ORBFeatures, detect_and_compute
 from tpu_vo_torch.geometry import se3
@@ -42,6 +39,7 @@ from tpu_vo_torch.geometry.epipolar import algebraic_residual, fundamental_from_
 from tpu_vo_torch.geometry.se3 import Pose
 from tpu_vo_torch.matching.filter import adaptive_threshold_filter, match_statistics
 from tpu_vo_torch.matching.hamming import mutual_nearest_match, ratio_test_match
+from tpu_vo_torch.utils.profiling import span
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,76 +68,81 @@ def estimate_pair(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig,
     """Match P feature-set pairs (leading dim P) and estimate each relative
     motion (c2 <- c1). RANSAC samples come from one generator per pair or
     from explicit `idx` (P, max_iters, 5, or 8 for 8-point samples)."""
-    K = _intrinsics(cfg.intrinsics, prev.xy.device, prev.xy.dtype)
     rcfg = cfg.ransac
+    with span("pair.match"):
+        if cfg.match.use_ratio_test:
+            good = ratio_test_match(prev.desc32, cur.desc32, prev.valid, cur.valid,
+                                    cfg.match.ratio)
+            stats = match_statistics(good, cfg.match)
+        else:
+            raw = mutual_nearest_match(prev.desc32, cur.desc32, prev.valid, cur.valid)
+            good, stats = adaptive_threshold_filter(raw, cfg.match)
+        n_good = good.valid.sum(-1).to(torch.int32)
 
-    if cfg.match.use_ratio_test:
-        good = ratio_test_match(prev.desc32, cur.desc32, prev.valid, cur.valid,
-                                cfg.match.ratio)
-        stats = match_statistics(good, cfg.match)
-    else:
-        raw = mutual_nearest_match(prev.desc32, cur.desc32, prev.valid, cur.valid)
-        good, stats = adaptive_threshold_filter(raw, cfg.match)
-    n_good = good.valid.sum(-1).to(torch.int32)
+    with span("pair.prep"):
+        K = _intrinsics(cfg.intrinsics, prev.xy.device, prev.xy.dtype)
+        p1 = prev.xy
+        p2 = torch.gather(cur.xy, 1, good.train_idx[..., None].expand(-1, -1, 2))
+        mask = good.valid
+        x1n = normalize_points(p1, K)
+        x2n = normalize_points(p2, K)
+        thr = pixel_threshold_to_normalized(rcfg.threshold_px, K)
+        ransac = Phases(
+            x1n, x2n, mask, thr,
+            max_iters=rcfg.max_iters,
+            use_five_point=rcfg.use_five_point,
+            score=rcfg.score_method,
+            score_sigma_scale=rcfg.score_sigma_scale,
+            adaptive_sigma=rcfg.adaptive_sigma,
+            cheirality_gate=rcfg.cheirality_gate,
+            cheirality_min_frac=rcfg.cheirality_min_frac,
+            distance_thresh=rcfg.distance_thresh,
+        )
 
-    p1 = prev.xy
-    p2 = torch.gather(cur.xy, 1, good.train_idx[..., None].expand(-1, -1, 2))
-    mask = good.valid
-    x1n = normalize_points(p1, K)
-    x2n = normalize_points(p2, K)
-    thr = pixel_threshold_to_normalized(rcfg.threshold_px, K)
+    # find_essential_ransac, split so that its thresholds are computed in pair.prep
+    res = ransac.run(ransac.draw(generators) if idx is None else idx)
+    with span("pair.pose"):
+        rec = recover_pose_from_essential(res.E, x1n, x2n, res.inliers,
+                                          rcfg.distance_thresh)
 
-    res = find_essential_ransac(
-        x1n, x2n, mask, thr, generators=generators, idx=idx,
-        max_iters=rcfg.max_iters,
-        use_five_point=rcfg.use_five_point,
-        score=rcfg.score_method,
-        score_sigma_scale=rcfg.score_sigma_scale,
-        adaptive_sigma=rcfg.adaptive_sigma,
-        cheirality_gate=rcfg.cheirality_gate,
-        cheirality_min_frac=rcfg.cheirality_min_frac,
-        distance_thresh=rcfg.distance_thresh,
-    )
-    rec = recover_pose_from_essential(res.E, x1n, x2n, res.inliers,
-                                      rcfg.distance_thresh)
+        attempted = n_good >= rcfg.min_matches_for_pose
+        pose_ok = (attempted
+                   & (n_good >= rcfg.min_matches_attempt)
+                   & res.success
+                   & (rec.num_valid >= rcfg.min_valid_points)
+                   & (res.num_inliers >= rcfg.min_inliers))
+        have_rt = attempted & res.success
+        if rcfg.min_valid_fraction > 0.0:
+            # A near-split cheirality vote (possibly the twisted pair): no
+            # pose, and no rotation-only fallback either.
+            frac_ok = (rec.num_valid.to(torch.float32)
+                       >= rcfg.min_valid_fraction
+                       * torch.clamp(res.num_inliers, min=1).to(torch.float32))
+            pose_ok = pose_ok & frac_ok
+            have_rt = have_rt & frac_ok
 
-    attempted = n_good >= rcfg.min_matches_for_pose
-    pose_ok = (attempted
-               & (n_good >= rcfg.min_matches_attempt)
-               & res.success
-               & (rec.num_valid >= rcfg.min_valid_points)
-               & (res.num_inliers >= rcfg.min_inliers))
-    have_rt = attempted & res.success
-    if rcfg.min_valid_fraction > 0.0:
-        # A near-split cheirality vote (possibly the twisted pair): no
-        # pose, and no rotation-only fallback either.
-        frac_ok = (rec.num_valid.to(torch.float32)
-                   >= rcfg.min_valid_fraction
-                   * torch.clamp(res.num_inliers, min=1).to(torch.float32))
-        pose_ok = pose_ok & frac_ok
-        have_rt = have_rt & frac_ok
+    with span("pair.residual"):
+        F = fundamental_from_essential(res.E, K)
+        resid = algebraic_residual(F, p1, p2)
+        inl = res.inliers
+        n_inl = torch.clamp(inl.sum(-1), min=1)
+        mean_resid = torch.where(inl, resid, torch.zeros_like(resid)).sum(-1) / n_inl
 
-    F = fundamental_from_essential(res.E, K)
-    resid = algebraic_residual(F, p1, p2)
-    inl = res.inliers
-    n_inl = torch.clamp(inl.sum(-1), min=1)
-    mean_resid = torch.where(inl, resid, torch.zeros_like(resid)).sum(-1) / n_inl
-
-    return dict(
-        n_keypoints=cur.valid.sum(-1).to(torch.int32),
-        n_good=n_good,
-        stats=stats,
-        R=rec.R,
-        t=rec.t,
-        have_rt=have_rt,
-        pose_ok=pose_ok,
-        n_inliers=res.num_inliers,
-        n_valid_points=rec.num_valid,
-        F=F,
-        mean_residual=mean_resid,
-        match_train_idx=good.train_idx,
-        match_mask=res.inliers,
-    )
+        return dict(
+            n_keypoints=cur.valid.sum(-1).to(torch.int32),
+            n_good=n_good,
+            stats=stats,
+            R=rec.R,
+            t=rec.t,
+            have_rt=have_rt,
+            pose_ok=pose_ok,
+            n_inliers=res.num_inliers,
+            n_valid_points=rec.num_valid,
+            F=F,
+            mean_residual=mean_resid,
+            match_train_idx=good.train_idx,
+            match_mask=res.inliers,
+        )
 
 
 class VOState(NamedTuple):
@@ -202,9 +205,10 @@ def vo_step(state: VOState, frame: torch.Tensor,
             cfg: VOConfig) -> tuple[VOState, VOStepOutput]:
     """Process one (H, W) grayscale frame on the state's device."""
     feats = detect_and_compute(frame, cfg.orb)
+    with span("vo.seeds"):
+        gens = pair_generators(state.seed, [state.frame_idx])
     est = estimate_pair(ORBFeatures(*(f[None] for f in state.prev)),
-                        ORBFeatures(*(f[None] for f in feats)), cfg,
-                        generators=pair_generators(state.seed, [state.frame_idx]))
+                        ORBFeatures(*(f[None] for f in feats)), cfg, generators=gens)
     est = {k: v[0] for k, v in est.items() if k != "stats"}
     moved, scale = apply_motion(state.pose, est["R"], est["t"], est["have_rt"],
                                 est["pose_ok"], cfg)

@@ -5,6 +5,12 @@ its host clock).
   trace(log_dir)        torch.profiler (CPU and CUDA activities) around a
                         block, a Chrome trace written into log_dir or
                         $TPU_VO_TRACE_DIR; a no-op when neither is set;
+  span(name)            the program's span at a layer boundary: recorded
+                        (and a record_function in the profiler's trace)
+                        while any torch.profiler session records, and
+                        host side only in the process's first call of
+                        an entry point; spans() returns the record,
+                        reset_spans() clears it;
   StageTimer            wall-clock totals per named stage, with fences;
   benchmark(fn, *args)  first-call and steady-state seconds of fn(*args);
   fence(tree)           wait for the CUDA tensors of a nested structure;
@@ -27,11 +33,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import os
 import statistics
 import subprocess
+import threading
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -72,6 +80,152 @@ def trace(log_dir: Optional[str] = None):
         yield
     prof.export_chrome_trace(
         os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+# The program's spans. Every entry point opens CALL_SPAN (the outermost
+# only); inside it each layer boundary opens a span named vo.*, orb.*,
+# pair.*, ransac.* or kernels.*. A span is recorded while a torch.profiler
+# session records (torch._C._autograd._profiler_enabled(), checked at each
+# entry), as a record_function of its name and in the in-memory record
+# below, with the CUDA events of its device interval where CUDA is
+# initialized; and during the process's first entry-point call, on the
+# host only. Otherwise span() returns one shared null context.
+CALL_SPAN = "vo.call"
+SPAN_LIMIT = 65536          # spans kept: the newest, in order of their ends
+
+
+class Span(NamedTuple):
+    """One recorded span. Host times are time.time_ns(), the clock that
+    torch.profiler stamps its host events with; start_ns is taken just
+    before the span's start event is recorded, end_ns just before its end
+    event. The device interval, where there is one, is in ns after the
+    first CUDA event that its call recorded on `device` (dev_start,
+    dev_end): a reader aligns it to the profiler's clock with one offset
+    per call and device."""
+
+    name: str
+    id: int
+    parent: Optional[int]     # the id of the span it opened in
+    call: Optional[int]       # the number of its vo.call (0: the process's first)
+    start_ns: int
+    end_ns: int
+    device: Optional[int]     # CUDA device index of the events
+    dev_start: Optional[float]
+    dev_end: Optional[float]
+
+
+class _Open:
+    """A span while it is open, and until spans() resolves its events."""
+
+    __slots__ = ("name", "id", "parent", "call", "start_ns", "end_ns", "device",
+                 "base", "ev0", "ev1", "bases", "dev_start", "dev_end")
+
+    def __init__(self, name, parent, call):
+        self.name, self.id = name, next(_ids)
+        self.parent, self.call = parent, call
+        self.device = self.base = self.ev0 = self.ev1 = self.dev_start = self.dev_end = None
+        self.bases = {}      # a root's first event per device: its call's time zero
+
+
+_records: "collections.deque[Any]" = collections.deque(maxlen=SPAN_LIMIT)
+_ids = itertools.count()
+_calls = itertools.count()
+_local = threading.local()   # .stack: this thread's open spans, outermost first
+_first_call = [True]         # the process's first entry-point call is still to come
+_NULL = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def _timing_event(device: int):
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
+class _Recorded:
+    """span()'s context when on: `traced` (a profiler records) adds the
+    record_function and the CUDA events; else host times only."""
+
+    __slots__ = ("name", "traced", "rf", "rec")
+
+    def __init__(self, name: str, traced: bool):
+        self.name, self.traced, self.rf = name, traced, None
+
+    def __enter__(self):
+        stack = _local.__dict__.setdefault("stack", [])
+        if self.traced:
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+        if stack:
+            rec = _Open(self.name, stack[-1].id, stack[-1].call)
+        else:
+            rec = _Open(self.name, None, next(_calls) if self.name == CALL_SPAN else None)
+        root = stack[0] if stack else rec
+        rec.start_ns = time.time_ns()
+        if self.traced and torch.cuda.is_initialized():
+            rec.device = torch.cuda.current_device()
+            rec.ev0 = _timing_event(rec.device)
+            rec.base = root.bases.setdefault(rec.device, rec.ev0)
+        stack.append(rec)
+        self.rec = rec
+
+    def __exit__(self, *exc):
+        rec = self.rec
+        _local.stack.pop()
+        rec.end_ns = time.time_ns()
+        if rec.ev0 is not None:
+            rec.ev1 = _timing_event(rec.device)
+        rec.bases = None
+        _records.append(rec)
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around the work of one layer boundary: a
+    record_function(name) and a record (see Span) while a torch.profiler
+    session records; host times only during the process's first call of
+    an entry point (CALL_SPAN, opened by the outermost entry alone); else
+    a shared null context that records nothing."""
+    stack = _local.__dict__.get("stack")
+    if name == CALL_SPAN:
+        if stack:
+            return _NULL
+        traced = _profiler_enabled()
+        if _first_call[0]:
+            _first_call[0] = False
+            return _Recorded(name, traced)
+        return _Recorded(name, True) if traced else _NULL
+    if _profiler_enabled():
+        return _Recorded(name, True)
+    if stack and stack[0].call == 0:
+        return _Recorded(name, False)        # inside the first call, host only
+    return _NULL
+
+
+def spans() -> List[Span]:
+    """The recorded spans, at most SPAN_LIMIT, the newest last, each
+    device interval resolved from its CUDA events (which waits for the
+    devices that recorded them: call it after the traced work)."""
+    recs = list(_records)
+    devices = {r.device for r in recs if r.ev1 is not None}
+    for d in devices:
+        torch.cuda.synchronize(d)
+    out = []
+    for r in recs:
+        if r.ev1 is not None:
+            r.dev_start = r.base.elapsed_time(r.ev0) * 1e6
+            r.dev_end = r.base.elapsed_time(r.ev1) * 1e6
+            r.base = r.ev0 = r.ev1 = None
+        out.append(Span(r.name, r.id, r.parent, r.call, r.start_ns, r.end_ns, r.device,
+                        r.dev_start, r.dev_end))
+    return out
+
+
+def reset_spans() -> None:
+    """Forget every recorded span."""
+    _records.clear()
 
 
 class StageTimer:
