@@ -26,9 +26,10 @@ def readings(workload: str, seeds, modes, device=None, overrides=None):
     import torch
 
     from vobench import check, harness
-    from vobench.reference import configs as ref_configs, pipeline as ref_pipeline
+    from vobench.reference import configs as ref_configs
 
     cell = harness.load_cell(workload, overrides)
+    ref_run = harness.reference_run(cell.config)
     dev = torch.device(device or "cuda")
     import tpu_vo_torch.configs as prog_configs
 
@@ -36,9 +37,7 @@ def readings(workload: str, seeds, modes, device=None, overrides=None):
     entry = getattr(entry_mod, cell.traffic["entry"]["function"])
     cfg = harness.vo_config(cell.config, prog_configs)
     ref_cfg = harness.vo_config(cell.config, ref_configs)
-    kwargs = dict(cell.traffic.get("kwargs", {}))
-    if dev.type != "cuda":
-        kwargs["device"] = str(dev)
+    kwargs, settings = harness.entry_kwargs(cell, dev)
     block = cell.traffic["ref_block"]
     out = []
     tap = harness.Tap(entry_mod, cell.traffic["stages"], False)
@@ -46,15 +45,17 @@ def readings(workload: str, seeds, modes, device=None, overrides=None):
         for seed in seeds:
             frames = harness.make_pool(cell, seed, dev)[0]
             cs = harness.call_seed(seed, 0)
-            precise = harness.reference(frames, ref_cfg, cs, block, ref_pipeline, tf32=False)
+            precise = harness.reference(frames, ref_cfg, cs, block, ref_run, tf32=False,
+                                        settings=settings)
             if "program" in modes:
                 poses, _ = entry(frames, cfg, cs, **kwargs)
-                prog = (tap.out["stage1"], tap.out["stage2"], poses)
+                prog = (tap.out["stage1"], tap.out["stage2"], poses, dict(tap.out))
                 out.append(("program", seed, check.compare(prog, precise)))
                 del prog, poses
                 tap.out.clear()
             if "control" in modes:
-                low = harness.reference(frames, ref_cfg, cs, block, ref_pipeline, tf32=True)
+                low = harness.reference(frames, ref_cfg, cs, block, ref_run, tf32=True,
+                                        settings=settings)
                 out.append(("control", seed, check.compare(low, precise)))
                 del low
             del precise, frames

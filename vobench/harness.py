@@ -7,7 +7,10 @@ Everything a cell is made of is found by name: its configuration
 (configs/<config>.json), its traffic (traffic/<traffic>.json), its scene
 (scenes/<kind>.py), its limits (limits/<workload>.json) and each metric's
 reader (end_to_end/<name>.py with --trace 0, metrics/<name>.py with
---trace 1), as BENCHMARK.json names them."""
+--trace 1), as BENCHMARK.json names them. The configuration names its
+reference run (`reference`) and may carry settings for the entry that
+are not VOConfig fields (`entry_kwargs`), which the reference run takes
+too."""
 
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import json
 import math
 import os
 import random
+import re
 import sys
 import time
 from types import SimpleNamespace
@@ -29,6 +33,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 FORBIDDEN = ("jax", "jaxlib", "flax", "tpu_vo")
+DEFAULT_REFERENCE = "vobench/reference"
+REFERENCE_RUN = re.compile(r"^vobench(\.[A-Za-z_]\w*)+:[A-Za-z_]\w*$")
 
 
 def load_json(path: str):
@@ -70,7 +76,7 @@ def _applies(metric: dict, workload: str) -> bool:
 
 def load_cell(workload: str, overrides: Optional[dict] = None) -> Cell:
     """The cell `workload` of BENCHMARK.json with its files; `overrides`
-    (tests only) replaces port and traffic settings to cut it down."""
+    (tests only) replaces port, traffic and entry settings to cut it down."""
     bench = load_json(os.path.join(ROOT, "BENCHMARK.json"))
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -86,6 +92,8 @@ def load_cell(workload: str, overrides: Optional[dict] = None) -> Cell:
             config["port"]["orb" if k in config["port"]["orb"] else "ransac"][k] = v
         elif k in config["port"]:
             config["port"][k] = v
+        elif k in config.get("entry_kwargs", {}):
+            config["entry_kwargs"][k] = v
         else:
             raise KeyError(f"no setting {k!r} to override")
     return Cell(workload, config, traffic,
@@ -102,6 +110,42 @@ def vo_config(config: dict, configs_module):
         orb=configs_module.ORBConfig(**port["orb"]),
         match=configs_module.MatchConfig(**port["match"]),
         ransac=configs_module.RansacConfig(**port["ransac"]))
+
+
+def reference_run(config: dict):
+    """The configuration's reference run, called as run(frames, ref_cfg,
+    seed, block, **entry_kwargs): for `reference` "vobench/reference",
+    vobench.reference.pipeline.run; for "vobench.<module>:<function>",
+    that function of the benchmark's own module. Anything else raises."""
+    name = config.get("reference")
+    if name == DEFAULT_REFERENCE:
+        from vobench.reference import pipeline
+        return pipeline.run
+    if not isinstance(name, str) or not REFERENCE_RUN.match(name):
+        raise ValueError(f"configuration {config.get('name')!r}: unknown reference {name!r}; "
+                         f"give {DEFAULT_REFERENCE!r} or 'vobench.<module>:<function>'")
+    module, function = name.split(":")
+    run = getattr(importlib.import_module(module), function, None)
+    if not callable(run):
+        raise ValueError(f"configuration {config.get('name')!r}: {name!r} is not a function")
+    return run
+
+
+def entry_kwargs(cell: Cell, dev) -> tuple:
+    """(the entry's keyword arguments, the configuration's entry_kwargs):
+    the traffic's kwargs and the configuration's entry_kwargs, which the
+    reference run also takes, and the device where it is not the card.
+    A key set by both raises."""
+    settings = dict(cell.config.get("entry_kwargs", {}))
+    kwargs = dict(cell.traffic.get("kwargs", {}))
+    clash = sorted(set(settings) & set(kwargs))
+    if clash:
+        raise ValueError(f"{cell.name}: {clash} set both by the configuration's entry_kwargs "
+                         "and by the traffic's kwargs")
+    kwargs.update(settings)
+    if dev.type != "cuda":
+        kwargs["device"] = str(dev)
+    return kwargs, settings
 
 
 def make_pool(cell: Cell, seed: int, device):
@@ -171,9 +215,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
     import torch
 
     from vobench import check, trace as trace_mod
-    from vobench.reference import configs as ref_configs, pipeline as ref_pipeline
 
     cell = load_cell(workload, overrides)
+    ref_run = reference_run(cell.config)
     chips = 1
     if device is None:
         if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
@@ -186,9 +230,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
     import tpu_vo_torch.configs as prog_configs
 
     cfg = vo_config(cell.config, prog_configs)
-    kwargs = dict(cell.traffic.get("kwargs", {}))
-    if dev.type != "cuda":
-        kwargs["device"] = device
+    kwargs, settings = entry_kwargs(cell, dev)
     pool = make_pool(cell, seed, dev)
     tap = Tap(entry_mod, cell.traffic["stages"], trace)
     shape = cell.traffic["call_shape"]
@@ -256,9 +298,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
                           frames_per_call=rows * T, pairs_per_call=rows * (T - 1),
                           trace=summary, window_peak_bytes=window_peak,
                           span_role=tap.span_role)
-    readings = _check(cell, kept, pool, seed, dev, ref_configs, ref_pipeline, check)
-    numbers = check.worst(readings)
-    correct = check.judge(numbers, cell.limits)
+    names = check.names(cell.traffic["stages"])
+    readings = _check(cell, kept, pool, seed, dev, ref_run, settings, names)
+    numbers = check.worst(readings, names)
+    correct = check.judge(numbers, cell.limits, names)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = _reader("metrics" if trace else "end_to_end", m["name"])(ctx)
@@ -274,41 +317,46 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, t_start: flo
         device_info["window_s"] = summary.window_s
         line["breakdown"] = {"device_ops": [list(x) for x in summary.top_ops],
                              "idle_gaps": [list(x) for x in summary.gaps]}
-    line["checks"] = {k: {"value": numbers[k], "limit": cell.limits.get(k)} for k in check.NAMES}
+    line["checks"] = {k: {"value": numbers[k], "limit": cell.limits.get(k)} for k in names}
     line["checks"]["calls_checked"] = {"value": len(readings), "limit": keep_n}
     return line
 
 
-def _check(cell, kept, pool, seed, dev, ref_configs, ref_pipeline, check):
-    """Each kept call's numbers: its program outputs against the reference
-    on the same frames and RANSAC seed, computed once the window has closed,
-    in full float32 with TF32 off."""
+def _check(cell, kept, pool, seed, dev, ref_run, settings, names):
+    """Each kept call's numbers: its program outputs (its stages' taps
+    beside them) against the reference run on the same frames and RANSAC
+    seed, computed once the window has closed, in full float32 with TF32
+    off."""
     import torch
+
+    from vobench import check
+    from vobench.reference import configs as ref_configs
 
     ref_cfg = vo_config(cell.config, ref_configs)
     readings = []
     while kept:
         i, out, poses = kept.pop()
         ref = reference(pool[i % len(pool)], ref_cfg, call_seed(seed, i),
-                        cell.traffic["ref_block"], ref_pipeline, tf32=False)
-        readings.append(check.compare((out["stage1"], out["stage2"], poses), ref))
+                        cell.traffic["ref_block"], ref_run, tf32=False, settings=settings)
+        readings.append(check.compare((out["stage1"], out["stage2"], poses, out), ref))
         del ref, out, poses
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     if len(readings) < cell.traffic["check_calls"]:
-        readings.append({k: float("nan") for k in check.NAMES})
+        readings.append({k: float("nan") for k in names})
     return readings
 
 
-def reference(frames, ref_cfg, seed: int, block: int, ref_pipeline, tf32: bool):
-    """vobench.reference.pipeline.run with matmuls and convolutions in
-    TF32 or in full float32, the flags restored after."""
+def reference(frames, ref_cfg, seed: int, block: int, ref_run, tf32: bool, settings=None):
+    """The reference run (reference_run) with the configuration's
+    entry_kwargs `settings`, its matmuls and convolutions in TF32 or in
+    full float32, the flags restored after."""
     import torch
 
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
     try:
         with torch.no_grad():
-            return ref_pipeline.run(frames, ref_cfg, seed, block)
+            return ref_run(frames, ref_cfg, seed, block, **(settings or {}))
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags

@@ -9,7 +9,7 @@ import re
 import subprocess
 import sys
 
-from vobench import harness
+from vobench import check, harness
 
 ROOT = harness.ROOT
 BENCH = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
@@ -55,7 +55,8 @@ def test_every_name_has_its_files():
         for path in (f"traffic/{w['traffic']}.json", f"limits/{w['name']}.json"):
             assert os.path.exists(os.path.join(harness.HERE, path)), path
         cell = harness.load_cell(w["name"])
-        assert all(k in cell.limits for k in __import__("vobench.check").check.NAMES)
+        assert all(k in cell.limits for k in check.names(cell.traffic["stages"]))
+        assert callable(harness.reference_run(cell.config))
     for kind, metrics in (("end_to_end", BENCH["end_to_end"]), ("metrics", BENCH["per_layer"])):
         for m in metrics:
             assert callable(harness._reader(kind, m["name"]))

@@ -108,3 +108,22 @@ def test_summarize_busy_idle_gaps_and_attribution():
 def test_summarize_needs_a_call_span():
     with pytest.raises(ValueError):
         trace.summarize([_Ev("aten::add", 0, 1)], {})
+
+
+def test_summarize_keeps_each_ops_launch():
+    """An op keeps the host time of the runtime call with its correlation
+    id: both kernels of one cudaGraphLaunch keep its time, and an op whose
+    launch the trace lacks keeps None."""
+    ev = [
+        _span(trace.CALL_SPAN, 0, 100), _span("runner.estimate_pairs", 0, 100),
+        _Ev("cudaLaunchKernel", 5, 1, kind="cuda_runtime", cid=1),
+        _Ev("cudaGraphLaunch", 20, 2, kind="cuda_runtime", cid=2),
+        _Ev("gemm", 10, 5, device="CUDA", kind="kernel", cid=1),
+        _Ev("graph_a", 30, 10, device="CUDA", kind="kernel", cid=2),
+        _Ev("graph_b", 40, 10, device="CUDA", kind="kernel", cid=2),
+        _Ev("orphan", 60, 10, device="CUDA", kind="kernel", cid=9),
+    ]
+    s = trace.summarize(ev, {"runner.estimate_pairs": "stage2"})
+    assert [(o.name, o.launch) for o in s.ops] == [("gemm", 5), ("graph_a", 20), ("graph_b", 20),
+                                                   ("orphan", None)]
+    assert [o.span for o in s.ops] == ["runner.estimate_pairs"] * 3 + [None]

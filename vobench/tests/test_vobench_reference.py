@@ -14,7 +14,7 @@ from tpu_vo_torch.geometry.se3 import Pose
 from tpu_vo_torch.parallel import sharding
 from tpu_vo_torch.pipeline import runner
 from vobench import check, harness
-from vobench.reference import configs as ref_configs, pipeline as ref_pipeline
+from vobench.reference import configs as ref_configs
 
 SMALL = dict(image_width=160, image_height=120, n_features=100, n_levels=3, max_iters=16,
              pool=2, check_calls=1, trace_calls=2, ref_block=2)
@@ -45,7 +45,8 @@ def test_reference_equals_the_program_on_the_cpu(workload, overrides):
     finally:
         tap.close()
     ref = harness.reference(frames, harness.vo_config(cell.config, ref_configs), 77,
-                            cell.traffic["ref_block"], ref_pipeline, tf32=False)
+                            cell.traffic["ref_block"], harness.reference_run(cell.config),
+                            tf32=False)
     numbers = check.compare(prog, ref)
     assert all(v == 0 for v in numbers.values()), numbers
     for p, r in zip(prog[0], ref[0]):

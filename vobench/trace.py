@@ -5,8 +5,9 @@ the host's waits are the runtime calls of SYNC_CALLS, as
 tpu_vo_torch/utils/profiling.py `busy_profile` and `interval_union`
 count them (copied). A device operation belongs to the harness span that was open on
 the host when its launch (the runtime call with its correlation id) was
-made. An idle gap on the device is named by the innermost span the host
-was in when the gap began."""
+made, and keeps that launch's host time; a CUDA graph's kernels carry
+the correlation id of their cudaGraphLaunch. An idle gap on the device
+is named by the innermost span the host was in when the gap began."""
 
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ class Op(NamedTuple):
     end: int
     name: str
     span: Optional[str]  # the harness span its launch came from
+    launch: Optional[int]  # ns, the host's clock: its launch; None where the trace names none
 
 
 class Summary(NamedTuple):
@@ -106,7 +108,7 @@ def summarize(events, span_names) -> Summary:
             continue
         t = launch.get(cid)
         ops.append(Op(max(s, window[0]), min(e, window[1]), name,
-                      index.at(t) if t is not None else None))
+                      index.at(t) if t is not None else None, t))
     counts = collections.Counter(n for t, n in host if window[0] <= t < window[1])
     busy = merged((o.start, o.end) for o in ops)
     edges = [window[0]] + [x for iv in busy for x in iv] + [window[1]]
