@@ -16,7 +16,13 @@ bundle adjustment the reference does not have).
     by torch.linalg.solve_ex, whose info != 0 (a singular system)
     rejects the step as a non-finite one would be.
   - refine_window: every relative pose of a window of consecutive pairs,
-    independently given their correspondences; the caller re-chains.
+    independently given their correspondences; the caller re-chains
+    (pipeline/runner.refine_pairs, run_sequence_batched(refine_iters=n)).
+
+Spans (utils/profiling.span): refine_window runs in `refine.lm`, which
+holds the initial cost, and each LM iteration in an `lm.step`. Nothing
+here waits for the card: no .item(), no boolean indexing, solve_ex
+without check_errors.
 
 The normal equations are fragile at reduced precision; the package keeps
 TF32 off (tpu_vo_torch/__init__.py), and nothing here turns it on.
@@ -31,6 +37,7 @@ import torch
 
 from tpu_vo_torch.geometry.epipolar import essential_from_Rt
 from tpu_vo_torch.geometry.se3 import skew
+from tpu_vo_torch.utils.profiling import span
 
 
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
@@ -57,9 +64,10 @@ class LMResult(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def _constants(dtype: torch.dtype, device: torch.device):
     """(I, the generators [e_k]_x (3, 3, 3), the mask (1, 1, 0)) on the
-    device, built once."""
+    device, built once, and by kernels: no copy from the host, which would
+    wait for the card."""
     eye = torch.eye(3, dtype=dtype, device=device)
-    return eye, skew(eye), torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=device)
+    return eye, skew(eye), (torch.arange(3, device=device) < 2).to(dtype)
 
 
 def _motion(p, R0, t0):
@@ -165,18 +173,19 @@ def refine_relative_pose_lm(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tens
     c = c0
     lam = torch.full_like(c0, lambda0)
     for _ in range(iters):
-        r, J = _residuals_and_jacobian(p, *args)                 # (P, N), (P, N, 6)
-        JtJ = J.transpose(-1, -2) @ J
-        g = (J.transpose(-1, -2) @ r[..., None])[..., 0]
-        A = JtJ + lam[:, None, None] * torch.diag_embed(torch.diagonal(JtJ, dim1=-2, dim2=-1)
-                                                        + 1e-12)
-        step, info = torch.linalg.solve_ex(A, g)
-        p_new = p - step
-        c_new = cost_of(p_new)
-        accept = (c_new < c) & torch.isfinite(p_new).all(-1) & (info == 0)
-        p = torch.where(accept[:, None], p_new, p)
-        c = torch.where(accept, c_new, c)
-        lam = torch.clamp(torch.where(accept, lam * 0.3, lam * 4.0), 1e-9, 1e6)
+        with span("lm.step"):
+            r, J = _residuals_and_jacobian(p, *args)             # (P, N), (P, N, 6)
+            JtJ = J.transpose(-1, -2) @ J
+            g = (J.transpose(-1, -2) @ r[..., None])[..., 0]
+            A = JtJ + lam[:, None, None] * torch.diag_embed(
+                torch.diagonal(JtJ, dim1=-2, dim2=-1) + 1e-12)
+            step, info = torch.linalg.solve_ex(A, g)
+            p_new = p - step
+            c_new = cost_of(p_new)
+            accept = (c_new < c) & torch.isfinite(p_new).all(-1) & (info == 0)
+            p = torch.where(accept[:, None], p_new, p)
+            c = torch.where(accept, c_new, c)
+            lam = torch.clamp(torch.where(accept, lam * 0.3, lam * 4.0), 1e-9, 1e6)
     R, t = _motion(p, R0, t0)
     improved = c < c0
     R = torch.where(improved[:, None, None], R, R0)
@@ -216,5 +225,6 @@ def refine_window(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor,
     pairs are independent given their correspondences, so all refine at
     once; the caller re-chains the trajectory.
     """
-    out = refine_relative_pose_lm(x1, x2, mask, R_rel, t_rel, iters)
+    with span("refine.lm"):
+        out = refine_relative_pose_lm(x1, x2, mask, R_rel, t_rel, iters)
     return WindowRefineResult(out.R, out.t, out.cost, out.improved)

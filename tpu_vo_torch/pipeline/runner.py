@@ -10,7 +10,12 @@ per frame.
      of `frame_chunk` frames (all T at once by default);
   2. matching + RANSAC + pose recovery of the T-1 consecutive pairs as
      one batch dimension, `pair_chunk` pairs at a time (all by default);
-  3. world poses by a prefix composition of the relative motions.
+  3. world poses by a prefix composition of the relative motions;
+
+with `refine_iters` n > 0 (tpu_vo's config 5), between stages 2 and 3
+every pair's motion is polished by n Levenberg-Marquardt iterations over
+its RANSAC inliers (`refine_pairs`, models/refinement.refine_window),
+and stage 3 chains the refined motions.
 
 The chunks bound peak memory, as the JAX runner's `_chunked_map` does:
 stage 1 holds every frame's windows and their blur temporaries at once.
@@ -32,9 +37,12 @@ import torch
 from tpu_vo_torch.configs import VOConfig
 from tpu_vo_torch.features.orb import ORBFeatures, detect_and_compute
 from tpu_vo_torch.geometry import se3
+from tpu_vo_torch.geometry.camera import normalize_points
 from tpu_vo_torch.geometry.se3 import Pose
+from tpu_vo_torch.models.refinement import WindowRefineResult, refine_window
 from tpu_vo_torch.pipeline.step import (
     VOStepOutput,
+    _intrinsics,
     estimate_pair,
     initial_state,
     pair_generators,
@@ -150,6 +158,28 @@ def estimate_pairs(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig, generator
                      for a, e in _spans(prev.xy.shape[0], pair_chunk)])
 
 
+def refine_inputs(prev: ORBFeatures, cur: ORBFeatures, est: dict, cfg: VOConfig) -> tuple:
+    """refine_window's inputs for P pairs: (x1, x2, mask, R, t), x1 the
+    normalized keypoints of `prev`, x2 those of `cur` gathered by each
+    query's match (match_train_idx), mask the RANSAC inliers, (R, t) stage
+    2's motions. K is stage 2's (cfg.intrinsics), built once per device."""
+    K = _intrinsics(cfg.intrinsics, prev.xy.device, prev.xy.dtype)
+    x2 = torch.gather(normalize_points(cur.xy, K), 1,
+                      est["match_train_idx"][..., None].expand(-1, -1, 2))
+    return normalize_points(prev.xy, K), x2, est["match_mask"], est["R"], est["t"]
+
+
+def refine_pairs(prev: ORBFeatures, cur: ORBFeatures, est: dict, cfg: VOConfig,
+                 iters: int) -> WindowRefineResult:
+    """Between stages 2 and 3: `iters` LM iterations on every pair's
+    motion over its RANSAC inliers, all pairs at once, with fixed shapes
+    and no wait for the card."""
+    with span("vo.refine"):
+        with span("refine.prep"):
+            args = refine_inputs(prev, cur, est, cfg)
+        return refine_window(*args, iters=iters)
+
+
 def diagnostics(est: dict) -> dict:
     """The runners' per-pair diagnostics from estimate_pair's output."""
     return {
@@ -165,15 +195,19 @@ def diagnostics(est: dict) -> dict:
 
 def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
                          device=None, frame_chunk: Optional[int] = None,
-                         pair_chunk: Optional[int] = None):
+                         pair_chunk: Optional[int] = None, refine_iters: int = 0):
     """Batched three-stage VO over (T, H, W) uint8 frames, moved to
     `device` (the card when None; see entry_device). Stage 1 runs
     `frame_chunk` frames at a time and stage 2 `pair_chunk` pairs at a
     time (None: all at once); a chunk must divide T (T - 1 for pairs)
-    unless it is at least that long. Returns (poses: Pose with leading
-    dim T, diagnostics dict of (T-1,) tensors), the same for every
-    chunking."""
+    unless it is at least that long. With `refine_iters` n > 0 every
+    pair's motion is refined by n LM iterations (refine_pairs) before
+    the chain. Returns (poses: Pose with leading dim T, diagnostics dict
+    of (T-1,) tensors, with refine_improved and refine_cost when n > 0),
+    the same for every chunking."""
     _check_chunks(frame_chunk, pair_chunk)
+    if refine_iters < 0:
+        raise ValueError(f"refine_iters must be a non-negative int, got {refine_iters}")
     with span(CALL_SPAN):
         with span("vo.upload"):
             frames = frames.to(entry_device(device))
@@ -181,12 +215,17 @@ def run_sequence_batched(frames: torch.Tensor, cfg: VOConfig, seed: int = 0,
         feats = detect_frames(frames, cfg, frame_chunk)
         with span("vo.seeds"):
             gens = pair_generators(seed, range(1, T))
-        est = estimate_pairs(ORBFeatures(*(f[:-1] for f in feats)),
-                             ORBFeatures(*(f[1:] for f in feats)), cfg, gens, pair_chunk)
+        prev = ORBFeatures(*(f[:-1] for f in feats))
+        cur = ORBFeatures(*(f[1:] for f in feats))
+        est = estimate_pairs(prev, cur, cfg, gens, pair_chunk)
+        R, t, diags = est["R"], est["t"], diagnostics(est)
+        if refine_iters:
+            ref = refine_pairs(prev, cur, est, cfg, refine_iters)
+            R, t = ref.R_rel, ref.t_rel
+            diags.update(refine_improved=ref.improved, refine_cost=ref.cost)
         with span("vo.stage3"):
-            poses = chain_relative_poses(est["R"], est["t"], est["have_rt"],
-                                         est["pose_ok"], cfg)
-        return poses, diagnostics(est)
+            poses = chain_relative_poses(R, t, est["have_rt"], est["pose_ok"], cfg)
+        return poses, diags
 
 
 @functools.lru_cache(maxsize=None)

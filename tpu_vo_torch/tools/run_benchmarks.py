@@ -11,7 +11,8 @@ benchmarks/run_benchmarks.py, those configs), on the card:
      ladders (8, 4, 2, 1) and (56, 9, 7, 3, 1) that divides B*T and B*(T-1));
   5. corridor 640x480, 1000 keypoints, 32 frames: features, pairs, then
      models/refinement.refine_window (6 LM iterations) over every pair's
-     RANSAC inliers before the chain;
+     RANSAC inliers before the chain, as run_sequence_batched(refine_iters=6)
+     runs it (frame_chunk 8);
   6. photometric nuisances: the corridor at 640x480 (T 48) and the pan at
      320x240 (T max(8, 2T/3) = 32), seed 0, 1200 keypoints, each at the
      four utils/synthetic.NUISANCE_LEVELS (clean, mild, full, harsh;
@@ -67,7 +68,6 @@ import torch
 
 from tpu_vo_torch.configs import MatchConfig, ORBConfig, VOConfig
 from tpu_vo_torch.features.orb import ORBFeatures
-from tpu_vo_torch.geometry.camera import intrinsics_from_image_size, normalize_points
 from tpu_vo_torch.geometry.se3 import Pose
 from tpu_vo_torch.models.refinement import refine_window
 from tpu_vo_torch.parallel.sharding import run_batch_of_sequences
@@ -115,24 +115,29 @@ def chunks(frames: int, pairs: int):
 
 def window_refined(frames: torch.Tensor, cfg: VOConfig, seed: int = 0, iters: int = LM_ITERS,
                    frame_chunk=FRAME_CHUNK, with_parts: bool = False):
-    """Config 5's pipeline on (T, H, W) frames on their device: features
-    (frame_chunk frames a launch), every pair's RANSAC pose, then
-    refine_window over its inliers before the chain. Returns poses, or
-    with with_parts (poses, diagnostics, the refine_window inputs)."""
-    T = frames.shape[0]
-    feats = runner.detect_frames(frames, cfg, frame_chunk)
-    prev = ORBFeatures(*(f[:-1] for f in feats))
-    cur = ORBFeatures(*(f[1:] for f in feats))
-    est = runner.estimate_pairs(prev, cur, cfg, pair_generators(seed, range(1, T)))
-    K = intrinsics_from_image_size(cfg.image_width, cfg.image_height, device=frames.device)
-    x1 = normalize_points(prev.xy, K)
-    x2 = torch.gather(normalize_points(cur.xy, K), 1,
-                      est["match_train_idx"][..., None].expand(-1, -1, 2))
-    args = (x1, x2, est["match_mask"], est["R"], est["t"])
-    ref = refine_window(*args, iters=iters)
-    poses = runner.chain_relative_poses(ref.R_rel, ref.t_rel, est["have_rt"], est["pose_ok"],
-                                        cfg)
-    return (poses, runner.diagnostics(est), args) if with_parts else poses
+    """Config 5's pipeline on (T, H, W) frames on their device:
+    run_sequence_batched with frame_chunk frames a launch and `iters` LM
+    iterations (refine_iters) on every pair before the chain. Returns
+    poses, or with with_parts (iters > 0) (poses, diagnostics, the
+    refine_window inputs that runner.refine_inputs gave the call)."""
+    def run():
+        return runner.run_sequence_batched(frames, cfg, seed, device=frames.device,
+                                           frame_chunk=frame_chunk, refine_iters=iters)
+
+    if not with_parts:
+        return run()[0]
+    prep, parts = runner.refine_inputs, []
+
+    def keep(*args):
+        parts.append(prep(*args))
+        return parts[-1]
+
+    runner.refine_inputs = keep
+    try:
+        poses, diags = run()
+    finally:
+        runner.refine_inputs = prep
+    return poses, diags, parts[0]
 
 
 def _timed(fn, dev: torch.device):
