@@ -23,19 +23,11 @@ import torch
 
 from tpu_vo_torch.tools import bench, reference_band, run_benchmarks
 from tpu_vo_torch.utils import synthetic
+from _torch_threads import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CUT = dict(T=4, width=160, height=120, features=200, hyps=16, repeats=1)
 KEYS = {"metric", "value", "unit", "vs_baseline", "cpu_baseline_fps"}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the tests run beside other test processes."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _entry(T=4, W=160, H=120, fps=50.0, frames=None):

@@ -19,6 +19,7 @@ from tpu_vo_torch import api, cli
 from tpu_vo_torch.io import kitti, trajectory_io
 from tpu_vo_torch.io.dataset import write_png
 from tpu_vo_torch.utils.synthetic import make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 N, W, H = 4, 192, 144
 INTRINSICS = (180.0, 178.5, 95.0, 71.25)

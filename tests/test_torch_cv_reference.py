@@ -12,6 +12,7 @@ from tpu_vo.utils import cv_reference as jref
 from tpu_vo.utils.synthetic import make_sequence
 from tpu_vo_torch.tools import reference_band
 from tpu_vo_torch.utils import cv_reference as tref
+from _torch_threads import _one_thread  # noqa: F401
 
 HARNESS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "benchmarks", "run_benchmarks.py")

@@ -28,6 +28,7 @@ from tpu_vo_torch.features import brief, harris, orb, orientation, patches
 from tpu_vo_torch.image import filters
 from tpu_vo_torch.image.pyramid import build_pyramid
 from tpu_vo_torch.ops.patch import extract_patches
+from _torch_threads import _one_thread  # noqa: F401
 
 H, W, N = 64, 96, 40
 

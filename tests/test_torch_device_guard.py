@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from tpu_vo_torch.ops import _build, fast, patch, patch_probe, select
+from _torch_threads import _one_thread  # noqa: F401
 
 
 class _Recorder:

@@ -8,6 +8,7 @@ import pytest
 
 from tpu_vo_torch.tools import reference_band
 from tpu_vo_torch.utils import synthetic
+from _torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("leg", ["diag_pan_320x240", "diag_corridor_320x240"])

@@ -38,6 +38,7 @@ from tpu_vo_torch.tools import (diag_common, diagnose_ate, dk_iters_diag, extrac
                                 harris_candidate_probe, keepties_diag, keepties_seed_sweep,
                                 pan_blur_pair_probe, pan_harsh_ablation, parity_matrix,
                                 score_variants_diag)
+from _torch_threads import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BENCHMARKS = os.path.join(ROOT, "benchmarks")
@@ -74,16 +75,6 @@ TOOLS = {
                             ["pairs_recovered", "ambiguous", "equal_to_package_constant",
                              "verification", "pattern"]),
 }
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the tests run beside other test processes, and
-    oversubscribed OpenMP pools turn each parallel op into a wait."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree_hash(root):

@@ -37,22 +37,12 @@ from tpu_vo_torch.pipeline.step import estimate_pair, pair_generators
 from tpu_vo_torch.tools import reference_band
 from tpu_vo_torch.utils import synthetic as ts
 from tpu_vo_torch.utils.metrics import ate_rmse, extent, scale_matched_gt
+from _torch_threads import _one_thread  # noqa: F401
 
 W, H, T = 160, 120, 4
 MAX_DIFF_SHARE = 0.002   # tests/test_torch_synthetic.py
 MIN_MASK_AGREE = 0.995
 NUISANCES = dict(obj_size=1.6, n_occluders=2, low_texture_span=(2.0, 6.0))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs (see
-    tests/test_torch_reference_parity.py: xdist workers' thread pools
-    collide otherwise); nothing here depends on it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

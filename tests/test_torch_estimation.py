@@ -36,6 +36,7 @@ from tpu_vo_torch.features.orb import ORBFeatures, detect_and_compute
 from tpu_vo_torch.geometry.camera import intrinsics, normalize_points
 from tpu_vo_torch.matching.filter import adaptive_threshold_filter
 from tpu_vo_torch.matching.hamming import mutual_nearest_match
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _rot(axis_angle):

@@ -28,6 +28,7 @@ from tpu_vo_torch import interop
 from tpu_vo_torch.configs import ORBConfig, RansacConfig, VOConfig
 from tpu_vo_torch.matching import adaptive_threshold_filter, mutual_nearest_match
 from tpu_vo_torch.pipeline.step import estimate_pair
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _too_few(rng):
@@ -60,14 +61,6 @@ RUNGS = {"b_too_few_matches": (_too_few, 0, None, False),
          "c_no_valid_descriptors": (_no_valid, 0, 0, False),
          "d_degenerate_geometry": (_degenerate, 1234, N, False),
          "e_healthy_geometry": (_healthy, 0, N, True)}
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _port(f):

@@ -23,6 +23,7 @@ from tpu_vo_torch.image.pyramid import build_pyramid
 from tpu_vo_torch.ops import fast as tops, levels as tlevels
 from tpu_vo_torch.ops.select import compass_candidates
 from tpu_vo_torch.utils.synthetic import compass_pattern, make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 
 _jscore = jax.jit(jfast.fast_score_map)

@@ -14,6 +14,7 @@ import torch
 
 from tpu_vo.estimation import five_point as j5
 from tpu_vo_torch.estimation import five_point as t5
+from _torch_threads import _one_thread  # noqa: F401
 
 TOL = 1e-4        # candidate sets of the two packages
 TRUTH_TOL = 1e-6  # a candidate that is the true E

@@ -15,6 +15,7 @@ import torch
 
 from tpu_vo.estimation import five_point as j5
 from tpu_vo_torch.estimation import five_point as t5
+from _torch_threads import _one_thread  # noqa: F401
 
 REL = 1e-10        # the polynomial and linear-algebra helpers
 ROOTS = 1e-8       # roots, as sorted real parts

@@ -1,11 +1,9 @@
-"""The 5-point solver's CUDA graphs (estimation/five_point `_graphed`).
+"""The 5-point solver's CUDA graphs (estimation/five_point `_solve_graphs`,
+a utils/cuda_graphs.GraphCache; the cache's own cases, for both of its
+callers, are in tests/test_torch_cuda_graphs.py).
 
 On the CPU: CPU inputs run the eager solver, bit for bit the frozen copy
-of the solver before graphs (vobench/reference/five_point.py); the cache
-key holds every input of the captured work; a capture that raises leaves
-its signature to the eager solver; the cache keeps at most GRAPHS_KEPT
-signatures, the least recently used evicted; the two spans open where
-they should. The capture and the replay are stood in for by fakes there.
+of the solver before graphs (vobench/reference/five_point.py).
 
 On the card (skipped without one): replays bit-equal to the eager solver
 at the benchmark's batch sizes, outputs that no later replay overwrites,
@@ -14,20 +12,17 @@ thread runs across a first capture.
 """
 
 import collections
-import itertools
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from tpu_vo_torch.configs import ORBConfig, VOConfig
 from tpu_vo_torch.estimation import five_point as t5
 from tpu_vo_torch.pipeline import runner
-from tpu_vo_torch.utils import profiling
 from tpu_vo_torch.utils.synthetic import make_sequence
 from vobench.reference import five_point as frozen
+from _torch_threads import _one_thread  # noqa: F401
 
 SAMPLES = 256
 
@@ -49,28 +44,8 @@ def _equal(a, b):
 @pytest.fixture
 def empty_cache(monkeypatch):
     """An empty graph cache for the test, the process's own restored after."""
-    monkeypatch.setattr(t5, "_graphs", collections.OrderedDict())
-    return t5._graphs
-
-
-@pytest.fixture
-def fake_graphs(monkeypatch, empty_cache):
-    """_capture and _replay stood in for on the CPU: a capture returns a
-    record of its signature, a replay the eager result; `log` lists the
-    calls."""
-    log = []
-
-    def capture(x1, x2, dk_iters, root_method):
-        log.append(("capture", tuple(x1.shape)))
-        return SimpleNamespace(home=SimpleNamespace(wait_event=lambda ev: None), done=None)
-
-    def replay(g, x1, x2):
-        log.append(("replay", tuple(x1.shape)))
-        return t5._solve(x1, x2)
-
-    monkeypatch.setattr(t5, "_capture", capture)
-    monkeypatch.setattr(t5, "_replay", replay)
-    return log
+    monkeypatch.setattr(t5._solve_graphs, "graphs", collections.OrderedDict())
+    return t5._solve_graphs.graphs
 
 
 # ---------------------------------------------------------------------------
@@ -83,86 +58,13 @@ def test_cpu_inputs_run_the_eager_solver_as_before(monkeypatch, dtype, dk_iters,
     def no_graph(*args):
         raise AssertionError("a CPU input reached the CUDA graph path")
 
-    monkeypatch.setattr(t5, "_graphed", no_graph)
+    monkeypatch.setattr(t5._solve_graphs, "_graphed", no_graph)
     x1, x2 = _inputs(3, 32, dtype)
     got = t5.five_point_candidates_batched(x1, x2, dk_iters=dk_iters, root_method=method)
     want = frozen.five_point_candidates_batched(x1, x2, dk_iters=dk_iters, root_method=method)
     assert got[1].any() and _equal(got, want)
     assert _equal(t5.five_point_candidates(x1[0, 0], x2[0, 0]),
                   frozen.five_point_candidates(x1[0, 0], x2[0, 0]))
-
-
-def test_the_signature_holds_every_input_of_the_captured_work():
-    x1, x2 = _inputs(2, 8)
-    key = t5._signature(x1, x2, 24, "aberth")
-    assert key == (tuple(x1.shape), x1.stride(), x1.dtype, x1.device,
-                   tuple(x2.shape), x2.stride(), x2.dtype, x2.device, 24, "aberth",
-                   torch.backends.cuda.matmul.allow_tf32)
-    y1, y2 = _inputs(2, 8, seed=1)
-    assert t5._signature(y1, y2, 24, "aberth") == key       # values are not in it
-    t1 = x1.transpose(0, 1).contiguous().transpose(0, 1)     # same shape, other strides
-    others = [t5._signature(_inputs(3, 8)[0], x2, 24, "aberth"),
-              t5._signature(t1, x2, 24, "aberth"),
-              t5._signature(x1.double(), x2.double(), 24, "aberth"),
-              t5._signature(x1, x2, 100, "aberth"),
-              t5._signature(x1, x2, 24, "dk")]
-    flag = torch.backends.cuda.matmul.allow_tf32
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = not flag
-        others.append(t5._signature(x1, x2, 24, "aberth"))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = flag
-    assert len({key, *others}) == len(others) + 1
-
-
-def test_a_capture_that_raises_leaves_the_signature_to_the_eager_solver(monkeypatch,
-                                                                       empty_cache):
-    calls = []
-
-    def failing(*args):
-        calls.append(args)
-        raise RuntimeError("operation not permitted when stream is capturing")
-
-    monkeypatch.setattr(t5, "_capture", failing)
-    x1, x2 = _inputs(2, 16)
-    with pytest.warns(UserWarning, match="capture failed"):
-        first = t5._graphed(x1, x2, 24, "aberth")
-    second = t5._graphed(x1, x2, 24, "aberth")
-    assert len(calls) == 1 and list(empty_cache.values()) == [None]
-    want = t5._solve(x1, x2)
-    assert _equal(first, want) and _equal(second, want)
-
-
-def test_the_cache_keeps_the_most_recently_used_signatures(fake_graphs, empty_cache):
-    inputs = {p: _inputs(p, 4) for p in range(1, t5.GRAPHS_KEPT + 3)}
-    for p in range(1, t5.GRAPHS_KEPT + 1):
-        t5._graphed(*inputs[p], 24, "aberth")
-    t5._graphed(*inputs[1], 24, "aberth")                   # 1 used again: 2 is the oldest
-    for p in (t5.GRAPHS_KEPT + 1, t5.GRAPHS_KEPT + 2):
-        t5._graphed(*inputs[p], 24, "aberth")
-        assert len(empty_cache) == t5.GRAPHS_KEPT
-    kept = sorted(key[0][0] for key in empty_cache)
-    assert kept == [1] + list(range(4, t5.GRAPHS_KEPT + 3))
-    captures = [s for kind, s in fake_graphs if kind == "capture"]
-    assert len(captures) == t5.GRAPHS_KEPT + 2 and len(set(captures)) == len(captures)
-    assert sum(kind == "replay" for kind, _ in fake_graphs) == t5.GRAPHS_KEPT + 3
-
-
-def test_the_spans_of_a_capture_and_of_each_replay(monkeypatch, fake_graphs):
-    monkeypatch.setattr(profiling, "_records", collections.deque(maxlen=profiling.SPAN_LIMIT))
-    monkeypatch.setattr(profiling, "_first_call", [False])
-    monkeypatch.setattr(profiling, "_calls", itertools.count())
-    x1, x2 = _inputs(2, 4)
-    with profile(activities=[ProfilerActivity.CPU]):
-        with profiling.span(profiling.CALL_SPAN):
-            for _ in range(2):
-                with profiling.span("ransac.hypotheses"):
-                    t5._graphed(x1, x2, 24, "aberth")
-    recs = profiling.spans()
-    hyp = [r.id for r in recs if r.name == "ransac.hypotheses"]
-    assert [(r.name, r.parent) for r in recs if r.name.startswith("five_point.")] == [
-        ("five_point.capture", hyp[0]), ("five_point.replay", hyp[0]),
-        ("five_point.replay", hyp[1])]
 
 
 # ---------------------------------------------------------------------------
@@ -213,10 +115,11 @@ def test_each_tf32_setting_has_its_own_graph(cuda, empty_cache):
 
 @pytest.mark.cuda
 def test_the_cache_holds_at_most_its_bound_on_the_card(cuda, empty_cache):
-    for p in range(1, t5.GRAPHS_KEPT + 3):
+    kept = t5._solve_graphs.kept
+    for p in range(1, kept + 3):
         x1, x2 = _inputs(p, 16, device=cuda, seed=p)
         assert _equal(t5.five_point_candidates_batched(x1, x2), t5._solve(x1, x2))
-        assert len(empty_cache) == min(p, t5.GRAPHS_KEPT)
+        assert len(empty_cache) == min(p, kept)
 
 
 @pytest.mark.cuda
@@ -234,7 +137,7 @@ def test_a_streamed_run_across_a_first_capture_equals_the_eager_run(cuda, empty_
 
     poses, diags = run()
     assert len(empty_cache) >= 1 and None not in empty_cache.values()
-    monkeypatch.setattr(t5, "_graphed", lambda x1, x2, it, method: t5._solve(x1, x2, it, method))
+    monkeypatch.setattr(t5._solve_graphs, "_graphed", lambda device, args: t5._solve(*args))
     eager_poses, eager_diags = run()
     assert torch.equal(poses.R, eager_poses.R) and torch.equal(poses.t, eager_poses.t)
     assert diags.keys() == eager_diags.keys()

@@ -10,6 +10,7 @@ from tpu_vo.geometry import triangulation as jtri
 from tpu_vo_torch.geometry import camera as tcam, epipolar as tepi, se3 as tse3
 from tpu_vo_torch.geometry import triangulation as ttri
 from tpu_vo_torch import interop
+from _torch_threads import _one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-5, 1e-6
 

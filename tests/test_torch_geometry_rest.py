@@ -12,6 +12,7 @@ from tpu_vo.geometry import camera as jcam, epipolar as jepi, se3 as jse3
 from tpu_vo.geometry import triangulation as jtri
 from tpu_vo_torch.geometry import camera as tcam, epipolar as tepi, se3 as tse3
 from tpu_vo_torch.geometry import triangulation as ttri
+from _torch_threads import _one_thread  # noqa: F401
 
 TOL = 1e-10
 

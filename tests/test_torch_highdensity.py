@@ -33,20 +33,10 @@ from tpu_vo_torch.ops.select import idx_bits_for, select_maps_levels, select_map
 from tpu_vo_torch.tools import run_benchmarks
 from tpu_vo_torch.utils import synthetic
 from tpu_vo_torch.utils.metrics import scale_matched_gt
+from _torch_threads import _one_thread  # noqa: F401
 
 H4K, W4K = 2160, 3840
 BITS = 23
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs (see
-    tests/test_torch_reference_parity.py: xdist workers' thread pools
-    collide otherwise); nothing here depends on it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ import torch
 from tpu_vo.image import filters as jfilt, pyramid as jpyr
 from tpu_vo.utils.synthetic import make_sequence
 from tpu_vo_torch.image import filters as tfilt, pyramid as tpyr
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _frames():

@@ -34,6 +34,7 @@ from tpu_vo_torch.image import color
 from tpu_vo_torch.io import dataset, trajectory_io
 from tpu_vo_torch.pipeline.step import VOStepOutput
 from tpu_vo_torch.utils import metrics, records
+from _torch_threads import _one_thread  # noqa: F401
 
 CHANNELS = {"gray": 1, "rgb": 3, "rgba": 4}
 

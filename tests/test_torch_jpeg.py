@@ -24,6 +24,7 @@ from scipy import ndimage
 
 from tpu_vo.io import dataset as jdataset
 from tpu_vo_torch.io import dataset, jpeg
+from _torch_threads import _one_thread  # noqa: F401
 
 QUALITIES = (10, 50, 70, 85, 95)
 SIZES = ((37, 23), (48, 64), (1, 1), (9, 17))

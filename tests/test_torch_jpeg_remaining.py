@@ -51,10 +51,11 @@ import pytest
 from PIL import Image
 
 from tests.test_torch_jpeg_progressive import SCRIPTS, script_text, sof
-from tests.test_torch_native_codecs import (_jax_read, _one_thread, _pil_rgb,  # noqa: F401
+from tests.test_torch_native_codecs import (_jax_read, _pil_rgb,  # noqa: F401
                                             _port_read, jax_native)
 from tpu_vo.io import dataset as jdataset
 from tpu_vo_torch.io import dataset, jpeg, native_loader
+from _torch_threads import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

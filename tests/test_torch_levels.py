@@ -23,6 +23,7 @@ from tpu_vo_torch.features import fast
 from tpu_vo_torch.image.pyramid import build_pyramid
 from tpu_vo_torch.ops import levels as tlevels, patch as tpatch, select as tsel
 from tpu_vo_torch.utils.synthetic import compass_pattern, make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 THR, BORDER = 10, 31
 interpret_only = pytest.mark.skipif(

@@ -43,20 +43,11 @@ from tpu_vo_torch.tools import io_bench
 from tpu_vo_torch.utils.synthetic import make_sequence
 
 from test_torch_png_variants import write_png_any
+from _torch_threads import _one_thread  # noqa: F401
 
 CHANNELS = {"gray": 1, "rgb": 3, "rgba": 4}
 N, W, H = 6, 64, 48
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs: under xdist every worker
-    would otherwise start a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

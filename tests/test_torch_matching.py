@@ -9,6 +9,7 @@ import torch
 
 from tpu_vo.matching import filter as jfilter, hamming as jham
 from tpu_vo_torch.matching import filter as tfilter, hamming as tham
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def _descriptors(seed, n, m):

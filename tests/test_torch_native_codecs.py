@@ -35,10 +35,10 @@ import zlib
 
 import numpy as np
 import pytest
-import torch
 from PIL import Image
 
 from tpu_vo_torch.io import dataset, loader, native_loader
+from _torch_threads import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_SRC = os.path.join(REPO, "native", "vo_loader.cpp")
@@ -48,16 +48,6 @@ ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (
 CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
 H, W = 21, 35  # not multiples of 8 or 16: MCU padding, partial bytes, short Adam7 passes
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs: under xdist every worker
-    would otherwise start a thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

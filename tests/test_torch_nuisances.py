@@ -28,20 +28,10 @@ from tpu_vo_torch.image.filters import filter2d
 from tpu_vo_torch.io import dataset
 from tpu_vo_torch.tools import reference_band, run_benchmarks
 from tpu_vo_torch.utils import synthetic
+from _torch_threads import _one_thread  # noqa: F401
 
 NUISANCES = ("noise", "exposure", "blur", "jpeg")
 SUBSETS = [w for r in range(1, 5) for w in itertools.combinations(NUISANCES, r)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs (its config 6 run is
-    torch on the CPU): under xdist every worker would otherwise start a
-    thread per core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _frames(n, h, w, seed):

@@ -23,6 +23,7 @@ from tpu_vo.utils.synthetic import make_sequence
 from tpu_vo_torch import interop
 from tpu_vo_torch.configs import ORBConfig
 from tpu_vo_torch.features import orb as torb
+from _torch_threads import _one_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     jax.default_backend() != "cpu",

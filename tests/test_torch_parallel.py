@@ -49,6 +49,7 @@ from tpu_vo_torch.parallel.sharding import (run_batch_of_sequences, run_batch_ti
 from tpu_vo_torch.pipeline.runner import _empty_features, run_sequence_batched
 from tpu_vo_torch.pipeline.step import pair_generators
 from tpu_vo_torch.utils.synthetic import make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, T, B, SEED, KPS, LEVELS = 160, 120, 8, 4, 7, 150, 3
@@ -117,15 +118,6 @@ with open(f"{spec['dir']}/checks.rank{rank}.json", "w") as f:
     json.dump(checks, f)
 torch.distributed.destroy_process_group()
 """
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs (see test_torch_sharding)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -27,6 +27,7 @@ from tpu_vo_torch.image.pyramid import build_pyramid
 from tpu_vo_torch.ops import patch as tpatch, patch_probe as pp
 from tpu_vo_torch.tools import patch_slots_probe as tprobe
 from tpu_vo_torch.utils.synthetic import make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 _CACHE_SETTINGS = ("jax_compilation_cache_dir", "jax_persistent_cache_min_compile_time_secs",
                    "jax_persistent_cache_min_entry_size_bytes")

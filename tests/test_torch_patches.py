@@ -21,6 +21,7 @@ from tpu_vo.ops.patch_pallas import extract_patches_pallas
 from tpu_vo.utils.synthetic import make_sequence
 from tpu_vo_torch.features import brief as tbrief, patches as tpatches
 from tpu_vo_torch.ops import patch as tpatch
+from _torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture

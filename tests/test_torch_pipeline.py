@@ -24,6 +24,7 @@ from tpu_vo_torch.configs import VOConfig
 from tpu_vo_torch.features.orb import ORBFeatures
 from tpu_vo_torch.pipeline import runner, step
 from tpu_vo_torch.utils.synthetic import make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 W, H, T = 480, 360, 8
 

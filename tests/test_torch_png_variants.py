@@ -19,6 +19,7 @@ from PIL import Image
 
 from tpu_vo.io import dataset as jdataset, loader as jloader
 from tpu_vo_torch.io import dataset, jpeg, loader
+from _torch_threads import _one_thread  # noqa: F401
 
 SIG = b"\x89PNG\r\n\x1a\n"
 # (first column, first row, column step, row step) of Adam7's passes

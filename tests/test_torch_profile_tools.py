@@ -33,6 +33,7 @@ from tpu_vo_torch.tools import (probe_4k_gap, profile_4k, profile_5pt_micro, pro
                                 select_breakdown, streamed_probe, topk_micro)
 from tpu_vo_torch.utils import profiling
 from tpu_vo_torch.utils.synthetic import make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 BENCHMARKS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                           "benchmarks")
@@ -84,16 +85,6 @@ TOOLS = {
                                                       fcs=(8,), fc_pc=6),
                             ["flat_B2_T4_fc4_pc3", "flat_B2_T4_fc4_pc6", "flat_B2_T4_fc8_pc6"]),
 }
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """One intra-op thread: the tests run beside other test processes, and
-    oversubscribed OpenMP pools turn each parallel op into a wait."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tree_hash(root):

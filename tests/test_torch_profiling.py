@@ -13,6 +13,7 @@ import torch
 
 from tpu_vo.utils import profiling as jprofiling
 from tpu_vo_torch.utils import profiling
+from _torch_threads import _one_thread  # noqa: F401
 
 
 def test_stage_timer_report_equals_tpu_vo():

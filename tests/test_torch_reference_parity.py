@@ -28,22 +28,10 @@ from tpu_vo_torch.pipeline.step import pair_generators
 from tpu_vo_torch.tools import reference_band
 from tpu_vo_torch.utils import synthetic
 from tpu_vo_torch.utils.metrics import ate_rmse_aligned
+from _torch_threads import _one_thread  # noqa: F401
 
 SEEDS = 5
 LEGS = reference_band.load()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs: under xdist every worker
-    would otherwise start a thread per core, and the oversubscribed pools
-    slowed this file's CPU runs more than tenfold. The checks compare
-    within one thread setting or within tolerances, so they do not
-    depend on it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

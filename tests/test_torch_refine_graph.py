@@ -1,13 +1,10 @@
-"""The LM refinement's CUDA graphs (models/refinement `_graphed`).
+"""The LM refinement's CUDA graphs (models/refinement `_refine_graphs`, a
+utils/cuda_graphs.GraphCache; the cache's own cases, for both of its
+callers, are in tests/test_torch_cuda_graphs.py).
 
 On the CPU: CPU inputs run the eager loop, bit for bit the loop as it
-was before graphs (`_loop_before_graphs` below); the cache key holds
-every input of the captured work; a capture that raises leaves its
-signature to the eager loop; the cache keeps at most GRAPHS_KEPT
-signatures, the least recently used evicted; the spans of a capture and
-of a replay open where they should, and a replay holds no lm.step; the
-benchmark's refine_graph_hit_pct reads the replays. The capture and the
-replay are stood in for by fakes there.
+was before graphs (`_loop_before_graphs` below); the benchmark's
+refine_graph_hit_pct reads the replays.
 
 On the card (skipped without one; `python3 -m pytest --noconftest
 tests/test_torch_refine_graph.py` where JAX is absent): replays bit-equal
@@ -18,32 +15,21 @@ bound, no wait for the card in a replayed refine_pairs, and a refined
 """
 
 import collections
-import itertools
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from tpu_vo_torch.configs import ORBConfig, VOConfig
 from tpu_vo_torch.models import refinement as tref
 from tpu_vo_torch.pipeline import runner
-from tpu_vo_torch.utils import profiling
 from tpu_vo_torch.utils.profiling import Span
 from tpu_vo_torch.utils.synthetic import make_sequence
 from vobench import harness
 from vobench.tests.test_vobench_spans import W0, _ctx
+from _torch_threads import _one_thread  # noqa: F401
 
 hit_pct = harness._reader("metrics", "refine_graph_hit_pct")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _so3(w):
@@ -115,37 +101,8 @@ def _equal(a, b):
 @pytest.fixture
 def empty_cache(monkeypatch):
     """An empty graph cache for the test, the process's own restored after."""
-    monkeypatch.setattr(tref, "_graphs", collections.OrderedDict())
-    return tref._graphs
-
-
-@pytest.fixture
-def fake_graphs(monkeypatch, empty_cache):
-    """_capture and _replay stood in for on the CPU: a capture returns a
-    record of its signature, a replay the eager result; `log` lists the
-    calls."""
-    log = []
-
-    def capture(x1, x2, mask, R0, t0, iters, lambda0):
-        log.append(("capture", tuple(x1.shape)))
-        return SimpleNamespace(home=SimpleNamespace(wait_event=lambda ev: None), done=None,
-                               iters=iters, lambda0=lambda0)
-
-    def replay(g, *inputs):
-        log.append(("replay", tuple(inputs[0].shape)))
-        return tref._refine(*inputs, g.iters, g.lambda0)
-
-    monkeypatch.setattr(tref, "_capture", capture)
-    monkeypatch.setattr(tref, "_replay", replay)
-    return log
-
-
-@pytest.fixture
-def fresh_spans(monkeypatch):
-    """An empty record of spans, the process's first call already made."""
-    monkeypatch.setattr(profiling, "_records", collections.deque(maxlen=profiling.SPAN_LIMIT))
-    monkeypatch.setattr(profiling, "_first_call", [False])
-    monkeypatch.setattr(profiling, "_calls", itertools.count())
+    monkeypatch.setattr(tref._refine_graphs, "graphs", collections.OrderedDict())
+    return tref._refine_graphs.graphs
 
 
 # ---------------------------------------------------------------------------
@@ -158,7 +115,7 @@ def test_cpu_inputs_run_the_eager_loop_as_before(monkeypatch, dtype, iters):
     def no_graph(*args):
         raise AssertionError("a CPU input reached the CUDA graph path")
 
-    monkeypatch.setattr(tref, "_graphed", no_graph)
+    monkeypatch.setattr(tref._refine_graphs, "_graphed", no_graph)
     args = _inputs(4, dtype=dtype)
     want = _loop_before_graphs(*args, iters)
     got = tref.refine_window(*args, iters=iters)
@@ -169,98 +126,19 @@ def test_cpu_inputs_run_the_eager_loop_as_before(monkeypatch, dtype, iters):
                                                           1e-2)))
 
 
-def test_the_signature_holds_every_input_of_the_captured_work():
-    args = _inputs(2, 8)
-    key = tref._signature(*args, 6, 1e-3)
-    assert key == (*((tuple(a.shape), a.stride(), a.dtype, a.device) for a in args),
-                   6, 1e-3, torch.backends.cuda.matmul.allow_tf32)
-    assert tref._signature(*_inputs(2, 8, seed=1), 6, 1e-3) == key    # values are not in it
-    others = [tref._signature(*_inputs(3, 8), 6, 1e-3),
-              tref._signature(*_inputs(2, 16), 6, 1e-3),
-              tref._signature(*_inputs(2, 8, torch.float64), 6, 1e-3),
-              tref._signature(*args, 0, 1e-3),
-              tref._signature(*args, 6, 1e-2)]
-    for i, a in enumerate(args):       # each input alone in another layout
-        other = a.transpose(0, 1).contiguous().transpose(0, 1)
-        others.append(tref._signature(*args[:i], other, *args[i + 1:], 6, 1e-3))
-    others.append(tref._signature(*args[:2], args[2].float(), *args[3:], 6, 1e-3))
-    flag = torch.backends.cuda.matmul.allow_tf32
-    try:
-        torch.backends.cuda.matmul.allow_tf32 = not flag
-        others.append(tref._signature(*args, 6, 1e-3))
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = flag
-    assert len({key, *others}) == len(others) + 1
-
-
-def test_a_capture_that_raises_leaves_the_signature_to_the_eager_loop(monkeypatch,
-                                                                     empty_cache,
-                                                                     fresh_spans):
-    calls = []
-
-    def failing(*args):
-        calls.append(args)
-        raise RuntimeError("operation not permitted when stream is capturing")
-
-    monkeypatch.setattr(tref, "_capture", failing)
-    args = _inputs(2, 16)
-    with pytest.warns(UserWarning, match="capture failed"):
-        first = tref._graphed(*args, 6, 1e-3)
-    with profile(activities=[ProfilerActivity.CPU]):
-        second = tref._graphed(*args, 6, 1e-3)
-    assert len(calls) == 1 and list(empty_cache.values()) == [None]
-    want = _loop_before_graphs(*args, 6)
-    assert _equal(first, want) and _equal(second, want)
-    # the eager fallback keeps its iteration counter
-    assert [s.name for s in profiling.spans()] == ["lm.step"] * 6
-
-
-def test_the_cache_keeps_the_most_recently_used_signatures(fake_graphs, empty_cache):
-    inputs = {p: _inputs(p, 4) for p in range(1, tref.GRAPHS_KEPT + 3)}
-    for p in range(1, tref.GRAPHS_KEPT + 1):
-        tref._graphed(*inputs[p], 1, 1e-3)
-    tref._graphed(*inputs[1], 1, 1e-3)                   # 1 used again: 2 is the oldest
-    for p in (tref.GRAPHS_KEPT + 1, tref.GRAPHS_KEPT + 2):
-        tref._graphed(*inputs[p], 1, 1e-3)
-        assert len(empty_cache) == tref.GRAPHS_KEPT
-    kept = sorted(key[0][0][0] for key in empty_cache)
-    assert kept == [1] + list(range(4, tref.GRAPHS_KEPT + 3))
-    captures = [s for kind, s in fake_graphs if kind == "capture"]
-    assert len(captures) == tref.GRAPHS_KEPT + 2 and len(set(captures)) == len(captures)
-    assert sum(kind == "replay" for kind, _ in fake_graphs) == tref.GRAPHS_KEPT + 3
-
-
-def test_the_spans_of_a_capture_and_of_each_replay(fake_graphs, fresh_spans):
-    args = _inputs(2, 4)
-    with profile(activities=[ProfilerActivity.CPU]):
-        with profiling.span(profiling.CALL_SPAN):
-            for _ in range(2):
-                with profiling.span("vo.refine"), profiling.span("refine.lm"):
-                    got = tref._graphed(*args, 6, 1e-3)
-    assert _equal(got, _loop_before_graphs(*args, 6))
-    recs = profiling.spans()
-    lm = [r.id for r in recs if r.name == "refine.lm"]
-    assert [(r.name, r.parent) for r in recs if r.name.startswith("refine.")
-            and r.name != "refine.lm"] == [("refine.capture", lm[0]), ("refine.replay", lm[0]),
-                                           ("refine.replay", lm[1])]
-    assert "lm.step" not in {r.name for r in recs}
-
-
 def test_the_graph_hit_share_reads_the_replays(monkeypatch):
     from vobench.metrics import _spans
 
     def call(i, replay):
         """One call's vo.refine > refine.lm (> refine.replay) at W0 + 1000 i."""
         b, base = W0 + 1000 * i, 10 * i
-        out = [Span("vo.refine", base + 1, None, i, b + 100, b + 900, None, None, None),
-               Span("refine.lm", base + 2, base + 1, i, b + 200, b + 800, None, None, None)]
+        out = [Span("vo.refine", base + 1, None, i, b + 100, b + 900),
+               Span("refine.lm", base + 2, base + 1, i, b + 200, b + 800)]
         if replay:
-            out.append(Span("refine.replay", base + 3, base + 2, i, b + 300, b + 700, None,
-                            None, None))
+            out.append(Span("refine.replay", base + 3, base + 2, i, b + 300, b + 700))
         return out
 
-    capture = Span("refine.capture", 0, None, 0, W0 - 2_000_000, W0 - 1_000_000, None, None,
-                   None)
+    capture = Span("refine.capture", 0, None, 0, W0 - 2_000_000, W0 - 1_000_000)
     cases = [([capture] + call(1, True) + call(2, True), 100.0),
              ([capture] + call(1, True) + call(2, False), 50.0),
              ([capture] + call(1, False) + call(2, False), 0.0),     # every call eager
@@ -320,10 +198,11 @@ def test_each_iteration_count_and_tf32_setting_has_its_own_graph(cuda, empty_cac
 
 @pytest.mark.cuda
 def test_the_cache_holds_at_most_its_bound_on_the_card(cuda, empty_cache):
-    for p in range(1, tref.GRAPHS_KEPT + 3):
+    kept = tref._refine_graphs.kept
+    for p in range(1, kept + 3):
         args = _inputs(p, 64, device=cuda, seed=p)
         assert _equal(tref.refine_window(*args, iters=2), tref._refine(*args, 2))
-        assert len(empty_cache) == min(p, tref.GRAPHS_KEPT)
+        assert len(empty_cache) == min(p, kept)
 
 
 @pytest.fixture(scope="module")
@@ -358,8 +237,8 @@ def test_a_replayed_refine_pairs_never_waits_for_the_card(cuda, vga_run):
         outs = [runner.refine_pairs(*args) for _ in range(3)]
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    key = tref._signature(*runner.refine_inputs(*args[:4]), args[4], 1e-3)
-    assert tref._graphs.get(key) is not None
+    key = tref._refine_graphs.signature(*runner.refine_inputs(*args[:4]), args[4], 1e-3)
+    assert tref._refine_graphs.graphs.get(key) is not None
     want = tref._refine(*runner.refine_inputs(*args[:4]), args[4])
     assert all(_equal(o, want) for o in outs)
 
@@ -368,7 +247,7 @@ def test_a_replayed_refine_pairs_never_waits_for_the_card(cuda, vga_run):
 def test_a_refined_vga_run_equals_its_eager_run(cuda, vga_run, monkeypatch):
     frames, cfg, (poses, diags), _ = vga_run
     assert bool(diags["refine_improved"].any())
-    monkeypatch.setattr(tref, "_graphed", lambda *a: tref._refine(*a, step_spans=True))
+    monkeypatch.setattr(tref._refine_graphs, "_graphed", lambda device, args: tref._refine(*args))
     eager_poses, eager_diags = runner.run_sequence_batched(frames, cfg, seed=9, device="cuda",
                                                            refine_iters=6)
     assert torch.equal(poses.R, eager_poses.R) and torch.equal(poses.t, eager_poses.t)

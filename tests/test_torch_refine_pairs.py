@@ -25,6 +25,7 @@ from tpu_vo_torch.utils import profiling
 from vobench import harness
 from vobench.reference import configs as ref_configs
 from vobench.reference import window_lm
+from _torch_threads import _one_thread  # noqa: F401
 
 # float64: the two compute one function, so only rounding differs
 F64_TOL = 1e-9
@@ -43,14 +44,6 @@ VGA_CUT = dict(image_width=320, image_height=240, n_features=300, n_levels=4, ma
 CUTS = {"kitti_orb1200.seq128": SEQ, "vga_orb1000_lm.seq32": VGA_CUT}
 REFINE_SPANS = {"vo.refine": "vo.call", "refine.prep": "vo.refine", "refine.lm": "vo.refine",
                 "lm.step": "refine.lm"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,6 +13,7 @@ import torch
 
 from tpu_vo.models import refinement as jref
 from tpu_vo_torch.models import refinement as tref
+from _torch_threads import _one_thread  # noqa: F401
 
 F64_TOL = 1e-9
 F32_TOL, F32_COST_RTOL = 2e-4, 1e-4

@@ -19,6 +19,7 @@ from tpu_vo.ops import select_pallas
 from tpu_vo.utils.synthetic import make_sequence
 from tpu_vo_torch.image.pyramid import build_pyramid
 from tpu_vo_torch.ops import select as tsel
+from _torch_threads import _one_thread  # noqa: F401
 
 pytestmark = pytest.mark.skipif(
     jax.default_backend() != "cpu",

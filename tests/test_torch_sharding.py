@@ -19,22 +19,10 @@ from tpu_vo_torch.parallel.sharding import run_batch_of_sequences
 from tpu_vo_torch.pipeline.runner import run_sequence_batched
 from tpu_vo_torch.tools import run_benchmarks
 from tpu_vo_torch.utils.synthetic import make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 W, H, T, B, SEED = 160, 120, 4, 3, 7
 CFG = VOConfig(image_width=W, image_height=H, orb=ORBConfig(n_features=150, n_levels=3))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs: under xdist every worker
-    would otherwise start a thread per core, and the oversubscribed pools
-    slowed this file's CPU runs more than tenfold. The checks compare
-    within one thread setting or within tolerances, so they do not
-    depend on it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -24,6 +24,7 @@ from tpu_vo_torch.parallel import sharding
 from tpu_vo_torch.pipeline import runner
 from tpu_vo_torch.utils import profiling
 from tpu_vo_torch.utils.synthetic import make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 W, H = 160, 120
 CFG = VOConfig(image_width=W, image_height=H, orb=ORBConfig(n_features=100, n_levels=2))

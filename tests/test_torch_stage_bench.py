@@ -9,6 +9,7 @@ import torch
 from tpu_vo_torch.features import orientation
 from tpu_vo_torch.image.filters import gaussian_blur
 from tpu_vo_torch.tools import stage_bench as sb
+from _torch_threads import _one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ from tpu_vo_torch.pipeline import runner, step
 from tpu_vo_torch.utils.records import sequence_records
 from tpu_vo_torch.utils.synthetic import make_sequence
 from tpu_vo_torch.viz.overlay import draw_keypoints_overlay
+from _torch_threads import _one_thread  # noqa: F401
 
 W, H, T = 160, 120, 4
 ORB = dict(n_features=150, n_levels=2)

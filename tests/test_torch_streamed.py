@@ -33,19 +33,9 @@ from tpu_vo_torch.configs import ORBConfig, VOConfig
 from tpu_vo_torch.pipeline import runner
 from tpu_vo_torch.pipeline.upload import upload_ahead
 from tpu_vo_torch.utils.synthetic import make_sequence
+from _torch_threads import _one_thread  # noqa: F401
 
 MAX_ROT_DIFF_DEG = 0.5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread while this file runs: under xdist every worker
-    would otherwise start a thread per core. The checks compare within
-    one thread setting or within tolerances."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

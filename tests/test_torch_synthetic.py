@@ -13,6 +13,7 @@ import pytest
 
 from tpu_vo.utils import synthetic as js
 from tpu_vo_torch.utils import synthetic as ts
+from _torch_threads import _one_thread  # noqa: F401
 
 W, H, T, SEED = 320, 240, 3, 3
 MAX_DIFF_SHARE = 0.002

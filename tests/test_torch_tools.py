@@ -33,6 +33,7 @@ from tpu_vo_torch.geometry import conventions
 from tpu_vo_torch.image import pyramid
 from tpu_vo_torch.io.dataset import load_frame
 from tpu_vo_torch.tools import evaluate_trajectory, make_synthetic_dataset
+from _torch_threads import _one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MAX_DIFF_SHARE = 0.002

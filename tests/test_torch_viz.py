@@ -30,6 +30,7 @@ from tpu_vo_torch.api import TrajectoryViewer
 from tpu_vo_torch.geometry.se3 import Pose
 from tpu_vo_torch.io import jpeg
 from tpu_vo_torch.viz import epipolar, overlay, raster, trajectory
+from _torch_threads import _one_thread  # noqa: F401
 
 CLEAR = (26, 26, 26)
 TAGS = ["posX", "negX", "posY", "negY", "posZ", "negZ", "iso"]

@@ -18,13 +18,11 @@ Every intermediate carries the sample axis last, (..., small, n):
   5. back-substitution of (x, y) from the null vector of B(z): up to 10
      Frobenius-normalized candidates per sample with a validity mask.
 
-On a CUDA device `five_point_candidates_batched` replays a CUDA graph:
-one per call signature (the inputs' shapes, strides, dtypes and device,
-dk_iters, root_method and the TF32 matmul flag), captured on the
-signature's first call and kept for the GRAPHS_KEPT signatures used
-last. The graph launches the eager path's kernels with the same launch
-parameters, so its outputs are the eager path's bit for bit, at one
-launch in place of some 2,800. CPU inputs and the per-sample
+On a CUDA device `five_point_candidates_batched` replays one CUDA graph
+per call signature (utils/cuda_graphs.GraphCache; its spans
+five_point.capture and five_point.replay): one launch in place of some
+2,800, bit for bit the eager path. The signature holds the TF32 matmul
+flag, which the capture fixes. CPU inputs and the per-sample
 `five_point_candidates` run eagerly.
 
 The array-of-structures helpers of tpu_vo (`_mul11` ... `_newton_real`),
@@ -36,16 +34,12 @@ SoA form.
 
 from __future__ import annotations
 
-import collections
 import functools
-import threading
-import warnings
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from tpu_vo_torch.utils.profiling import span
+from tpu_vo_torch.utils.cuda_graphs import GraphCache
 
 # Copied from tpu_vo/estimation/five_point.py: monomial bases in Nister's
 # ordering and their multiplication tables.
@@ -517,12 +511,10 @@ def five_point_candidates_batched(x1: torch.Tensor, x2: torch.Tensor,
     root_method="dk"). root_method: "aberth" or "dk" (_soa_poly_roots).
     Returns Es (..., n, 10, 3, 3) Frobenius-normalized candidates and
     valid (..., n, 10): slots holding a genuine real-root solution.
-    CUDA inputs replay the signature's CUDA graph (_graphed), CPU inputs
-    run eagerly; the results are the same bit for bit.
+    CUDA inputs replay the signature's CUDA graph, CPU inputs run
+    eagerly; the results are the same bit for bit.
     """
-    if x1.device.type == "cuda":
-        return _graphed(x1, x2, dk_iters, root_method)
-    return _solve(x1, x2, dk_iters, root_method)
+    return _solve_graphs(x1, x2, dk_iters, root_method)
 
 
 def _solve(x1: torch.Tensor, x2: torch.Tensor, dk_iters: int = 24,
@@ -595,107 +587,4 @@ def five_point_candidates(x1: torch.Tensor, x2: torch.Tensor):
     return Es[0], valid[0]
 
 
-# ---------------------------------------------------------------------------
-# CUDA graphs of the batched solver
-# ---------------------------------------------------------------------------
-
-GRAPHS_KEPT = 8     # signatures whose graphs are kept, the least recently used evicted
-
-
-class _Graph(NamedTuple):
-    """One captured call: the static inputs it reads, the outputs it
-    writes, the stream its inputs were allocated on, and the event after
-    its last use."""
-
-    x1: torch.Tensor
-    x2: torch.Tensor
-    out: tuple
-    graph: "torch.cuda.CUDAGraph"
-    home: "torch.cuda.Stream"
-    done: "torch.cuda.Event"
-
-
-# signature -> _Graph, or None where the capture failed and the
-# signature runs eagerly; the most recently used last
-_graphs: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
-_graphs_lock = threading.Lock()
-_side_streams: dict = {}
-
-
-def _signature(x1: torch.Tensor, x2: torch.Tensor, dk_iters: int, root_method: str) -> tuple:
-    """Everything the captured work depends on: the inputs' shapes,
-    strides (the layouts of the intermediates follow them), dtypes and
-    devices, the root iteration, and the TF32 flag of cuBLAS, which the
-    capture fixes."""
-    return (tuple(x1.shape), x1.stride(), x1.dtype, x1.device,
-            tuple(x2.shape), x2.stride(), x2.dtype, x2.device,
-            int(dk_iters), root_method, torch.backends.cuda.matmul.allow_tf32)
-
-
-def _capture(x1: torch.Tensor, x2: torch.Tensor, dk_iters: int, root_method: str) -> _Graph:
-    """Run the solver once on a side stream of x1's device, which fills
-    the constant tables' caches and cuBLAS's workspace for that stream,
-    then capture it there into static inputs shaped and strided as x1
-    and x2. Only this thread's calls are checked during the capture
-    (capture_error_mode="thread_local"), so an upload thread may go on."""
-    home = torch.cuda.current_stream(x1.device)
-    if x1.device not in _side_streams:
-        _side_streams[x1.device] = torch.cuda.Stream(x1.device)
-    side = _side_streams[x1.device]
-    s1, s2 = torch.empty_like(x1), torch.empty_like(x2)
-    graph = torch.cuda.CUDAGraph()
-    side.wait_stream(home)
-    try:
-        with torch.cuda.stream(side):
-            _solve(x1, x2, dk_iters, root_method)
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                out = _solve(s1, s2, dk_iters, root_method)
-            finally:
-                graph.capture_end()
-    finally:
-        home.wait_stream(side)      # x1 and x2 are freed on home, after the side's reads
-    return _Graph(s1, s2, out, graph, home, torch.cuda.Event())
-
-
-def _replay(g: _Graph, x1: torch.Tensor, x2: torch.Tensor):
-    """Copy the inputs in, replay, and clone the outputs, on the caller's
-    current stream and without waiting for the device: the clones are
-    the caller's, and the next replay writes only the graph's own."""
-    stream = torch.cuda.current_stream(x1.device)
-    stream.wait_event(g.done)       # the last replay, on whatever stream, has read its inputs
-    g.x1.copy_(x1)
-    g.x2.copy_(x2)
-    g.graph.replay()
-    out = tuple(t.clone() for t in g.out)
-    g.done.record(stream)
-    return out
-
-
-def _graphed(x1: torch.Tensor, x2: torch.Tensor, dk_iters: int, root_method: str):
-    """five_point_candidates_batched on CUDA inputs: the signature's graph,
-    captured on its first call (span five_point.capture), replayed on
-    every call (span five_point.replay); eagerly where the capture
-    raised."""
-    key = _signature(x1, x2, dk_iters, root_method)
-    with _graphs_lock:
-        if key in _graphs:
-            _graphs.move_to_end(key)
-            g = _graphs[key]
-        else:
-            with span("five_point.capture"):
-                try:
-                    g = _capture(x1, x2, dk_iters, root_method)
-                except RuntimeError as e:
-                    warnings.warn(f"five_point: CUDA graph capture failed, running the "
-                                  f"solver eagerly for this signature: {e}")
-                    g = None
-            _graphs[key] = g
-            while len(_graphs) > GRAPHS_KEPT:
-                old = _graphs.popitem(last=False)[1]
-                if old is not None:
-                    old.home.wait_event(old.done)   # its inputs are freed on home
-        if g is not None:
-            with span("five_point.replay"):
-                return _replay(g, x1, x2)
-    return _solve(x1, x2, dk_iters, root_method)
+_solve_graphs = GraphCache("five_point", _solve)

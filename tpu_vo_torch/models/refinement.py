@@ -20,20 +20,19 @@ bundle adjustment the reference does not have).
     (pipeline/runner.refine_pairs, run_sequence_batched(refine_iters=n)).
 
 On a CUDA device refine_relative_pose_lm (and so refine_window) replays
-a CUDA graph: one per call signature (the five inputs' shapes, strides,
-dtypes and device, iters, lambda0 and the TF32 matmul flag), captured on
-the signature's first call and kept for the GRAPHS_KEPT signatures used
-last. The graph launches the eager loop's kernels with the same launch
-parameters, so its outputs are the eager loop's bit for bit, at one
-launch in place of some 1,700 at 6 iterations over a window. CPU inputs
-run eagerly.
+one CUDA graph per call signature (utils/cuda_graphs.GraphCache; iters
+and lambda0 are in the signature): one launch in place of some 1,700 at
+6 iterations over a window, bit for bit the eager loop. The signature
+holds the TF32 matmul flag, which the capture fixes. CPU inputs run
+eagerly.
 
-Spans (utils/profiling.span): refine_window runs in `refine.lm`. On the
-eager path it holds the initial cost and each LM iteration in an
-`lm.step`; on CUDA it holds `refine.capture` (a signature's first call)
-or `refine.replay`, and no `lm.step`: a traced span records CUDA events,
-which a capture may not hold. Nothing here waits for the card: no
-.item(), no boolean indexing, solve_ex without check_errors.
+Spans (utils/profiling.span): refine_window runs in `refine.lm`. The
+eager loop holds each LM iteration in an `lm.step`; on CUDA `refine.lm`
+holds `refine.capture` (a signature's first call, with the `lm.step`s
+of its eager run and of its capture, host-only spans) and
+`refine.replay`, where a replay opens no `lm.step`. Nothing here waits
+for the card: no .item(), no boolean indexing, solve_ex without
+check_errors.
 
 The normal equations are fragile at reduced precision; the package keeps
 TF32 off (tpu_vo_torch/__init__.py), and nothing here turns it on.
@@ -41,17 +40,14 @@ TF32 off (tpu_vo_torch/__init__.py), and nothing here turns it on.
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import functools
-import threading
-import warnings
 from typing import NamedTuple
 
 import torch
 
 from tpu_vo_torch.geometry.epipolar import essential_from_Rt
 from tpu_vo_torch.geometry.se3 import skew
+from tpu_vo_torch.utils.cuda_graphs import GraphCache
 from tpu_vo_torch.utils.profiling import span
 
 
@@ -169,27 +165,21 @@ def refine_relative_pose_lm(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tens
     (P, N) inliers; R0 (..., 3, 3), t0 (..., 3). Minimizes the Sampson
     error of E = [t]_x R with R = exp(w) R0, t = norm(t0 + dt). A pair
     whose cost did not fall keeps (R0, t0). CUDA inputs replay the
-    signature's CUDA graph (_graphed), CPU inputs run eagerly; the
-    results are the same bit for bit.
+    signature's CUDA graph, CPU inputs run eagerly; the results are the
+    same bit for bit.
     """
     if x1.dim() == 2:
         out = refine_relative_pose_lm(x1[None], x2[None], mask[None], R0[None], t0[None],
                                       iters, lambda0)
         return LMResult(*(v[0] for v in out))
-    if x1.device.type == "cuda":
-        return LMResult(*_graphed(x1, x2, mask, R0, t0, iters, lambda0))
-    return LMResult(*_refine(x1, x2, mask, R0, t0, iters, lambda0, step_spans=True))
-
-
-_NO_SPAN = contextlib.nullcontext()
+    return LMResult(*_refine_graphs(x1, x2, mask, R0, t0, iters, lambda0))
 
 
 def _refine(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor, R0: torch.Tensor,
-            t0: torch.Tensor, iters: int, lambda0: float = 1e-3, step_spans: bool = False):
+            t0: torch.Tensor, iters: int, lambda0: float = 1e-3):
     """refine_relative_pose_lm on (P, N, 2) inputs, eagerly: (R, t, cost,
-    improved), some 270 kernel launches an iteration whatever P. Each
-    iteration opens an `lm.step` span only with step_spans: a capture
-    runs it without."""
+    improved), some 270 kernel launches an iteration whatever P, each
+    iteration in an `lm.step` span."""
     dtype, dev = x1.dtype, x1.device
     n_inl = torch.clamp(mask.sum(-1), min=1).to(dtype)
     w_mask = mask.to(dtype)
@@ -204,7 +194,7 @@ def _refine(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor, R0: torch.Te
     c = c0
     lam = torch.full_like(c0, lambda0)
     for _ in range(iters):
-        with span("lm.step") if step_spans else _NO_SPAN:
+        with span("lm.step"):
             r, J = _residuals_and_jacobian(p, *args)             # (P, N), (P, N, 6)
             JtJ = J.transpose(-1, -2) @ J
             g = (J.transpose(-1, -2) @ r[..., None])[..., 0]
@@ -224,115 +214,7 @@ def _refine(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor, R0: torch.Te
     return R, t, torch.minimum(c, c0), improved
 
 
-# ---------------------------------------------------------------------------
-# CUDA graphs of the LM loop
-# ---------------------------------------------------------------------------
-
-GRAPHS_KEPT = 8     # signatures whose graphs are kept, the least recently used evicted
-
-
-class _Graph(NamedTuple):
-    """One captured call: the static inputs it reads (x1, x2, mask, R0,
-    t0), the outputs it writes, the stream its inputs were allocated on,
-    and the event after its last use."""
-
-    inputs: tuple
-    out: tuple
-    graph: "torch.cuda.CUDAGraph"
-    home: "torch.cuda.Stream"
-    done: "torch.cuda.Event"
-
-
-# signature -> _Graph, or None where the capture failed and the
-# signature runs eagerly; the most recently used last
-_graphs: "collections.OrderedDict[tuple, object]" = collections.OrderedDict()
-_graphs_lock = threading.Lock()
-_side_streams: dict = {}
-
-
-def _signature(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor, R0: torch.Tensor,
-               t0: torch.Tensor, iters: int, lambda0: float) -> tuple:
-    """Everything the captured work depends on: the inputs' shapes,
-    strides (the layouts of the intermediates follow them), dtypes and
-    devices, the iteration count, the starting damping (a kernel
-    argument in the graph), and the TF32 flag of cuBLAS, which the
-    capture fixes."""
-    return (*((tuple(a.shape), a.stride(), a.dtype, a.device) for a in (x1, x2, mask, R0, t0)),
-            int(iters), float(lambda0), torch.backends.cuda.matmul.allow_tf32)
-
-
-def _capture(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor, R0: torch.Tensor,
-             t0: torch.Tensor, iters: int, lambda0: float) -> _Graph:
-    """Run the loop once on a side stream of x1's device, which fills the
-    constants' cache and cuBLAS's workspace for that stream, then capture
-    it there into static inputs shaped and strided as the caller's. Only
-    this thread's calls are checked during the capture
-    (capture_error_mode="thread_local"), so an upload thread may go on."""
-    home = torch.cuda.current_stream(x1.device)
-    if x1.device not in _side_streams:
-        _side_streams[x1.device] = torch.cuda.Stream(x1.device)
-    side = _side_streams[x1.device]
-    inputs = (x1, x2, mask, R0, t0)
-    static = tuple(torch.empty_strided(a.shape, a.stride(), dtype=a.dtype, device=a.device)
-                   for a in inputs)
-    graph = torch.cuda.CUDAGraph()
-    side.wait_stream(home)
-    try:
-        with torch.cuda.stream(side):
-            _refine(*inputs, iters, lambda0)
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                out = _refine(*static, iters, lambda0)
-            finally:
-                graph.capture_end()
-    finally:
-        home.wait_stream(side)      # the inputs are freed on home, after the side's reads
-    return _Graph(static, out, graph, home, torch.cuda.Event())
-
-
-def _replay(g: _Graph, *inputs: torch.Tensor):
-    """Copy the inputs in, replay, and clone the outputs, on the caller's
-    current stream and without waiting for the device: the clones are
-    the caller's, and the next replay writes only the graph's own."""
-    stream = torch.cuda.current_stream(inputs[0].device)
-    stream.wait_event(g.done)       # the last replay, on whatever stream, has read its inputs
-    for static, a in zip(g.inputs, inputs):
-        static.copy_(a)
-    g.graph.replay()
-    out = tuple(t.clone() for t in g.out)
-    g.done.record(stream)
-    return out
-
-
-def _graphed(x1: torch.Tensor, x2: torch.Tensor, mask: torch.Tensor, R0: torch.Tensor,
-             t0: torch.Tensor, iters: int, lambda0: float):
-    """refine_relative_pose_lm on (P, N, 2) CUDA inputs: the signature's
-    graph, captured on its first call (span refine.capture), replayed on
-    every call (span refine.replay); eagerly, with its lm.step spans,
-    where the capture raised."""
-    inputs = (x1, x2, mask, R0, t0)
-    key = _signature(*inputs, iters, lambda0)
-    with _graphs_lock:
-        if key in _graphs:
-            _graphs.move_to_end(key)
-            g = _graphs[key]
-        else:
-            with span("refine.capture"):
-                try:
-                    g = _capture(*inputs, iters, lambda0)
-                except RuntimeError as e:
-                    warnings.warn(f"refinement: CUDA graph capture failed, running the "
-                                  f"LM loop eagerly for this signature: {e}")
-                    g = None
-            _graphs[key] = g
-            while len(_graphs) > GRAPHS_KEPT:
-                old = _graphs.popitem(last=False)[1]
-                if old is not None:
-                    old.home.wait_event(old.done)   # its inputs are freed on home
-        if g is not None:
-            with span("refine.replay"):
-                return _replay(g, *inputs)
-    return _refine(*inputs, iters, lambda0, step_spans=True)
+_refine_graphs = GraphCache("refine", _refine)
 
 
 def triangulate_pair_points(R: torch.Tensor, t: torch.Tensor, x1: torch.Tensor,

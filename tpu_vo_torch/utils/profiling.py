@@ -8,9 +8,9 @@ its host clock).
   span(name)            the program's span at a layer boundary: recorded
                         (and a record_function in the profiler's trace)
                         while any torch.profiler session records, and
-                        host side only in the process's first call of
-                        an entry point; spans() returns the record,
-                        reset_spans() clears it;
+                        without the record_function in the process's
+                        first call of an entry point; host times only;
+                        spans() returns the record, reset_spans() clears it;
   StageTimer            wall-clock totals per named stage, with fences;
   benchmark(fn, *args)  first-call and steady-state seconds of fn(*args);
   fence(tree)           wait for the CUDA tensors of a nested structure;
@@ -87,21 +87,18 @@ def trace(log_dir: Optional[str] = None):
 # pair.*, ransac.* or kernels.*. A span is recorded while a torch.profiler
 # session records (torch._C._autograd._profiler_enabled(), checked at each
 # entry), as a record_function of its name and in the in-memory record
-# below, with the CUDA events of its device interval where CUDA is
-# initialized; and during the process's first entry-point call, on the
-# host only. Otherwise span() returns one shared null context.
+# below; and during the process's first entry-point call, in the record
+# alone. Otherwise span() returns one shared null context. A span records
+# nothing on a device, so it may open inside a CUDA graph capture; a
+# reader takes a span's device time from the ops launched inside its host
+# interval.
 CALL_SPAN = "vo.call"
 SPAN_LIMIT = 65536          # spans kept: the newest, in order of their ends
 
 
 class Span(NamedTuple):
     """One recorded span. Host times are time.time_ns(), the clock that
-    torch.profiler stamps its host events with; start_ns is taken just
-    before the span's start event is recorded, end_ns just before its end
-    event. The device interval, where there is one, is in ns after the
-    first CUDA event that its call recorded on `device` (dev_start,
-    dev_end): a reader aligns it to the profiler's clock with one offset
-    per call and device."""
+    torch.profiler stamps its host events with."""
 
     name: str
     id: int
@@ -109,25 +106,24 @@ class Span(NamedTuple):
     call: Optional[int]       # the number of its vo.call (0: the process's first)
     start_ns: int
     end_ns: int
-    device: Optional[int]     # CUDA device index of the events
-    dev_start: Optional[float]
-    dev_end: Optional[float]
+    # Always None: spans record no device interval. The fields stay while
+    # the benchmark's tests build Span positionally with nine values.
+    device: Optional[int] = None
+    dev_start: Optional[float] = None
+    dev_end: Optional[float] = None
 
 
 class _Open:
-    """A span while it is open, and until spans() resolves its events."""
+    """A span while it is open."""
 
-    __slots__ = ("name", "id", "parent", "call", "start_ns", "end_ns", "device",
-                 "base", "ev0", "ev1", "bases", "dev_start", "dev_end")
+    __slots__ = ("name", "id", "parent", "call", "start_ns")
 
     def __init__(self, name, parent, call):
         self.name, self.id = name, next(_ids)
         self.parent, self.call = parent, call
-        self.device = self.base = self.ev0 = self.ev1 = self.dev_start = self.dev_end = None
-        self.bases = {}      # a root's first event per device: its call's time zero
 
 
-_records: "collections.deque[Any]" = collections.deque(maxlen=SPAN_LIMIT)
+_records: "collections.deque[Span]" = collections.deque(maxlen=SPAN_LIMIT)
 _ids = itertools.count()
 _calls = itertools.count()
 _local = threading.local()   # .stack: this thread's open spans, outermost first
@@ -136,15 +132,9 @@ _NULL = contextlib.nullcontext()
 _profiler_enabled = torch._C._autograd._profiler_enabled
 
 
-def _timing_event(device: int):
-    ev = torch.cuda.Event(enable_timing=True)
-    ev.record(torch.cuda.current_stream(device))
-    return ev
-
-
 class _Recorded:
-    """span()'s context when on: `traced` (a profiler records) adds the
-    record_function and the CUDA events; else host times only."""
+    """span()'s context when on: the record, and with `traced` (a
+    profiler records) a record_function too."""
 
     __slots__ = ("name", "traced", "rf", "rec")
 
@@ -160,23 +150,15 @@ class _Recorded:
             rec = _Open(self.name, stack[-1].id, stack[-1].call)
         else:
             rec = _Open(self.name, None, next(_calls) if self.name == CALL_SPAN else None)
-        root = stack[0] if stack else rec
         rec.start_ns = time.time_ns()
-        if self.traced and torch.cuda.is_initialized():
-            rec.device = torch.cuda.current_device()
-            rec.ev0 = _timing_event(rec.device)
-            rec.base = root.bases.setdefault(rec.device, rec.ev0)
         stack.append(rec)
         self.rec = rec
 
     def __exit__(self, *exc):
         rec = self.rec
         _local.stack.pop()
-        rec.end_ns = time.time_ns()
-        if rec.ev0 is not None:
-            rec.ev1 = _timing_event(rec.device)
-        rec.bases = None
-        _records.append(rec)
+        _records.append(Span(rec.name, rec.id, rec.parent, rec.call, rec.start_ns,
+                             time.time_ns()))
         if self.rf is not None:
             self.rf.__exit__(*exc)
         return False
@@ -185,7 +167,7 @@ class _Recorded:
 def span(name: str):
     """A context manager around the work of one layer boundary: a
     record_function(name) and a record (see Span) while a torch.profiler
-    session records; host times only during the process's first call of
+    session records; the record alone during the process's first call of
     an entry point (CALL_SPAN, opened by the outermost entry alone); else
     a shared null context that records nothing."""
     stack = _local.__dict__.get("stack")
@@ -205,22 +187,8 @@ def span(name: str):
 
 
 def spans() -> List[Span]:
-    """The recorded spans, at most SPAN_LIMIT, the newest last, each
-    device interval resolved from its CUDA events (which waits for the
-    devices that recorded them: call it after the traced work)."""
-    recs = list(_records)
-    devices = {r.device for r in recs if r.ev1 is not None}
-    for d in devices:
-        torch.cuda.synchronize(d)
-    out = []
-    for r in recs:
-        if r.ev1 is not None:
-            r.dev_start = r.base.elapsed_time(r.ev0) * 1e6
-            r.dev_end = r.base.elapsed_time(r.ev1) * 1e6
-            r.base = r.ev0 = r.ev1 = None
-        out.append(Span(r.name, r.id, r.parent, r.call, r.start_ns, r.end_ns, r.device,
-                        r.dev_start, r.dev_end))
-    return out
+    """The recorded spans, at most SPAN_LIMIT, the newest last."""
+    return list(_records)
 
 
 def reset_spans() -> None:
