@@ -24,12 +24,17 @@ Phases, in order; any failure raises and the exit code is non-zero:
      on all 1200 slots of the main path's 32 frames, with slots clamped
      at every edge, and on a table with a 30x60 level whose slot count
      leaves a tail of fewer than 4 windows; B1 and B2 also on one frame
-     (B = 1, as the streaming path calls them) at all 8 levels; all must
-     agree bit for bit;
+     (B = 1, as the streaming path calls them) at all 8 levels; the
+     describe kernel (describe_windows, one launch) on the windows of each
+     of those B2 runs and on the main path's windows as ranked (the
+     angles as float32 bits, all 256 bits); all must agree bit for bit;
   4. drive the main path, run_sequence_batched on a (32, 376, 1241) uint8
      synthetic sequence with 1200 keypoints and 256-hypothesis 5-point
      RANSAC, with the kernels' launch counters reset just before; check
-     that B1 and B2 each launched exactly once, the poses are finite and
+     that B1, B2 and the describe kernel each launched exactly once (on
+     every later counted path the describe kernel launches as often as
+     B2, and in the tools of 5j and 5k once per orb.describe call on the
+     card), the poses are finite and
      the trajectory is accurate, and that a small sequence gives the same
      answer on the card as on the CPU;
   4a. bench.py's harness: tpu_vo_torch.tools.bench at bench.py's
@@ -286,7 +291,10 @@ sources, launch counts, errors, times and bounds (B1 twice: its Harris
 instance, select_maps, and its Harris-off instance,
 select_maps_no_harris, whose launches are phase 5k's; B1's and B2's also
 with their launches on each path, `launches_by_path`, and their times
-and bounds at config 3's shapes, `at_config3`); the last line is
+and bounds at config 3's shapes, `at_config3`; the describe kernel,
+describe_windows, with its launches on each path, its time alone and
+its bound: 7,656 B a window (the f32 window read, the angle and 256
+bits written) at the HBM rate); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -335,6 +343,8 @@ from tpu_vo_torch.io.trajectory_io import load_trajectory_tum  # noqa: E402
 from tpu_vo_torch.matching.hamming import ratio_test_match  # noqa: E402
 from tpu_vo_torch.ops import _build  # noqa: E402
 from tpu_vo_torch.ops import fast as fast_ops, patch_probe  # noqa: E402
+from tpu_vo_torch.ops.describe import (describe_windows,  # noqa: E402
+                                       describe_windows_reference)
 from tpu_vo_torch.ops.fast import (fast_margin, fast_margin_levels,  # noqa: E402
                                    fast_margin_reference)
 from tpu_vo_torch.ops.patch import (RAW_RADIUS, RAW_SIZE, extract_patches,  # noqa: E402
@@ -377,6 +387,16 @@ PROBE_KERNEL_FN = {"band_windows": "band_kernel", "phase_windows_mxu": "phase_mx
 # B3's launches per pass of the stage benchmark's ablation: one per pyramid
 # in each of +fast, +topk, +harris and +orientation
 B3_PER_PASS = 4
+# The kernels that one stage-1 call (detect_and_compute) launches once
+# each: B1, B2 and the describe kernel on B2's windows.
+STAGE1_KERNELS = ("select_maps", "extract_patches", "describe_windows")
+# The describe kernel's bytes a window: the 43x43 f32 window read, the
+# angle (f32) and the 256 bits (one byte each) written.
+DESCRIBE_BYTES = 4 * 43 * 43 + 4 + 256
+# Paths whose tools launch B2 and the describe kernel apart (the stages
+# they split): their describe launches are held to their orb.describe
+# calls on the card, not to B2's.
+DESCRIBE_APART = ("profiling tools", "diagnostics")
 # bf16 tensor-core operations per window of P2's two one-hot products as
 # mma.sync tiles them, (48, 128) x (128, 48) and (48, 48) x (48, 48), for
 # each of three bf16 parts, a multiply and an add per term: how P2
@@ -671,6 +691,24 @@ def _reset(kernels):
     select_maps.launches_no_harris = 0
 
 
+@contextlib.contextmanager
+def _describe_calls():
+    """Count orb.describe's calls on non-empty CUDA windows while open
+    (yields a list holding the count): each launches the describe kernel
+    once."""
+    inner, count = orb.describe, [0]
+
+    def counted(raw):
+        count[0] += int(raw.device.type == "cuda" and raw.numel() > 0)
+        return inner(raw)
+
+    orb.describe = counted
+    try:
+        yield count
+    finally:
+        orb.describe = inner
+
+
 def _hold_b1_b2(label, frames, ocfg, card):
     """B1 and B2 against their plain versions bit for bit at a path's own
     shapes: the pyramid of `frames` (one stage-1 launch's) and the
@@ -764,7 +802,7 @@ def _bench_phase(kernels, card):
         raise AssertionError(f"the bench's value and ratio disagree: {line}")
     n = (bench.WARMUP_WINDOWS + bench.WINDOWS) * o["repeats"] * profile_rows.frame_launches(
         o["T"], o["fc"]) + io_bench.e2e_decode_launches(o["T"])
-    want = {"select_maps": n, "extract_patches": n, "fast_margin": 0}
+    want = {"select_maps": n, "extract_patches": n, "describe_windows": n, "fast_margin": 0}
     if launches != want or rec["expected_launches"] != {k: n for k in profile_rows.KERNELS}:
         raise AssertionError(f"the bench's launches {launches} are not {want}")
     poses, diags = rec["poses"], rec["diagnostics"]
@@ -1326,24 +1364,25 @@ def _profiling_tools_phase(kernels, card, out=None):
     PROFILING_NO_KERNELS), and the composed stages of PROFILING_COMPOSED
     equal the function they split bit for bit. Prints one line a tool
     (its seconds and CUDA-event ms by row); `out` gets every tool's last
-    line. Returns the B1 and B2 launches of all the tools."""
+    line. The describe kernel launches once per orb.describe call on the
+    card. Returns the B1, B2 and describe launches of all the tools."""
     import importlib
 
-    total = dict.fromkeys(("select_maps", "extract_patches"), 0)
+    total = dict.fromkeys(STAGE1_KERNELS, 0)
     objs = {}
     for name, kw in PROFILING_TOOLS.items():
         mod = importlib.import_module(f"tpu_vo_torch.tools.{name}")
         _reset(kernels)
         t0 = time.perf_counter()
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), _describe_calls() as calls:
             obj = mod.main(**kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         lines = [json.loads(line) for line in buf.getvalue().strip().splitlines()]
         if lines[-1] != json.loads(json.dumps(obj)) or lines[-1]["card"] != card:
             raise AssertionError(f"{name}: its last line is not its result on {card}")
-        got = {k: kernels[k].launches for k in total}
+        got = {k: kernels[k].launches for k in ("select_maps", "extract_patches")}
         want = obj["expected_launches"]
         if name == "select_breakdown":
             # per level one untimed select_maps call and two timed rows of it
@@ -1352,9 +1391,14 @@ def _profiling_tools_phase(kernels, card, out=None):
             row_calls = 1 + kw["reps"] * kw["iters"]
             want = {"select_maps": 8 * (1 + 2 * row_calls) + row_calls, "extract_patches": 0}
         if name in PROFILING_NO_KERNELS:
-            want = dict.fromkeys(total, 0)
+            want = dict.fromkeys(got, 0)
         if got != want or got != obj["expected_launches"]:
             raise AssertionError(f"{name}: launches {got}, its calls imply {want}")
+        if describe_windows.launches != calls[0]:
+            raise AssertionError(f"{name}: the describe kernel launched "
+                                 f"{describe_windows.launches} times for {calls[0]} "
+                                 f"orb.describe calls on the card")
+        got["describe_windows"] = calls[0]
         if name in PROFILING_COMPOSED and obj["rows"]["composed_equal"] is not True:
             raise AssertionError(f"{name}: its composed stages differ from the function they "
                                  f"split on the card")
@@ -1379,7 +1423,8 @@ def _diagnostics_phase(kernels, card, out=None):
     and B3's equal what its calls imply; the legs of DIAGNOSTIC_LEGS were
     each hashed against the committed sha256 (diag_common.leg_frames
     raises on a difference). Prints one line a tool (its seconds and its
-    rows); `out` gets every tool's last line. Returns the launches of all
+    rows); `out` gets every tool's last line. The describe kernel launches
+    once per orb.describe call on the card. Returns the launches of all
     the tools, {kernel: count}."""
     import importlib
 
@@ -1387,7 +1432,7 @@ def _diagnostics_phase(kernels, card, out=None):
                 "select_maps_no_harris": lambda: select_maps.launches_no_harris,
                 "extract_patches": lambda: extract_patches.launches,
                 "fast_margin": lambda: fast_margin.launches}
-    total = dict.fromkeys(counters, 0)
+    total = dict.fromkeys([*counters, "describe_windows"], 0)
     objs = {}
     diag_common.CHECKED.clear()
     for name, kw in DIAGNOSTIC_TOOLS.items():
@@ -1395,7 +1440,7 @@ def _diagnostics_phase(kernels, card, out=None):
         _reset(kernels)
         t0 = time.perf_counter()
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), _describe_calls() as calls:
             obj = mod.main(**kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -1406,6 +1451,11 @@ def _diagnostics_phase(kernels, card, out=None):
         want = {k: obj["expected_launches"].get(k, 0) for k in counters}
         if got != want:
             raise AssertionError(f"{name}: launches {got}, its calls imply {want}")
+        if describe_windows.launches != calls[0]:
+            raise AssertionError(f"{name}: the describe kernel launched "
+                                 f"{describe_windows.launches} times for {calls[0]} "
+                                 f"orb.describe calls on the card")
+        got["describe_windows"] = calls[0]
         for k in total:
             total[k] += got[k]
         objs[name] = obj
@@ -1508,7 +1558,7 @@ def _parity_phase(renders, kernels, card):
     """5 seeds of VOConfig.reference_parity() on each card leg against the
     committed reference's band; returns the B1 and B2 launches."""
     legs = reference_band.load()
-    launches = {"select_maps": 0, "extract_patches": 0}
+    launches = dict.fromkeys(STAGE1_KERNELS, 0)
     for name in PARITY_LEGS:
         rec = legs[name]
         t0 = time.perf_counter()
@@ -1542,8 +1592,8 @@ def _parity_phase(renders, kernels, card):
         if max(rels) > tol:
             raise AssertionError(f"{name}: {sum(r > tol for r in rels)}/{PARITY_SEEDS} seeds "
                                  f"outside the reference's band")
-        if got["select_maps"] != PARITY_SEEDS or got["extract_patches"] != PARITY_SEEDS:
-            raise AssertionError(f"{name}: B1 and B2 did not launch once a run: {got}")
+        if any(v != PARITY_SEEDS for v in got.values()):
+            raise AssertionError(f"{name}: B1, B2 and describe did not launch once a run: {got}")
         _hold_b1_b2(f"parity {name}, {rec['T']} frames", frames, cfg.orb, card)
     return launches
 
@@ -1561,9 +1611,9 @@ def _config5_phase(renders, kernels, card):
     _reset(kernels)
     poses = run_benchmarks.window_refined(frames, cfg)
     torch.cuda.synchronize()
-    launches = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+    launches = {n: kernels[n].launches for n in STAGE1_KERNELS}
     if any(v != C5_T // run_benchmarks.FRAME_CHUNK for v in launches.values()):
-        raise AssertionError(f"config 5 did not launch B1 and B2 once a frame chunk: {launches}")
+        raise AssertionError(f"config 5 did not launch B1, B2 and describe once a frame chunk: {launches}")
     for a in range(0, C5_T, run_benchmarks.FRAME_CHUNK):
         _hold_b1_b2(f"config 5, frames {a}-{a + run_benchmarks.FRAME_CHUNK - 1}",
                     frames[a:a + run_benchmarks.FRAME_CHUNK], cfg.orb, card)
@@ -1623,9 +1673,9 @@ def _config4_phase(renders, kernels, card):
     _reset(kernels)
     poses, diags = run_batch_of_sequences(frames, cfg, frame_chunk=fc, pair_chunk=pc)
     torch.cuda.synchronize()
-    launches = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+    launches = {n: kernels[n].launches for n in STAGE1_KERNELS}
     if any(v != C4_B * C4_T // fc for v in launches.values()):
-        raise AssertionError(f"config 4 did not launch B1 and B2 once a frame chunk: {launches}")
+        raise AssertionError(f"config 4 did not launch B1, B2 and describe once a frame chunk: {launches}")
     flat = frames.reshape(C4_B * C4_T, C4_H, C4_W)
     for a in range(0, C4_B * C4_T, fc):
         _hold_b1_b2(f"config 4, frames {a}-{a + fc - 1} of the flattened batch",
@@ -1727,7 +1777,7 @@ def _parallel_phase(main_np, cfg, poses, diags, c4_run, kernels, card):
     Returns {path: B1 and B2 launches}."""
     c4_np, c4_cfg, c4_poses, c4_diags = c4_run
     chunk = runner.STREAM_FRAME_CHUNK
-    names = ("select_maps", "extract_patches")
+    names = STAGE1_KERNELS
     launches = {}
     tag = f"[{card}]"
 
@@ -1826,9 +1876,9 @@ def _config3_phase(renders, kernels, card):
     _reset(kernels)
     poses, diags = runner.run_sequence_batched(frames, cfg, frame_chunk=fc, pair_chunk=pc)
     torch.cuda.synchronize()
-    launches = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+    launches = {n: kernels[n].launches for n in STAGE1_KERNELS}
     if any(v != T // fc for v in launches.values()):
-        raise AssertionError(f"config 3 did not launch B1 and B2 once a frame chunk: {launches}")
+        raise AssertionError(f"config 3 did not launch B1, B2 and describe once a frame chunk: {launches}")
     if not bool(torch.isfinite(poses.t).all() and torch.isfinite(poses.R).all()):
         raise AssertionError("config 3: non-finite poses")
     pose_ok = float(diags["pose_ok"].float().mean())
@@ -1925,9 +1975,9 @@ def _config7_phase(renders, kernels, card):
         _reset(kernels)
         runner.run_sequence_batched(frames, cfg, frame_chunk=fc, pair_chunk=pc)
         torch.cuda.synchronize()
-        got = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+        got = {n: kernels[n].launches for n in STAGE1_KERNELS}
         if any(v != T // fc for v in got.values()):
-            raise AssertionError(f"config 7 {name} did not launch B1 and B2 once a frame chunk: "
+            raise AssertionError(f"config 7 {name} did not launch B1, B2 and describe once a frame chunk: "
                                  f"{got}")
         launches = launches or got
     res = run_benchmarks.run_config(7, seqs, torch.device("cuda"), legs, card)
@@ -1988,11 +2038,11 @@ def _config6_phase(renders, degraded, kernels, card):
         runner.run_sequence_batched(frames, cfg, frame_chunk=fc, pair_chunk=pc)
         want += T // fc
     torch.cuda.synchronize()
-    launches = {n: kernels[n].launches for n in ("select_maps", "extract_patches")}
+    launches = {n: kernels[n].launches for n in STAGE1_KERNELS}
     print(f"config 6: one pass over its {len(runs)} runs launched {launches} (want {want} "
           f"each: one a frame chunk)", flush=True)
     if any(v != want for v in launches.values()):
-        raise AssertionError(f"config 6 did not launch B1 and B2 once a frame chunk: {launches}")
+        raise AssertionError(f"config 6 did not launch B1, B2 and describe once a frame chunk: {launches}")
     del runs
     clean = degraded[("corridor", "clean")][:C6_DECODE_T]
     files = [encode_gray(f, VARIANT_QUALITY) for f in clean]
@@ -2134,8 +2184,10 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
                      for lv, n in zip(small_levels, (17, 12, 8))], 1).to(dev)
     txs = torch.cat([torch.randint(-5, lv.shape[2] + 5, (2, n), generator=g, dtype=torch.int32)
                      for lv, n in zip(small_levels, (17, 12, 8))], 1).to(dev)
-    patch_err = 0.0
+    patch_err = desc_err = 0.0
     for name, lvls, ys, xs, offs in (
+            (f"all {main_ys.shape[1]} slots of the main path as ranked", levels, main_ys,
+             main_xs, starts),
             (f"all {kys.shape[1]} slots of the main path", levels, kys, kxs, starts),
             (f"all {kys.shape[1]} slots of one frame of the main path (B = 1)", levels1,
              kys[:1].contiguous(), kxs[:1].contiguous(), starts),
@@ -2149,6 +2201,17 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
                                  f"{int((a != b).flatten(2).any(-1).sum())} windows")
         patch_err = max(patch_err, float((a - b).abs().max()))
         print(f"extract_patches_levels == plain on {name} ({ys.numel()} windows)", flush=True)
+        # the describe kernel on those windows: the angles as float32 bits
+        (ang, bits), (ang_r, bits_r) = describe_windows(a), describe_windows_reference(a)
+        torch.cuda.synchronize()
+        if not (torch.equal(ang.view(torch.int32), ang_r.view(torch.int32))
+                and torch.equal(bits, bits_r)):
+            raise AssertionError(f"describe_windows differs from its plain version on {name}: "
+                                 f"{int((ang != ang_r).sum())} angles, "
+                                 f"{int((bits != bits_r).any(-1).sum())} descriptors")
+        desc_err = max(desc_err, float((ang - ang_r).abs().max()))
+        print(f"describe_windows == plain on those {ys.numel()} windows (angles bit for bit, "
+              f"all 256 bits)", flush=True)
 
     fast_err = 0.0
     odd = [torch.randint(0, 256, shape, generator=g).float().to(dev)
@@ -2174,14 +2237,15 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
 
     # 4. the main path, counted
     kernels = {"select_maps": select_maps, "extract_patches": extract_patches,
-               "fast_margin": fast_margin}
+               "describe_windows": describe_windows, "fast_margin": fast_margin}
     _reset(kernels)
     poses, diags = runner.run_sequence_batched(frames, cfg, seed=0)
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in kernels.items()}
     print(f"main path launches: {launches}", flush=True)
-    if launches["select_maps"] != 1 or launches["extract_patches"] != 1:
-        raise AssertionError(f"the main path did not launch B1 and B2 once each: {launches}")
+    if any(launches[k] != 1 for k in STAGE1_KERNELS):
+        raise AssertionError(f"the main path did not launch B1, B2 and describe once each: "
+                             f"{launches}")
     if not (torch.isfinite(poses.R).all() and torch.isfinite(poses.t).all()):
         raise AssertionError("non-finite poses")
     pose_ok = float(diags["pose_ok"].float().mean())
@@ -2397,6 +2461,14 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
     del probe_levels
     print(f"phase diagnostics: {time.perf_counter() - t0:.1f} s, launches "
           f"{path_launches['diagnostics']} [{card}]", flush=True)
+    # every stage-1 call launches B2 and the describe kernel once each
+    for path, c in path_launches.items():
+        if path not in DESCRIBE_APART and c["describe_windows"] != c["extract_patches"]:
+            raise AssertionError(f"{path}: the describe kernel launched {c['describe_windows']} "
+                                 f"times, B2 {c['extract_patches']}")
+    print(f"the describe kernel launched as often as B2 on each of the "
+          f"{len(path_launches) - len(DESCRIBE_APART)} paths that reach B2 through stage 1, "
+          f"once per orb.describe call in {list(DESCRIBE_APART)}", flush=True)
 
     # 6. times
     def main_path():
@@ -2450,6 +2522,13 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
     pat_plain = _cuda_ms(lambda: [extract_patches_reference(lv, main_ys[:, o:e], main_xs[:, o:e])
                                   for lv, o, e in zip(levels, starts, ends)])
     kp = [(main_ys[:, o:e], main_xs[:, o:e]) for o, e in zip(starts, ends)]
+    main_windows = extract_patches_levels(levels, main_ys, main_xs, starts)
+    n_windows = main_windows.shape[0] * main_windows.shape[1]
+    desc_ms = _cuda_ms(lambda: describe_windows(main_windows))
+    desc_alone = kernel_alone_ms(lambda: describe_windows(main_windows), "describe_kernel",
+                                 MAIN_REPS)
+    desc_plain = _cuda_ms(lambda: describe_windows_reference(main_windows))
+    desc_bound = _bound(DESCRIBE_BYTES * n_windows, 0)
     fast_ms = _cuda_ms(lambda: fast_margin_levels(levels, thr))
     fast_alone = kernel_alone_ms(lambda: fast_margin_levels(levels, thr), "fast_margin_kernel",
                                   MAIN_REPS)
@@ -2558,7 +2637,9 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
             (f"extract_patches_levels 1200 kps x {T} frames, 1 launch", pat_ms, pat_plain,
              pat_bound, pat_lib),
             (f"fast_margin_levels 8 levels x {T} frames, 1 launch", fast_ms, fast_plain,
-             fast_bound, None)):
+             fast_bound, None),
+            (f"describe_windows {n_windows} windows (1200 kps x {T} frames), 1 launch", desc_ms,
+             desc_plain, desc_bound, None)):
         lib = "none" if lib is None else f"{lib:.4f} ms"
         print(f"{name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({by}), library call {lib} {tag}")
@@ -2568,6 +2649,11 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
               f"kernel {k_ms:.4f} ms (alone {alone}), plain {p_ms:.3f} ms {tag}")
     print(f"run_sequence_scan over {STREAM_PROFILE_T} frames: {stream8_ms:.3f} ms "
           f"({stream8_ms / STREAM_PROFILE_T:.3f} ms per frame; median of {REPS}) {tag}")
+    alone = "not measured" if desc_alone is None else f"{desc_alone:.4f} ms"
+    share = "" if desc_alone is None else f", {100 * desc_bound[0] / desc_alone:.1f}% of its bound"
+    print(f"describe_kernel alone {alone} (median of {MAIN_REPS} launches){share}; bound "
+          f"{desc_bound[0]:.4f} ms ({DESCRIBE_BYTES} B a window over {HBM_BYTES_PER_S:.3g} B/s) "
+          f"{tag}")
     alone = "not measured" if fast_alone is None else f"{fast_alone:.4f} ms"
     print(f"fast_margin_kernel alone {alone} (median of {MAIN_REPS} launches), {fast_regs} "
           f"registers, {fast_per_sm} blocks of 256 threads per SM {tag}")
@@ -2623,6 +2709,11 @@ def _run(card, dev, pool, profiling_out=None, diagnostics_out=None) -> int:
          "launches": b3_launches["fast_margin"], "max_abs_err": fast_err,
          "ms": fast_ms, "plain_ms": fast_plain,
          "bound_ms": fast_bound[0], "bound_by": fast_bound[1], "library_ms": None},
+        {"name": "describe_windows", "route": "cuda", "source": "tpu_vo_torch/csrc/describe.cu",
+         "replaces": "tpu_vo/features/patches.py:76", "launches": launches["describe_windows"],
+         "launches_by_path": {p: c["describe_windows"] for p, c in path_launches.items()},
+         "max_abs_err": desc_err, "ms": desc_ms, "alone_ms": desc_alone, "plain_ms": desc_plain,
+         "bound_ms": desc_bound[0], "bound_by": desc_bound[1], "library_ms": None},
     ] + [
         {"name": name, "route": "cuda", "source": "tpu_vo_torch/csrc/patch_probe.cu",
          "replaces": f"tools/patch_slots_probe.py:{line}", "launches": p_launches[name],

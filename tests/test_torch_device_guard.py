@@ -10,7 +10,7 @@ import contextlib
 import pytest
 import torch
 
-from tpu_vo_torch.ops import _build, fast, patch, patch_probe, select
+from tpu_vo_torch.ops import _build, describe, fast, patch, patch_probe, select
 from _torch_threads import _one_thread  # noqa: F401
 
 
@@ -73,6 +73,7 @@ _WRAPPERS = {
     "band_windows (P1)": lambda: patch_probe._launch(
         patch_probe.band_windows, "tvo_band_windows", _levels()[0], *_keypoints(), 2, 64,
         300, 6, 8, 2, 2, 1, 256),
+    "describe_windows": lambda: describe._describe_cuda(torch.zeros(2, 6, 43, 43)),
     "phase_windows (P2, P3)": lambda: patch_probe._launch(
         patch_probe.phase_windows_roll, "tvo_phase_windows", _levels()[0], *_keypoints(), 2,
         64, 300, 6, 8, 2, 2, 1),

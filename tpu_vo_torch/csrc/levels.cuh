@@ -1,6 +1,7 @@
 // The pyramid-level table that kernels B1 (select.cu), B2 (patch.cu) and
 // B3 (fast.cu) take by value, so that one launch covers every level of a
-// pyramid.
+// pyramid; and the SM count that the persistent grids of patch_probe.cu
+// and describe.cu are sized from.
 //
 // The C entry points receive it as a plain struct (ctypes.Structure
 // `ops/levels.LevelTable`, same field order) and hand it to the kernel as
@@ -9,9 +10,12 @@
 
 #pragma once
 
+#include <cuda_runtime.h>
+
 namespace tvo {
 
 constexpr int MAX_LEVELS = 8;
+constexpr int MAX_DEVICES = 16;  // devices whose launch queries are kept
 
 struct LevelTable {
   int n;                            // levels in use
@@ -35,6 +39,18 @@ __device__ __forceinline__ int level_of(const LevelTable& t, int i) {
   for (int j = 1; j < MAX_LEVELS; ++j)
     if (j < t.n && t.first[j] <= i) l = j;
   return l;
+}
+
+// SMs of the current device, or -1 on an error; asked once a process and
+// device.
+inline int sm_count() {
+  static int known[MAX_DEVICES];
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
+  if (dev < MAX_DEVICES && known[dev]) return known[dev];
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
+  if (dev < MAX_DEVICES) known[dev] = n;
+  return n;
 }
 
 }  // namespace tvo

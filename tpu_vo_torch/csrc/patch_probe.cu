@@ -90,6 +90,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "levels.cuh"
+
 namespace {
 
 constexpr int R = 21;
@@ -476,7 +478,8 @@ phase_mxu_kernel(const float* __restrict__ img, const int* __restrict__ ys,
            });
 }
 
-constexpr int MAX_DEVICES = 16;
+using tvo::MAX_DEVICES;
+using tvo::sm_count;
 constexpr int MAX_SLOTS = 64;
 constexpr int NKERNELS = 3;  // 0: P2, 1: P3, 2: P1
 
@@ -517,16 +520,6 @@ int blocks_per_sm(int k, int nslots, int warps) {
     return -1;
   if (cached) known[dev][k][nslots][warps] = blocks;
   return blocks;
-}
-
-int sm_count() {
-  static int known[MAX_DEVICES];
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (dev < MAX_DEVICES && known[dev]) return known[dev];
-  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return -1;
-  if (dev < MAX_DEVICES) known[dev] = n;
-  return n;
 }
 
 // The persistent grid of kernel k: as many blocks as fit on the SMs, at

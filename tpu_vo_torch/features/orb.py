@@ -10,8 +10,9 @@ Over all B frames and pyramid levels at once:
       retainBest twice)
   extract_patches_levels (kernel B2, one launch for all levels' slots):
       one 43x43 window per keypoint
-  angles, blur and steered rBRIEF bits from all windows at once
-      (features/patches; per-window functions)
+  describe (one launch of the describe kernel for all windows): angles,
+      blur and steered rBRIEF bits (ops/describe; its plain version is
+      features/patches' per-window functions)
 Slots are ordered by level, then by descending Harris response; every
 stage runs at fixed capacity with a validity mask.
 
@@ -30,9 +31,10 @@ import numpy as np
 import torch
 
 from tpu_vo_torch.configs import ORBConfig
-from tpu_vo_torch.features import brief, fast, harris, patches
+from tpu_vo_torch.features import brief, fast, harris
 from tpu_vo_torch.features.fast import _border_mask
 from tpu_vo_torch.image.pyramid import build_pyramid
+from tpu_vo_torch.ops.describe import describe_windows
 from tpu_vo_torch.ops.patch import extract_patches_levels
 from tpu_vo_torch.ops.select import _bit_reverse, select_maps_levels
 from tpu_vo_torch.utils.profiling import span
@@ -194,9 +196,10 @@ def keypoint_windows(used, ys, xs, starts) -> torch.Tensor:
 
 
 def describe(raw: torch.Tensor):
-    """(angles, rBRIEF bits) of (B, N, 43, 43) windows."""
-    ang = patches.angles_from_patches(raw)
-    return ang, patches.descriptor_bits_from_patches(raw, ang)
+    """(angles, rBRIEF bits) of (B, N, 43, 43) windows: one launch of the
+    describe kernel on a CUDA tensor, its plain version on the CPU
+    (ops/describe.py)."""
+    return describe_windows(raw)
 
 
 def pack_features(used, kps, ys, xs, ang, bits, cfg: ORBConfig) -> ORBFeatures:

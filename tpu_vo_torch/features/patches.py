@@ -72,10 +72,15 @@ def angles_from_patches(raw: torch.Tensor) -> torch.Tensor:
     return orientation.fast_atan2_deg(m01, m10)
 
 
+def blur_taps(ksize: int = 7, sigma: float = 2.0) -> list:
+    """The blur's float32 Gaussian taps, as Python floats."""
+    return [float(v) for v in gaussian_kernel_1d(ksize, sigma).astype(np.float32)]
+
+
 def blur_patches(raw: torch.Tensor, ksize: int = 7,
                  sigma: float = 2.0) -> torch.Tensor:
     """(..., 37, 37) Gaussian-blurred window centers on the integer grid."""
-    k = [float(v) for v in gaussian_kernel_1d(ksize, sigma).astype(np.float32)]
+    k = blur_taps(ksize, sigma)
     n = raw.shape[-1] - 2 * BLUR_PAD
     x = raw.to(torch.float32)
     acc = x[..., :, 0:n] * k[0]

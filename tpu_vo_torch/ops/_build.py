@@ -25,16 +25,18 @@ from typing import Callable
 
 import torch
 
+from tpu_vo_torch.ops._describe_abi import DescribeConsts
 from tpu_vo_torch.ops.levels import LevelTable
 from tpu_vo_torch.utils.profiling import span
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("select.cu", "patch.cu", "fast.cu", "patch_probe.cu")
+SOURCES = ("select.cu", "patch.cu", "fast.cu", "patch_probe.cu", "describe.cu")
 HEADERS = ("levels.cuh",)
-# -fmad=false: the select kernel's Harris arithmetic must round every
-# product and sum on its own, as the eager plain version does.
+# -fmad=false: the select kernel's Harris arithmetic and the describe
+# kernel's blur, angle and offsets must round every product and sum on
+# its own, as the eager plain versions do.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -145,6 +147,8 @@ def library() -> ctypes.CDLL:
         lib.tvo_phase_windows.restype = _I
         lib.tvo_windows_blocks_per_sm.argtypes = [_I, _I, _I]
         lib.tvo_windows_blocks_per_sm.restype = _I
+        lib.tvo_describe_windows.argtypes = [_P, _P, _P, _I, DescribeConsts, _P, _P, _P]
+        lib.tvo_describe_windows.restype = _I
         return lib
 
 

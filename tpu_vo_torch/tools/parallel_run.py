@@ -22,18 +22,18 @@ rank:
      "cfg": {...},                        # VOConfig's fields (dataclasses.asdict)
      "seed": 0, "frame_chunk": null, "pair_chunk": null,   # the last two for dp
      "reps": 0,                           # timed calls after the counted one (the card)
-     "launches": n,                       # optional: B1 and B2 launches of the counted call
+     "launches": n,                       # optional: B1, B2 and describe launches, counted call
      "out": "prefix"}
 
 Each job builds its mesh, reads the frames memory-mapped (a rank uploads
 only its part), and runs the runner once with the kernels' launch
-counters reset just before; where "launches" is given, B1 and B2 must
-each have launched that often. Then it times `reps` more calls by CUDA
-events (on the card only). It writes
+counters reset just before; where "launches" is given, B1, B2 and the
+describe kernel must each have launched that often. Then it times
+`reps` more calls by CUDA events (on the card only). It writes
 <out>.rank<R>.npz: R and t (the poses the rank returns), diag_<name> for
 each diagnostic, rows (the global rows they belong to), launches (B1,
-B2), the counted call's transfers (op, axis, nbytes), ms (each timed
-call) and build_s (seconds the kernel library took to build in this
+B2, describe), the counted call's transfers (op, axis, nbytes), ms (each
+timed call) and build_s (seconds the kernel library took to build in this
 process: 0 when it was loaded as built).
 """
 
@@ -48,6 +48,7 @@ import torch.distributed as dist
 
 from tpu_vo_torch.interop import config_from_fields
 from tpu_vo_torch.ops import _build
+from tpu_vo_torch.ops.describe import describe_windows
 from tpu_vo_torch.ops.patch import extract_patches
 from tpu_vo_torch.ops.select import select_maps
 from tpu_vo_torch.parallel import sharding
@@ -78,17 +79,17 @@ def run_job(job: dict, rank: int, device=None) -> dict:
     mesh = make_mesh(tuple(job["mesh"]), tuple(job["axes"]), device_type=dev.type)
     frames = np.load(job["frames"], mmap_mode="r")
     call = _call(job, frames, config_from_fields(job["cfg"]), mesh, dev)
-    select_maps.launches = extract_patches.launches = 0
+    select_maps.launches = extract_patches.launches = describe_windows.launches = 0
     del sharding.transfers[:]
     poses, diags = call()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    launches = (select_maps.launches, extract_patches.launches)
+    launches = (select_maps.launches, extract_patches.launches, describe_windows.launches)
     moved = list(sharding.transfers)
     want = job.get("launches")
-    if want is not None and launches != (want, want):
-        raise AssertionError(f"rank {rank}, {job['runner']}: B1 and B2 launched {launches} "
-                             f"times, not {want} each")
+    if want is not None and launches != (want, want, want):
+        raise AssertionError(f"rank {rank}, {job['runner']}: B1, B2 and describe launched "
+                             f"{launches} times, not {want} each")
     reps = job.get("reps", 0)
     ms = cuda_times(call, warmup=0, reps=reps) if reps else []
     if job["runner"] == "sp":

@@ -67,7 +67,7 @@ def build_cuts():
         with open(cu, "w") as f:
             f.write(_source(cut))
         procs[cut] = (subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so, cu],
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-shared", "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {None: _build.library()}
     for cut, (proc, so) in procs.items():

@@ -94,14 +94,15 @@ def sync_waits(chunks, gens, distance_thresh: float) -> list:
         for c, g in zip(chunks, gens):
             with record_function("draw"):
                 idx = c.draw(g)
-            res = c.run(idx, record_function)
+            res = c.run(idx)  # its phases open the spans ransac.<phase>
             with record_function("recover_pose"):
                 recover_pose_from_essential(res.E, c.x1, c.x2, res.inliers, distance_thresh)
     torch.cuda.synchronize()
     cpu = torch.autograd.DeviceType.CPU
     host = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns(), e.start_thread_id())
             for e in prof.profiler.kineto_results.events() if e.device_type() == cpu]
-    marks = [e for e in host if e[0] in PHASES]
+    phase_of = {**{p: p for p in PHASES}, **{f"ransac.{p}": p for p in PHASES}}
+    marks = [(phase_of[e[0]], *e[1:]) for e in host if e[0] in phase_of]
     ops = [e for e in host if e[0].startswith("aten::")]
 
     def within(outer, e):
