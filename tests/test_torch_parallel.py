@@ -4,7 +4,8 @@ one torch.distributed world of 4 gloo ranks in child processes.
 The world runs tools/parallel_run's jobs on a (4, 1), a (1, 4) and two
 (2, 2) meshes: DP over 4 sequences, SP over 4 ranks and (on the (2, 2)
 mesh's seq axis) over 2, and DP x SP; then the same runners with a stub
-estimate_pair that echoes each pair's generator. Held here:
+stage 2 (search_pair, with finish_pair passing its result through) that
+echoes each pair's generator. Held here:
 
   - DP rows, SP's whole sequence (which holds a blank frame, so that
     some pairs are not pose_ok and a halo carries no valid feature) and
@@ -63,7 +64,7 @@ JOBS = {"dp": ("dp", [4, 1], "batch"), "sp4": ("sp", [1, 4], "seq"),
         "sp2": ("sp", [2, 2], "seq"), "dp_sp": ("dp_sp", [2, 2], "batch")}
 ECHOED = ("dp", "sp4", "dp_sp")
 # One rank of the world: the checks of initialize and make_mesh, the jobs,
-# then the jobs again with estimate_pair echoing each pair's first draw
+# then the jobs again with search_pair echoing each pair's first draw
 # through its epipolar residual
 _CHILD = r"""
 import json, sys
@@ -111,7 +112,8 @@ def echo(prev, cur, cfg, generators=None, idx=None):
                 mean_residual=torch.stack([torch.rand((), generator=g) for g in generators]))
 
 
-runner.estimate_pair = echo
+runner.search_pair = echo
+runner.finish_pair = lambda est, cfg: est
 for job in spec["echo_jobs"]:
     parallel_run.run_job(job, rank, "cpu")
 with open(f"{spec['dir']}/checks.rank{rank}.json", "w") as f:

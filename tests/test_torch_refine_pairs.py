@@ -208,7 +208,7 @@ def test_a_refined_call_records_the_refinement_spans(fresh, iters):
     got = profiling.spans()
     names = collections.Counter(s.name for s in got)
     by_id = {s.id: s for s in got}
-    assert len(got) == 20 + (3 + iters if iters else 0)
+    assert len(got) == 21 + (3 + iters if iters else 0)
     if not iters:
         assert not set(REFINE_SPANS) & set(names)
         return

@@ -33,7 +33,8 @@ STAGE2 = ["pair.match", "pair.prep", "ransac.draw", "ransac.hypotheses", "ransac
           "ransac.fullscore", "ransac.refit", "pair.pose", "pair.residual"]
 BATCHED = {"vo.call": None, "vo.upload": "vo.call", "vo.stage1": "vo.call",
            "vo.seeds": "vo.call", "vo.stage2": "vo.call", "vo.stage3": "vo.call",
-           **{n: "vo.stage1" for n in STAGE1}, **{n: "vo.stage2" for n in STAGE2}}
+           **{n: "vo.stage1" for n in STAGE1}, **{n: "vo.stage2" for n in STAGE2},
+           "orb.rank": "orb.select"}
 
 
 @pytest.fixture(scope="module")

@@ -349,15 +349,21 @@ class Phases:
         return lo_refit(winner, self.x1, self.x2, self.mask, self.thr_sq, score_sq,
                         num_hypotheses, self.sample_size)
 
-    def run(self, idx: torch.Tensor) -> EssentialRansacResult:
-        """The phases chained on samples idx, each in its span
-        (ransac.hypotheses, .prescreen, .fullscore, .refit)."""
+    def search(self, idx: torch.Tensor):
+        """The phases before the refit chained on samples idx, each in its
+        span (ransac.hypotheses, .prescreen, .fullscore): (Winner,
+        score_sq, num_hypotheses), refit's arguments."""
         with span("ransac.hypotheses"):
             Es, valid_models, num_hypotheses = self.hypotheses(idx)
         with span("ransac.prescreen"):
             Es, valid_models, gate_ok, score_sq = self.prescreen(Es, valid_models)
         with span("ransac.fullscore"):
             winner, score_sq = self.fullscore(Es, valid_models, gate_ok, score_sq)
+        return winner, score_sq, num_hypotheses
+
+    def run(self, idx: torch.Tensor) -> EssentialRansacResult:
+        """search, then refit in its span (ransac.refit)."""
+        winner, score_sq, num_hypotheses = self.search(idx)
         with span("ransac.refit"):
             return self.refit(winner, score_sq, num_hypotheses)
 

@@ -170,16 +170,18 @@ def pyramid_levels(frames: torch.Tensor, cfg: ORBConfig):
 
 def select_keypoints(used, cfg: ORBConfig):
     """Kernel B1 on all of pyramid_levels' levels (one launch), then each
-    level's two-stage cut: ([(ys, xs, response, valid)] per level, each
-    (B, k), and each level's first slot)."""
+    level's two-stage cut, all levels in one span (orb.rank): ([(ys, xs,
+    response, valid)] per level, each (B, k), and each level's first
+    slot)."""
     maps = select_maps_levels([lvl for _, lvl, _ in used], cfg.fast_threshold,
                               cfg.edge_threshold)
     kps, starts, slots = [], [], 0
-    for (_, lvl, n_level), (packed, hmap, idx_bits) in zip(used, maps):
-        h, w = lvl.shape[-2:]
-        kps.append(_rank_from_maps(packed, hmap, idx_bits, w, n_level, cfg, h * w))
-        starts.append(slots)
-        slots += kps[-1][0].shape[1]
+    with span("orb.rank"):
+        for (_, lvl, n_level), (packed, hmap, idx_bits) in zip(used, maps):
+            h, w = lvl.shape[-2:]
+            kps.append(_rank_from_maps(packed, hmap, idx_bits, w, n_level, cfg, h * w))
+            starts.append(slots)
+            slots += kps[-1][0].shape[1]
     return kps, starts
 
 

@@ -9,7 +9,8 @@ per frame.
   1. ORB features of the T frames, one launch of each kernel per chunk
      of `frame_chunk` frames (all T at once by default);
   2. matching + RANSAC + pose recovery of the T-1 consecutive pairs as
-     one batch dimension, `pair_chunk` pairs at a time (all by default);
+     one batch dimension: matching and RANSAC's search `pair_chunk` pairs
+     at a time (all by default), its refit and the poses of all at once;
   3. world poses by a prefix composition of the relative motions;
 
 with `refine_iters` n > 0 (tpu_vo's config 5), between stages 2 and 3
@@ -43,9 +44,10 @@ from tpu_vo_torch.models.refinement import WindowRefineResult, refine_window
 from tpu_vo_torch.pipeline.step import (
     VOStepOutput,
     _intrinsics,
-    estimate_pair,
+    finish_pair,
     initial_state,
     pair_generators,
+    search_pair,
     vo_step,
 )
 from tpu_vo_torch.pipeline.upload import upload_ahead
@@ -109,9 +111,9 @@ def _spans(n: int, chunk: Optional[int]):
 def _cat(parts, join=torch.cat):
     """Join along dim 0 (torch.cat, or torch.stack into a new dim 0) the
     tensors of a list of equally shaped NamedTuples or dicts of tensors
-    and NamedTuples."""
+    and NamedTuples; a field that is None in each stays None."""
     first = parts[0]
-    if len(parts) == 1 and join is torch.cat:
+    if first is None or (len(parts) == 1 and join is torch.cat):
         return first
     if isinstance(first, torch.Tensor):
         return join(parts, 0)
@@ -149,13 +151,16 @@ def detect_frames(frames: torch.Tensor, cfg: VOConfig,
 
 def estimate_pairs(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig, generators,
                    pair_chunk: Optional[int] = None) -> dict:
-    """Stage 2: `estimate_pair` over P pairs (leading dim P), `pair_chunk`
-    pairs at a time, pair i drawing from generators[i]."""
+    """Stage 2: `estimate_pair` over P pairs (leading dim P), pair i
+    drawing from generators[i]: the matching and RANSAC's search
+    `pair_chunk` pairs at a time (search_pair), then the refit, the pose
+    and F of all P at once (finish_pair), so that the chunks change no
+    output."""
     with span("vo.stage2"):
-        return _cat([estimate_pair(ORBFeatures(*(f[a:e] for f in prev)),
-                                   ORBFeatures(*(f[a:e] for f in cur)), cfg,
-                                   generators=generators[a:e])
-                     for a, e in _spans(prev.xy.shape[0], pair_chunk)])
+        return finish_pair(_cat([search_pair(ORBFeatures(*(f[a:e] for f in prev)),
+                                             ORBFeatures(*(f[a:e] for f in cur)), cfg,
+                                             generators=generators[a:e])
+                                 for a, e in _spans(prev.xy.shape[0], pair_chunk)]), cfg)
 
 
 def refine_inputs(prev: ORBFeatures, cur: ORBFeatures, est: dict, cfg: VOConfig) -> tuple:

@@ -3,9 +3,11 @@ tpu_vo/pipeline/step.py).
 
 `estimate_pair`, batched over consecutive pairs: match by Hamming
 distance (cross-check and adaptive threshold, or the ratio test),
-normalize, run the batched RANSAC, recover the pose and compute F. Every
-gate of the reference's failure ladder comes back as a boolean tensor,
-never a branch.
+normalize, run the batched RANSAC, recover the pose and compute F; in
+two halves, `search_pair` (up to RANSAC's full-set scoring) and
+`finish_pair` (its refit, the pose and F), which a chunked runner runs
+once over all its chunks' searches. Every gate of the reference's
+failure ladder comes back as a boolean tensor, never a branch.
 
 `vo_step`, one frame at a time: features, `estimate_pair` against the
 previous frame's features (on the first frame, against the all-invalid
@@ -30,7 +32,12 @@ import numpy as np
 import torch
 
 from tpu_vo_torch.configs import VOConfig
-from tpu_vo_torch.estimation.ransac import Phases, pixel_threshold_to_normalized
+from tpu_vo_torch.estimation.ransac import (
+    Phases,
+    Winner,
+    lo_refit,
+    pixel_threshold_to_normalized,
+)
 from tpu_vo_torch.estimation.recover_pose import recover_pose_from_essential
 from tpu_vo_torch.features.orb import ORBFeatures, detect_and_compute
 from tpu_vo_torch.geometry import se3
@@ -62,12 +69,33 @@ def pair_generators(seed: int, pairs) -> List[torch.Generator]:
     return gens
 
 
-def estimate_pair(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig,
-                  generators: Optional[Sequence[torch.Generator]] = None,
-                  idx: Optional[torch.Tensor] = None) -> dict:
-    """Match P feature-set pairs (leading dim P) and estimate each relative
-    motion (c2 <- c1). RANSAC samples come from one generator per pair or
-    from explicit `idx` (P, max_iters, 5, or 8 for 8-point samples)."""
+class PairSearch(NamedTuple):
+    """search_pair's result for P pairs (leading dim P): the matches and
+    RANSAC's winner before its LO refit, with what finish_pair reads."""
+
+    n_keypoints: torch.Tensor    # (P,) int32 valid keypoints of `cur`
+    n_good: torch.Tensor         # (P,) int32 good matches
+    stats: tuple                 # the matcher's statistics, (P,) each
+    train_idx: torch.Tensor      # (P, N) matched slot of `cur` for each slot of `prev`
+    p1: torch.Tensor             # (P, N, 2) pixel coordinates in `prev`
+    p2: torch.Tensor             # (P, N, 2) their matches' in `cur`
+    x1n: torch.Tensor            # (P, N, 2) p1 normalized by K
+    x2n: torch.Tensor            # (P, N, 2) p2 normalized by K
+    mask: torch.Tensor           # (P, N) bool good matches
+    thr_sq: torch.Tensor         # (P, 1, 1) squared inlier threshold
+    score_sq: torch.Tensor       # (P, 1, 1) MSAC truncation after full-set scoring
+    winner: Winner
+    num_hypotheses: torch.Tensor  # (P,) int32
+
+
+def search_pair(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig,
+                generators: Optional[Sequence[torch.Generator]] = None,
+                idx: Optional[torch.Tensor] = None) -> PairSearch:
+    """estimate_pair up to RANSAC's full-set scoring: match P feature-set
+    pairs (leading dim P), normalize, draw (one generator per pair, or
+    explicit `idx` (P, max_iters, 5, or 8 for 8-point samples)) and run
+    RANSAC's phases before its refit. Each pair's result is its own,
+    however many pairs the call holds."""
     rcfg = cfg.ransac
     with span("pair.match"):
         if cfg.match.use_ratio_test:
@@ -99,12 +127,33 @@ def estimate_pair(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig,
             distance_thresh=rcfg.distance_thresh,
         )
 
-    # find_essential_ransac, split so that its thresholds are computed in pair.prep
-    res = ransac.run(ransac.draw(generators) if idx is None else idx)
+    # find_essential_ransac, split so that its thresholds are computed in
+    # pair.prep and its refit in finish_pair
+    winner, score_sq, num_hypotheses = ransac.search(
+        ransac.draw(generators) if idx is None else idx)
+    return PairSearch(cur.valid.sum(-1).to(torch.int32), n_good, stats, good.train_idx, p1,
+                      p2, x1n, x2n, mask, ransac.thr_sq, score_sq, winner, num_hypotheses)
+
+
+def finish_pair(s: PairSearch, cfg: VOConfig) -> dict:
+    """estimate_pair from search_pair's result on: RANSAC's LO refit, the
+    pose (recover_pose and the failure ladder's gates) and F with its
+    residual, for all P pairs at once.
+
+    The refit's normal matrices (A^T A over each pair's inliers, one
+    batched GEMM) round differently on the card with the number of pairs
+    in the batch, and so can its accept decision; the chunked runners
+    join their chunks' searches and finish every pair of a call in one
+    batch, so that a call's output does not depend on its chunks."""
+    rcfg = cfg.ransac
+    with span("ransac.refit"):
+        res = lo_refit(s.winner, s.x1n, s.x2n, s.mask, s.thr_sq, s.score_sq,
+                       s.num_hypotheses, 5 if rcfg.use_five_point else 8)
     with span("pair.pose"):
-        rec = recover_pose_from_essential(res.E, x1n, x2n, res.inliers,
+        rec = recover_pose_from_essential(res.E, s.x1n, s.x2n, res.inliers,
                                           rcfg.distance_thresh)
 
+        n_good = s.n_good
         attempted = n_good >= rcfg.min_matches_for_pose
         pose_ok = (attempted
                    & (n_good >= rcfg.min_matches_attempt)
@@ -122,16 +171,17 @@ def estimate_pair(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig,
             have_rt = have_rt & frac_ok
 
     with span("pair.residual"):
-        F = fundamental_from_essential(res.E, K)
-        resid = algebraic_residual(F, p1, p2)
+        F = fundamental_from_essential(res.E, _intrinsics(cfg.intrinsics, s.p1.device,
+                                                          s.p1.dtype))
+        resid = algebraic_residual(F, s.p1, s.p2)
         inl = res.inliers
         n_inl = torch.clamp(inl.sum(-1), min=1)
         mean_resid = torch.where(inl, resid, torch.zeros_like(resid)).sum(-1) / n_inl
 
         return dict(
-            n_keypoints=cur.valid.sum(-1).to(torch.int32),
+            n_keypoints=s.n_keypoints,
             n_good=n_good,
-            stats=stats,
+            stats=s.stats,
             R=rec.R,
             t=rec.t,
             have_rt=have_rt,
@@ -140,9 +190,19 @@ def estimate_pair(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig,
             n_valid_points=rec.num_valid,
             F=F,
             mean_residual=mean_resid,
-            match_train_idx=good.train_idx,
+            match_train_idx=s.train_idx,
             match_mask=res.inliers,
         )
+
+
+def estimate_pair(prev: ORBFeatures, cur: ORBFeatures, cfg: VOConfig,
+                  generators: Optional[Sequence[torch.Generator]] = None,
+                  idx: Optional[torch.Tensor] = None) -> dict:
+    """Match P feature-set pairs (leading dim P) and estimate each relative
+    motion (c2 <- c1): search_pair, then finish_pair. RANSAC samples come
+    from one generator per pair or from explicit `idx` (P, max_iters, 5,
+    or 8 for 8-point samples)."""
+    return finish_pair(search_pair(prev, cur, cfg, generators, idx), cfg)
 
 
 class VOState(NamedTuple):
