@@ -3,7 +3,8 @@ tpu_vo/estimation/eight_point.py): the LO refit after RANSAC.
 
 The nullspace comes from the 9x9 normal matrix A^T A by a symmetric
 eigendecomposition; eigenvector signs differ between LAPACK and
-cuSOLVER, so E is defined up to sign.
+cuSOLVER, so E is defined up to sign. Both decompositions go through
+estimation/solve, torch.linalg's results without a wait for the card.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import functools
 import math
 
 import torch
+
+from tpu_vo_torch.estimation import solve
 
 
 def _constraint_rows(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -49,7 +52,7 @@ def fit_fundamental_linear(x1: torch.Tensor, x2: torch.Tensor,
     x1n, T1 = normalize_for_conditioning(x1, mask)
     x2n, T2 = normalize_for_conditioning(x2, mask)
     A = _constraint_rows(x1n, x2n) * mask[..., None].to(x1.dtype)
-    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    _, vecs = solve.eigh(A.transpose(-1, -2) @ A)
     G = vecs[..., :, 0].reshape(*vecs.shape[:-2], 3, 3)
     return T2.transpose(-1, -2) @ G @ T1
 
@@ -63,7 +66,7 @@ def _essential_singular_values(dtype: torch.dtype, device: torch.device) -> torc
 
 def project_to_essential(G: torch.Tensor) -> torch.Tensor:
     """Nearest essential matrix: singular values -> (1, 1, 0)."""
-    U, _, Vt = torch.linalg.svd(G)
+    U, _, Vt = solve.svd(G)
     return (U * _essential_singular_values(G.dtype, G.device)) @ Vt
 
 

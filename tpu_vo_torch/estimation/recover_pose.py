@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpu_vo_torch.estimation import solve
 from tpu_vo_torch.geometry.triangulation import cheirality_mask
 
 
@@ -33,9 +34,10 @@ def _w(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
 
 
 def decompose_essential(E: torch.Tensor):
-    """E -> (R1, R2, t): proper rotations and a unit t via SVD; the four
-    candidate motions are (R1, +-t), (R2, +-t)."""
-    U, _, Vt = torch.linalg.svd(E)
+    """E -> (R1, R2, t): proper rotations and a unit t via SVD
+    (solve.svd, torch.linalg.svd's result); the four candidate motions
+    are (R1, +-t), (R2, +-t)."""
+    U, _, Vt = solve.svd(E)
     sU = torch.sign(torch.linalg.det(U))
     sV = torch.sign(torch.linalg.det(Vt))
     U = torch.cat([U[..., :, :2], U[..., :, 2:] * sU[..., None, None]], dim=-1)
